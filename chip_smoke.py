@@ -9,22 +9,35 @@ Phases, in order; each prints its lines, and any failure ends the run with a
 non-zero exit code and no result line:
 
 1. device   torch / CUDA / nvcc versions, the card's name and power limit
-2. build    both kernels from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
+2. build    every kernel from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
             ptxas' registers and spills and the dynamic shared memory of
             each kernel
 3. K1       the GEMM front-end kernel against its plain version, B=128
             waveforms of 51,520 samples, bf16 and f32
-4. K2       the fused conv-block kernel against its plain version at the
+4. K4       the post-FFT kernel against its plain version on the rFFT power
+            of the same waveforms (41,088 rows), and the rFFT front-end
+            with it against the plain one
+5. K2       the fused conv-block kernel against its plain version at the
             three serving block shapes, bf16
-5. slice    waveforms -> front-end -> three fused blocks -> scores at full
+6. slice    waveforms -> front-end -> three fused blocks -> scores at full
             CNN2D width (weights from a seed), against the all-plain chain
             and the f32 model; the launch counters must show 1 front-end and
             3 conv-block launches per batch
-6. CLI      ``python -m dfac_tpu_torch.cli.predict --fast --bf16`` on a
+7. CLI      ``python -m dfac_tpu_torch.cli.predict --fast --bf16`` on a
             synthetic 512-utterance features.pkl, then the evaluate CLI
-7. timing   slice utt/s over 8,192 on-device utterances at B=128 (median of
-            7, host clock ending in a synchronize) and each kernel against its
-            plain version with CUDA events, in turns
+8. extract  the extraction driver on 512 utterances at B=64, once per method
+            (gemm, fft-pallas, fft): one K1 launch per batch for gemm, one K4
+            launch per batch for fft-pallas, none for fft; the methods
+            against each other
+9. extract-cli  ``python -m dfac_tpu_torch.cli.extract_features`` on a
+            512-utterance .npz of varied lengths, as features.pkl and as a
+            .npy store (identical features), then predict on the store
+            against the slice's scores of the same padded waveforms
+10. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
+            7, host clock ending in a synchronize), extraction utt/s per
+            method at B=64 with and without the driver's host round trip,
+            each kernel against its plain version with CUDA events, in turns,
+            and rFFT + K4 against K1
 
 The last two lines are a JSON object with one entry per kernel (for
 ``conv_block``, ``ms`` and ``plain_ms`` are the sums over the three block
@@ -51,6 +64,9 @@ BATCH = 128
 N_FRAMES = 321
 CORPUS = 8192
 CLI_UTTS = 512
+EXTRACT_BATCH = 64  # the extraction CLI's default
+EXTRACT_UTTS = 512
+EXTRACT_CORPUS = 2048  # utterances per timed extraction run
 
 # tolerances, with their reasons
 K1_ATOL, K1_RTOL = 1e-3, 1e-3  # same operands; only the f32 summation order of
@@ -59,6 +75,13 @@ K1_ATOL, K1_RTOL = 1e-3, 1e-3  # same operands; only the f32 summation order of
 K2_RTOL, K2_ATOL = 2.0**-7, 1e-4  # one bf16 last bit: kernel and plain round
 # f32 sums taken in different orders, which can straddle a rounding boundary
 SCORE_ATOL = 2e-2  # sigmoid scores of two bf16 chains, as tests/test_conv_block.py:45
+K4_ATOL, K4_RTOL = 1e-4, 1e-4  # same f32 operands and math; only the summation
+# order differs (dense cuBLAS products against the kernel's banded, in-order
+# sums): the JAX package's bound for its kernel against XLA, tests/test_lfcc.py:112.
+# The deltas are sums of five terms with |weights| summing to 0.6, so they stay
+# inside the same bound
+METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package's
+# bound, tests/test_torch_port_frontend.py:105-109
 
 
 def card_line() -> str:
@@ -113,12 +136,16 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from dfac_tpu_torch.features.lfcc import LFCCConfig
+    from dfac_tpu_torch.features.lfcc import METHODS, LFCCConfig, batch_features, lfcc_features, \
+        lfcc_features_batch, power_spectrum
+    from dfac_tpu_torch.io.npy_store import load_npy_dataset
+    from dfac_tpu_torch.io.pickle_io import load_features
     from dfac_tpu_torch.models import build_model
     from dfac_tpu_torch.models.fast_infer import fold_cnn2d
     from dfac_tpu_torch.ops import _build
     from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores, cnn2d_head, fused_conv_block, reference_conv_block
     from dfac_tpu_torch.ops.gemm_frontend import append_deltas, cepstra_plain, gemm_lfcc_cepstra, gemm_lfcc_features_tf
+    from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
 
     # -- 1. device --------------------------------------------------------
     dev = torch.device("cuda")
@@ -142,13 +169,16 @@ def main() -> int:
         "conv_block_cin1 1->32": lib.dfac_conv_block_smem(1, 32, 1),
         "conv_block_mma 32->64": lib.dfac_conv_block_smem(32, 64, 1),
         "conv_block_mma 64->128": lib.dfac_conv_block_smem(64, 128, 1),
+        "fb_log_dct_kernel": lib.dfac_fb_log_dct_smem(),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
     name = None
     for line in _build.ptxas_report().splitlines():
-        m = re.search(r"entry function '\S*?(frontend_kernel|conv_block_mma|conv_block_direct)I(\w*?)EEv", line)
-        if m:
-            name = f"{m.group(1)}<{m.group(2)}>"  # template arguments, mangled
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:  # a kernel of ours, with its template arguments (mangled), or None
+            k = re.search(r"(frontend_kernel|conv_block_mma|conv_block_direct|conv_block_cin1|fb_log_dct_kernel)"
+                          r"(?:I(\w*?)EEv)?", m.group(1))
+            name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             phase("build", f"ptxas {name}: {m.group(1)} registers")
@@ -177,7 +207,29 @@ def main() -> int:
             raise AssertionError(f"K1 {dt} disagrees with its plain version")
         k1_err[dt] = abs_err
 
-    # -- 4. K2 vs plain ---------------------------------------------------
+    # -- 4. K4 vs plain ---------------------------------------------------
+    power = power_spectrum(wave, cfg)
+    got = fused_fb_log_dct(power, cfg)
+    want = fb_log_dct_plain(power, cfg)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape == (BATCH, N_FRAMES, cfg.n_ceps), got.shape)
+    require(torch.isfinite(got).all(), "K4 output is not finite")
+    k4_err, rel_err = max_errors(got, want)
+    phase("K4", f"f32 power {tuple(power.shape)} ({BATCH * N_FRAMES} rows) -> {tuple(got.shape)}: max abs "
+                f"{k4_err:.3e}, max rel {rel_err:.3e} (tolerance atol {K4_ATOL} + rtol {K4_RTOL})")
+    if not bool(((got - want).abs() <= K4_ATOL + K4_RTOL * want.abs()).all()):
+        raise AssertionError("K4 disagrees with its plain version")
+    got = lfcc_features(wave, cfg, use_kernel=True)
+    want = lfcc_features(wave, cfg)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape == (BATCH, cfg.feature_dim, N_FRAMES), got.shape)
+    abs_err, rel_err = max_errors(got, want)
+    phase("K4", f"lfcc_features(use_kernel=True) {tuple(got.shape)} vs plain: max abs {abs_err:.3e}, "
+                f"max rel {rel_err:.3e} (tolerance atol {K4_ATOL} + rtol {K4_RTOL})")
+    if not bool(((got - want).abs() <= K4_ATOL + K4_RTOL * want.abs()).all()):
+        raise AssertionError("the rFFT front-end through K4 disagrees with the plain one")
+
+    # -- 5. K2 vs plain ---------------------------------------------------
     shapes = [((BATCH, 321, 180, 1), 32, True), ((BATCH, 160, 180, 32), 64, True), ((BATCH, 80, 180, 64), 128, False)]
     k2_inputs, k2_err = [], 0.0
     for xs, c_out, pool in shapes:
@@ -198,7 +250,7 @@ def main() -> int:
         k2_err = max(k2_err, abs_err)
         k2_inputs.append((x, w, b, pool))
 
-    # -- 5. end-to-end slice ----------------------------------------------
+    # -- 6. end-to-end slice ----------------------------------------------
     torch.manual_seed(SEED)
     model = build_model("cnn2d", in_features=cfg.feature_dim, base_channels=32).to(dev).eval()
     with torch.no_grad():  # non-trivial BN statistics, so the folding is exercised
@@ -218,7 +270,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     phase("slice", f"launches over {n_batches} batches: {launches}")
-    if launches != {"gemm_frontend": n_batches, "conv_block": 3 * n_batches}:
+    if launches != {"gemm_frontend": n_batches, "conv_block": 3 * n_batches, "fb_log_dct": 0}:
         raise AssertionError(f"the slice did not run through the kernels as expected: {launches}")
 
     with torch.inference_mode():
@@ -238,7 +290,7 @@ def main() -> int:
             if d_plain > SCORE_ATOL or d_model > SCORE_ATOL:
                 raise AssertionError("slice scores disagree with the plain chain")
 
-    # -- 6. CLI -----------------------------------------------------------
+    # -- 7. CLI -----------------------------------------------------------
     import pandas as pd
 
     rng = np.random.default_rng(SEED)
@@ -272,7 +324,87 @@ def main() -> int:
         if not np.isfinite(eer):
             raise AssertionError(f"EER is not finite: {eer}")
 
-    # -- 7. timing --------------------------------------------------------
+    # -- 8. extraction, in process ----------------------------------------
+    ext_waves = (0.1 * np.random.default_rng(SEED + 1).normal(size=(EXTRACT_UTTS, n_samples))).astype(np.float32)
+    n_ext = -(-EXTRACT_UTTS // EXTRACT_BATCH)
+    expect = {"gemm": "gemm_frontend", "fft-pallas": "fb_log_dct", "fft": None}
+    ext, ext_launches = {}, {}
+    for method in METHODS:
+        _build.reset_launch_counts()
+        ext[method] = lfcc_features_batch(ext_waves, cfg, EXTRACT_BATCH, method, dev)
+        ext_launches[method] = _build.launch_counts()
+        phase("extract", f"{method}: {ext[method].shape} {ext[method].dtype}, launches over {n_ext} batches: "
+                         f"{ext_launches[method]}")
+        require(ext[method].shape == (EXTRACT_UTTS, cfg.feature_dim, N_FRAMES), ext[method].shape)
+        require(ext[method].dtype == np.float32 and np.isfinite(ext[method]).all(), f"{method} features")
+        want = {k: (n_ext if k == expect[method] else 0) for k in ext_launches[method]}
+        if ext_launches[method] != want:
+            raise AssertionError(f"{method} did not run through the kernels as expected: {ext_launches[method]}")
+    for a, b, atol, rtol in (("fft", "gemm", METHOD_ATOL, METHOD_RTOL), ("fft-pallas", "fft", K4_ATOL, K4_RTOL)):
+        d = np.abs(ext[a] - ext[b])
+        ok = bool((d <= atol + rtol * np.abs(ext[b])).all())
+        phase("extract", f"{a} vs {b}: max abs {d.max():.3e} (tolerance atol {atol} + rtol {rtol})")
+        if not ok:
+            raise AssertionError(f"extraction methods {a} and {b} disagree")
+
+    # -- 9. extraction CLI, then predict on its store ----------------------
+    rng = np.random.default_rng(SEED + 2)
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_") as tmp:
+        lengths = rng.integers(n_samples // 2, n_samples * 3 // 2, size=CLI_UTTS)  # crop and pad
+        archive = {f"utt{i:05d}": (0.1 * rng.normal(size=n)).astype(np.float32) for i, n in enumerate(lengths)}
+        npz = os.path.join(tmp, "audio.npz")
+        np.savez(npz, **archive)
+        uttids = sorted(archive)
+        padded = np.zeros((CLI_UTTS, n_samples), np.float32)
+        for i, u in enumerate(uttids):
+            n = min(len(archive[u]), n_samples)
+            padded[i, :n] = archive[u][:n]
+        fpath, store = os.path.join(tmp, "features.pkl"), os.path.join(tmp, "store")
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for fmt, out_path in (("pkl", fpath), ("npy", store)):
+            out = subprocess.run(
+                [sys.executable, "-m", "dfac_tpu_torch.cli.extract_features", "--audio", npz, "--out", out_path,
+                 "--format", fmt, "--device", "cuda"],
+                check=True, capture_output=True, text=True, cwd=ROOT, env=env,
+            ).stdout
+            for line in out.strip().splitlines():
+                phase("extract-cli", f"--format {fmt}: {line}")
+        pkl_uttids, pkl_feats = load_features(fpath)
+        ds = load_npy_dataset(store)
+        require(pkl_uttids == ds.uttids == uttids, "uttids are not the sorted archive keys")
+        require(pkl_feats.shape == ds.features.shape == (CLI_UTTS, cfg.feature_dim, N_FRAMES), pkl_feats.shape)
+        if not np.array_equal(pkl_feats, np.asarray(ds.features)):
+            raise AssertionError("features.pkl and the .npy store hold different features")
+        in_process = lfcc_features_batch(padded, cfg, EXTRACT_BATCH, "gemm", dev)
+        if not np.array_equal(pkl_feats, in_process):
+            raise AssertionError("the CLI's features differ from the driver's on the same padded waveforms")
+        phase("extract-cli", f"features.pkl and store: identical {pkl_feats.shape} f32, sorted uttids, "
+                             f"equal to the in-process driver on the padded waveforms")
+
+        ckpt, pred = os.path.join(tmp, "cnn2d_best.pt"), os.path.join(tmp, "prediction.pkl")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+        out = subprocess.run(
+            [sys.executable, "-m", "dfac_tpu_torch.cli.predict", "--features", store, "--checkpoint", ckpt,
+             "--model", "cnn2d", "--out", pred, "--fast", "--bf16", "--device", "cuda"],
+            check=True, capture_output=True, text=True, cwd=ROOT, env=env,
+        ).stdout
+        for line in out.strip().splitlines():
+            phase("extract-cli", f"predict on the store: {line}")
+        df = pd.read_pickle(pred)
+        require(df["uttid"].tolist() == uttids, "prediction uttids")
+        with torch.inference_mode():
+            wv = torch.from_numpy(padded).to(dev)
+            slice_scores = torch.cat([
+                cnn2d_fused_scores(folded, gemm_lfcc_features_tf(wv[s : s + BATCH], cfg, torch.bfloat16))
+                for s in range(0, CLI_UTTS, BATCH)
+            ]).float().cpu().numpy()
+        d = np.abs(df["predictions"].to_numpy() - slice_scores).max()
+        phase("extract-cli", f"predict on the store vs the slice on the same waveforms: max abs {d:.3e} "
+                             f"(tolerance {SCORE_ATOL})")
+        if not d <= SCORE_ATOL:
+            raise AssertionError("predict on the extracted store disagrees with the slice")
+
+    # -- 10. timing --------------------------------------------------------
     corpus = torch.randn(CORPUS // BATCH, BATCH, n_samples, device=dev, generator=gen)
 
     def score_corpus():
@@ -291,9 +423,46 @@ def main() -> int:
     phase("timing", f"slice {utt_s:.1f} utt/s (median of 7; min {min(rates):.1f}, max {max(rates):.1f}), "
                     f"{CORPUS} utterances of {n_samples} samples at B={BATCH}, bf16, on {card}")
 
+    ext_dev = 0.1 * torch.randn(EXTRACT_CORPUS // EXTRACT_BATCH, EXTRACT_BATCH, n_samples, device=dev, generator=gen)
+    ext_host = ext_dev.reshape(-1, n_samples).cpu().numpy()
+
+    def extract_on_device(method):
+        with torch.inference_mode():
+            out = [batch_features(wv, cfg, method) for wv in ext_dev]
+        torch.cuda.synchronize()
+        return out
+
+    for method in METHODS:
+        for label, run in (("on device", lambda: extract_on_device(method)),
+                           ("host round trip", lambda: lfcc_features_batch(ext_host, cfg, EXTRACT_BATCH, method, dev))):
+            run()  # warm-up
+            rates = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                run()
+                rates.append(EXTRACT_CORPUS / (time.perf_counter() - t0))
+            phase("timing", f"extract {method}, {label}: {statistics.median(rates):.1f} utt/s (median of 7; "
+                            f"min {min(rates):.1f}, max {max(rates):.1f}), {EXTRACT_CORPUS} utterances at "
+                            f"B={EXTRACT_BATCH}, on {card}")
+
     k1_ms, k1_plain = in_turns(lambda: cepstra_plain(wave, cfg, torch.bfloat16),
                                lambda: gemm_lfcc_cepstra(wave, cfg, torch.bfloat16))
     phase("timing", f"K1 gemm_frontend bf16 B={BATCH}: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, on {card}")
+    ms, plain_ms = in_turns(lambda: cepstra_plain(wave, cfg, torch.float32),
+                            lambda: gemm_lfcc_cepstra(wave, cfg, torch.float32))
+    phase("timing", f"K1 gemm_frontend f32 B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
+    k4_ms, k4_plain = in_turns(lambda: fb_log_dct_plain(power, cfg), lambda: fused_fb_log_dct(power, cfg))
+    phase("timing", f"K4 fb_log_dct B={BATCH} ({BATCH * N_FRAMES} rows): kernel {k4_ms:.4f} ms, "
+                    f"plain {k4_plain:.4f} ms, on {card}")
+    half = power[:EXTRACT_BATCH]
+    ms, plain_ms = in_turns(lambda: fb_log_dct_plain(half, cfg), lambda: fused_fb_log_dct(half, cfg))
+    phase("timing", f"K4 fb_log_dct B={EXTRACT_BATCH} ({EXTRACT_BATCH * N_FRAMES} rows): kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, on {card}")
+    for dt in (torch.bfloat16, torch.float32):
+        fft_k4, k1_dt = in_turns(lambda: gemm_lfcc_cepstra(wave, cfg, dt),
+                                 lambda: fused_fb_log_dct(power_spectrum(wave, cfg), cfg))
+        phase("timing", f"waveform -> cepstra B={BATCH}: rFFT + K4 {fft_k4:.4f} ms, K1 {str(dt)[6:]} "
+                        f"{k1_dt:.4f} ms, on {card}")
     k2_ms = k2_plain = 0.0
     for x, w, b, pool in k2_inputs:
         ms, plain_ms = in_turns(lambda: reference_conv_block(x, w, b, pool), lambda: fused_conv_block(x, w, b, pool))
@@ -308,6 +477,9 @@ def main() -> int:
         {"name": "conv_block", "route": "cuda", "source": "dfac_tpu_torch/csrc/conv_block.cu",
          "replaces": "dfac_tpu/ops/pallas/conv_block.py:142", "launches": launches["conv_block"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "fb_log_dct", "route": "cuda", "source": "dfac_tpu_torch/csrc/lfcc_kernel.cu",
+         "replaces": "dfac_tpu/ops/pallas/lfcc_kernel.py:41", "launches": ext_launches["fft-pallas"]["fb_log_dct"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,7 @@ import time
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Generate prediction.pkl from a model checkpoint.")
-    p.add_argument("--features", required=True, help="Path to features.pkl")
+    p.add_argument("--features", required=True, help="Path to features.pkl or a .npy store directory")
     p.add_argument("--checkpoint", required=True, help="Path to model checkpoint (.ckpt or torch .pt)")
     p.add_argument("--model", required=True, choices=["cnn2d", "cnn1d"])
     p.add_argument("--out", required=True, help="Output path for prediction.pkl")

@@ -1,10 +1,11 @@
 """Dense dataset container + static-shape batch iterator.
 
 Counterpart of :mod:`dfac_tpu.data.pipeline` (the serving half: no
-shuffle, pickled corpora only). A corpus is one dense ``[N, F, T]`` numpy
-array; batching is index arithmetic. Evaluation keeps every batch at one
-shape: the tail is zero-padded and its pad rows carry weight 0, so the
-scorer drops them.
+shuffle). A corpus is one dense ``[N, F, T]`` numpy array, read from a
+``features.pkl`` or memory-mapped from a ``.npy`` store directory
+(:mod:`dfac_tpu_torch.io.npy_store`); batching is index arithmetic.
+Evaluation keeps every batch at one shape: the tail is zero-padded and its
+pad rows carry weight 0, so the scorer drops them.
 """
 
 from __future__ import annotations
@@ -33,7 +34,14 @@ class ArrayDataset:
 def load_dataset(
     features_path: str, labels_path: str | None = None, strict: bool = True
 ) -> ArrayDataset:
-    """Load a ``features.pkl`` (+ optionally labels inner-merged on uttid)."""
+    """Load features (+ optionally labels inner-merged on uttid, strict).
+
+    ``features_path`` may be a ``features.pkl`` or a ``.npy`` store
+    directory, whose features stay memory-mapped."""
+    from dfac_tpu_torch.io.npy_store import is_npy_store, load_npy_dataset
+
+    if is_npy_store(features_path):
+        return load_npy_dataset(features_path, labels_path, strict=strict)
     uttids, feats, lengths = load_features(features_path, return_lengths=True)
     labels = None
     if labels_path is not None:

@@ -8,14 +8,19 @@ delta-delta by +-2-frame regression with edge replication — 180 features
 per frame, 321 frames for 51,520 samples.
 
 The host constants are numpy and identical to the JAX package's. The
-composition here (:func:`lfcc_features`) is plain PyTorch on whatever device
-the waveform lies on; the serving path uses the fused GEMM front-end
-(:mod:`dfac_tpu_torch.ops.gemm_frontend`) instead.
+composition here (:func:`lfcc_features`) runs the rFFT and the power
+spectrum in plain PyTorch on whatever device the waveform lies on, then
+either the plain filterbank/log/DCT or the post-FFT kernel
+(:mod:`dfac_tpu_torch.ops.lfcc_kernel`). The serving path uses the fused
+GEMM front-end (:mod:`dfac_tpu_torch.ops.gemm_frontend`) instead.
+:func:`lfcc_features_batch` is the corpus driver behind
+``python -m dfac_tpu_torch.cli.extract_features``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -67,6 +72,16 @@ def linear_filterbank(cfg: LFCCConfig) -> np.ndarray:
     return fb
 
 
+def filter_bands(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(fb_lo, fb_hi) int32: each filter's first and last nonzero bin. The
+    CUDA kernels sum only that band, which equals the dense product (the
+    skipped terms are exact zeros)."""
+    nz = fb != 0
+    fb_lo = np.argmax(nz, axis=0).astype(np.int32)
+    fb_hi = (fb.shape[0] - 1 - np.argmax(nz[::-1], axis=0)).astype(np.int32)
+    return fb_lo, fb_hi
+
+
 def dct_matrix(n_in: int, n_out: int) -> np.ndarray:
     """(n_in, n_out) orthonormal DCT-II basis (scipy.fft.dct norm='ortho')."""
     k = np.arange(n_out)[None, :]
@@ -105,23 +120,107 @@ def compute_deltas(ceps: torch.Tensor, window: int = 2) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=16)
+def device_constants(cfg: LFCCConfig, device: torch.device, dtype: torch.dtype):
+    """(window, filterbank, DCT) as tensors on ``device``, made once per
+    (config, device, dtype): rebuilding them per batch would put host work
+    and a blocking upload between the batches. Callers only read them."""
+    return tuple(
+        torch.as_tensor(a, dtype=dtype, device=device)
+        for a in (hamming_window(cfg.win_length), linear_filterbank(cfg), dct_matrix(cfg.n_filters, cfg.n_ceps))
+    )
+
+
+def check_kernel_cfg(cfg: LFCCConfig, fields: tuple[str, ...], kernel: str) -> None:
+    """Raise unless ``cfg`` has the default value of every field in
+    ``fields``: the CUDA kernels' tiles are compiled for the corpus geometry."""
+    bad = [f for f in fields if getattr(cfg, f) != getattr(LFCCConfig(), f)]
+    if bad:
+        raise ValueError(f"the CUDA {kernel} is compiled for the default LFCCConfig; got other {bad}")
+
+
+@functools.lru_cache(maxsize=16)
+def banded_constants(cfg: LFCCConfig, device: torch.device):
+    """(fb, fb_lo, fb_hi, dct) on ``device`` for the CUDA kernels' banded
+    filterbank -> log -> DCT: the f32 matrices of :func:`device_constants`
+    and each filter's band (:func:`filter_bands`, int32)."""
+    _, fb, dct = device_constants(cfg, device, torch.float32)
+    bands = filter_bands(linear_filterbank(cfg).astype(np.float32))
+    return (fb, *(torch.as_tensor(a, device=device) for a in bands), dct)
+
+
 def log_filterbank_energies(power: torch.Tensor, cfg: LFCCConfig) -> torch.Tensor:
-    fb = torch.as_tensor(linear_filterbank(cfg), dtype=power.dtype, device=power.device)
+    _, fb, _ = device_constants(cfg, power.device, power.dtype)
     return torch.log(torch.clamp(power @ fb, min=cfg.log_floor))
 
 
-def lfcc_features(waveform: torch.Tensor, cfg: LFCCConfig = LFCCConfig()) -> torch.Tensor:
-    """(..., N) float waveform -> (..., 180, T) stored-orientation features
-    through the rFFT composition (blocks [lfcc; delta; delta-delta])."""
-    window = torch.as_tensor(
-        hamming_window(cfg.win_length), dtype=waveform.dtype, device=waveform.device
-    )
+def power_spectrum(waveform: torch.Tensor, cfg: LFCCConfig) -> torch.Tensor:
+    """(..., N) waveform -> (..., T, n_fft//2+1) power of the windowed rFFT."""
+    window, _, _ = device_constants(cfg, waveform.device, waveform.dtype)
     spec = torch.fft.rfft(frames(waveform, cfg) * window, n=cfg.n_fft, dim=-1)
-    power = spec.real.square() + spec.imag.square()  # (..., T, bins)
-    dct = torch.as_tensor(
-        dct_matrix(cfg.n_filters, cfg.n_ceps), dtype=waveform.dtype, device=waveform.device
-    )
-    ceps = log_filterbank_energies(power, cfg) @ dct  # (..., T, n_ceps)
+    return spec.real.square() + spec.imag.square()
+
+
+def lfcc_features(
+    waveform: torch.Tensor, cfg: LFCCConfig = LFCCConfig(), use_kernel: bool = False
+) -> torch.Tensor:
+    """(..., N) float waveform -> (..., 180, T) stored-orientation features
+    through the rFFT composition (blocks [lfcc; delta; delta-delta]).
+
+    ``use_kernel`` is the JAX package's ``use_pallas``: the filterbank, log
+    and DCT go through :func:`~dfac_tpu_torch.ops.lfcc_kernel.fused_fb_log_dct`
+    (the CUDA kernel on a CUDA tensor). The rFFT and the power stay plain
+    PyTorch either way, as the JAX package leaves them to XLA."""
+    power = power_spectrum(waveform, cfg)  # (..., T, bins)
+    if use_kernel:
+        from dfac_tpu_torch.ops.lfcc_kernel import fused_fb_log_dct
+
+        ceps = fused_fb_log_dct(power, cfg)  # (..., T, n_ceps)
+    else:
+        _, _, dct = device_constants(cfg, waveform.device, waveform.dtype)
+        ceps = log_filterbank_energies(power, cfg) @ dct
     d1 = compute_deltas(ceps, cfg.delta_window)
     d2 = compute_deltas(d1, cfg.delta_window)
     return torch.cat([ceps, d1, d2], dim=-1).transpose(-1, -2)
+
+
+METHODS = ("gemm", "fft-pallas", "fft")
+
+
+def batch_features(waveform: torch.Tensor, cfg: LFCCConfig, method: str = "gemm") -> torch.Tensor:
+    """One device batch (B, N) -> (B, 180, T) by ``method``: 'gemm' (the
+    fused GEMM front-end, K1, f32 DFT), 'fft-pallas' (rFFT + the post-FFT
+    kernel, K4; named as the JAX CLI names it) or 'fft' (plain PyTorch)."""
+    if method == "gemm":
+        from dfac_tpu_torch.ops.gemm_frontend import gemm_lfcc_features
+
+        return gemm_lfcc_features(waveform, cfg)
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    return lfcc_features(waveform, cfg, use_kernel=(method == "fft-pallas"))
+
+
+def lfcc_features_batch(
+    waveforms: np.ndarray,
+    cfg: LFCCConfig = LFCCConfig(),
+    batch_size: int = 64,
+    method: str = "gemm",
+    device: torch.device | str | None = None,
+) -> np.ndarray:
+    """Host driver: (N, samples) numpy -> (N, 180, T) f32 numpy, in batches
+    of ``batch_size`` on ``device`` (``None`` means CUDA, see
+    :func:`~dfac_tpu_torch.device.resolve_device`).
+
+    Unlike the JAX driver, nothing falls back: a kernel that fails to build
+    or launch raises, and the corpus is never re-run on 'fft'."""
+    from dfac_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if len(waveforms) == 0:
+        return np.zeros((0, cfg.feature_dim, 0), np.float32)
+    out = np.empty((len(waveforms), cfg.feature_dim, cfg.num_frames(waveforms.shape[-1])), np.float32)
+    for s in range(0, len(waveforms), batch_size):
+        chunk = torch.from_numpy(np.ascontiguousarray(waveforms[s : s + batch_size], np.float32))
+        # each batch lands in its rows of ``out``: no per-batch arrays to join
+        torch.from_numpy(out[s : s + batch_size]).copy_(batch_features(chunk.to(dev), cfg, method))
+    return out

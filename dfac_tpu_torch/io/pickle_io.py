@@ -8,6 +8,8 @@ reference project's (``README.md:28-103``):
 * ``labels.pkl`` — ``uttid`` and ``label`` in {0, 1} (1 = bonafide);
 * ``prediction.pkl`` — ``uttid`` and ``predictions`` (float).
 
+The features extractor writes ``features.pkl`` through :func:`write_features`.
+
 The reference stores ``torch.Tensor`` cells; with torch installed,
 ``pd.read_pickle`` reads them natively. Loaders return dense numpy arrays
 (uttids + one ``[N, F, T]`` float32 array); moving them to a device is the
@@ -109,3 +111,16 @@ def write_predictions(path: str, uttids: list[str], scores) -> pd.DataFrame:
     df = pd.DataFrame({"uttid": uttids, "predictions": scores})
     df.to_pickle(path)
     return df
+
+
+def write_features(path: str, uttids: list[str], features: np.ndarray, tensor_format: str = "auto") -> None:
+    """Write a ``features.pkl`` (the feature-extraction CLI's output).
+
+    ``tensor_format='torch'`` stores ``torch.Tensor`` cells (bit-compatible
+    with the reference corpus); ``'numpy'`` stores numpy arrays; ``'auto'``
+    is torch, which this package always has."""
+    if tensor_format in ("auto", "torch"):
+        cells = [torch.from_numpy(np.ascontiguousarray(m)) for m in features]
+    else:
+        cells = [np.ascontiguousarray(m) for m in features]
+    pd.DataFrame({"uttid": uttids, "features": cells}).to_pickle(path)

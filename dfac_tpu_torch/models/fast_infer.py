@@ -19,11 +19,20 @@ classifier) so the tests compare like with like.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 from dfac_tpu_torch.models.common import BN_EPS
 from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores
+
+# A batch of a memory-mapped store is a read-only view, and ``ingest`` only
+# reads the tensor over it; silence torch's warning for this module alone,
+# once, rather than swap the process-wide filters on every batch.
+warnings.filterwarnings(
+    "ignore", message="The given NumPy array is not writable", category=UserWarning, module=__name__
+)
 
 
 def fold_cnn2d(state_dict: dict) -> dict:
@@ -75,7 +84,8 @@ def ingest(feats_np: np.ndarray, compute_dtype: torch.dtype, device: torch.devic
     The chain's first op casts to ``compute_dtype``, so the cast happens on
     the host (bit-identical, half the bytes in bf16); for a CUDA device the
     batch is staged in pinned memory and copied with ``non_blocking``, so
-    the upload of batch k+1 overlaps the scoring of batch k."""
+    the upload of batch k+1 overlaps the scoring of batch k. A batch of a
+    memory-mapped store is read-only; the tensor over it is only read."""
     t = torch.from_numpy(np.ascontiguousarray(feats_np)).to(compute_dtype)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)

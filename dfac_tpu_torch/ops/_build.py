@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes). The library lands in ``build/dfac_tpu_torch/``
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all at once, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes). The library lands in ``build/dfac_tpu_torch/``
 at the root of the checkout, named by a hash of the sources and flags, and
 is reused while that hash is unchanged. ``ptxas -v`` output (registers,
 shared memory, spills per kernel) is kept beside it.
@@ -32,11 +33,11 @@ BUILD_DIR = PKG_DIR.parent / "build" / "dfac_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"gemm_frontend": 0, "conv_block": 0}
+LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -45,9 +46,12 @@ _SIGNATURES = {
     "dfac_gemm_frontend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # x, w, b, out, batch, h, w, c_in, c_out, pool, bf16, stream
     "dfac_conv_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dynamic shared memory per block, bytes: (bf16) and (c_in, c_out, bf16)
+    # power, fb, fb_lo, fb_hi, dct, out, rows, log_floor, stream
+    "dfac_fb_log_dct": [_P, _P, _P, _P, _P, _P, _I, _F, _P],
+    # dynamic shared memory per block, bytes: (bf16), (c_in, c_out, bf16), ()
     "dfac_gemm_frontend_smem": [_I],
     "dfac_conv_block_smem": [_I, _I, _I],
+    "dfac_fb_log_dct_smem": [],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -91,18 +95,27 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in _sources() if s.suffix == ".cu"]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(SRC_DIR / f"{o.stem}.cu")],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for o in objs
+        ]
+        logs = [p.communicate()[0] for p in procs]  # waits for every compile
+        failed = [(o.stem, p.returncode, log) for o, p, log in zip(objs, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}.cu ({rc}):\n{log}" for n, rc, log in failed))
+        lib = Path(tmp) / out.name
+        proc = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}")
+        out.with_suffix(".ptxas.txt").write_text("".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

@@ -60,8 +60,7 @@ def kernel_constants(cfg: lfcc_mod.LFCCConfig):
       16g..16g+15, then their sin columns; the bins past the last (256)
       are zero columns.
     * fb_lo / fb_hi (n_filters,) int32: each triangular filter's first and
-      last nonzero bin. The kernel sums only that band, which equals the
-      dense product (the skipped terms are exact zeros).
+      last nonzero bin (:func:`~dfac_tpu_torch.features.lfcc.filter_bands`).
     """
     cos_b, sin_b, fb, _ = host_constants(cfg)
     n_bins = cos_b.shape[1]
@@ -71,10 +70,7 @@ def kernel_constants(cfg: lfcc_mod.LFCCConfig):
         lo, hi = g * BIN_GROUP, min((g + 1) * BIN_GROUP, n_bins)
         basis[:, g, 0, : hi - lo] = cos_b[:, lo:hi]
         basis[:, g, 1, : hi - lo] = sin_b[:, lo:hi]
-    nz = fb != 0
-    fb_lo = np.argmax(nz, axis=0).astype(np.int32)
-    fb_hi = (n_bins - 1 - np.argmax(nz[::-1], axis=0)).astype(np.int32)
-    return basis.reshape(cfg.win_length, -1), fb_lo, fb_hi
+    return (basis.reshape(cfg.win_length, -1), *lfcc_mod.filter_bands(fb))
 
 
 def frames_by_reshape(waveform: torch.Tensor, cfg: lfcc_mod.LFCCConfig) -> torch.Tensor:
@@ -110,32 +106,13 @@ def cepstra_plain(
     return log_e @ const(dct)
 
 
-_KERNEL_CFG = lfcc_mod.LFCCConfig()
-
-
-def _check_kernel_cfg(cfg: lfcc_mod.LFCCConfig) -> None:
-    # the kernel's tiles are compiled for the corpus geometry
-    fixed = ("win_length", "hop_length", "n_fft", "n_filters", "n_ceps")
-    bad = [f for f in fixed if getattr(cfg, f) != getattr(_KERNEL_CFG, f)]
-    if bad:
-        raise ValueError(f"the CUDA front-end is compiled for the default LFCCConfig; got other {bad}")
-
-
 @functools.lru_cache(maxsize=8)
-def _device_constants(cfg: lfcc_mod.LFCCConfig, device: torch.device, dtype: torch.dtype):
-    basis, fb_lo, fb_hi = kernel_constants(cfg)
-    _, _, fb, dct = host_constants(cfg)
-    return (
-        torch.as_tensor(basis, device=device).to(dtype).contiguous(),
-        torch.as_tensor(fb, device=device).contiguous(),
-        torch.as_tensor(fb_lo, device=device),
-        torch.as_tensor(fb_hi, device=device),
-        torch.as_tensor(dct, device=device).contiguous(),
-    )
+def _device_basis(cfg: lfcc_mod.LFCCConfig, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(kernel_constants(cfg)[0], device=device).to(dtype).contiguous()
 
 
 def _cepstra_cuda(waveform, cfg, compute_dtype):
-    _check_kernel_cfg(cfg)
+    lfcc_mod.check_kernel_cfg(cfg, ("win_length", "hop_length", "n_fft", "n_filters", "n_ceps"), "front-end")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if waveform.dtype != torch.float32:
@@ -149,7 +126,8 @@ def _cepstra_cuda(waveform, cfg, compute_dtype):
     out = torch.empty((n_utt, t, cfg.n_ceps), device=wave.device, dtype=torch.float32)
     if n_utt == 0:
         return out.reshape(*lead, t, cfg.n_ceps)
-    basis, fb, fb_lo, fb_hi, dct = _device_constants(cfg, wave.device, compute_dtype)
+    basis = _device_basis(cfg, wave.device, compute_dtype)
+    fb, fb_lo, fb_hi, dct = lfcc_mod.banded_constants(cfg, wave.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     with torch.cuda.device(wave.device):

@@ -4,12 +4,15 @@ Marked ``cuda``: every test needs an NVIDIA GPU with ``nvcc`` and skips
 elsewhere (the kernels have no CPU mode). ``chip_smoke.py`` checks the
 serving shapes; these check the edges (odd H with and without the pool, W
 not a multiple of the 64-column tile, tiny H and T, every kernel case of
-the conv block, f32, misaligned inputs). On the card, without the JAX
+the conv block, f32, misaligned inputs; for the post-FFT kernel one row,
+rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
+and non-contiguous power). On the card, without the JAX
 package's conftest (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +20,7 @@ from dfac_tpu_torch.features.lfcc import LFCCConfig
 from dfac_tpu_torch.ops import _build
 from dfac_tpu_torch.ops.conv_block import fused_conv_block, reference_conv_block
 from dfac_tpu_torch.ops.gemm_frontend import cepstra_plain, gemm_lfcc_cepstra
+from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
 
 pytestmark = pytest.mark.cuda
 CFG = LFCCConfig()
@@ -110,3 +114,75 @@ def test_serving_chain_cuda_matches_cpu(cuda):
     want = cnn2d_fast_scores(folded, feats)
     got = cnn2d_fast_scores({k: v.to(cuda) for k, v in folded.items()}, feats.to(cuda))
     torch.testing.assert_close(got.cpu(), want, atol=2e-2, rtol=0)  # two bf16 chains
+
+
+def _power(lead, seed, scale=100.0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand(*lead, 257, generator=gen) ** 4 * scale
+
+
+@pytest.mark.parametrize("lead", [(1,), (65,), (321,), (2, 3, 17), (2, 3, 64)])
+def test_fb_log_dct_kernel_matches_plain(cuda, lead):
+    """One row, rows off the 64-row tile, lead dims (the tile crosses them)."""
+    power = _power(lead, sum(lead)).to(cuda)
+    before = _build.launch_counts()["fb_log_dct"]
+    got = fused_fb_log_dct(power, CFG)
+    want = fb_log_dct_plain(power, CFG)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fb_log_dct"] == before + 1
+    assert got.shape == want.shape == (*lead, CFG.n_ceps)
+    # same f32 math; dense cuBLAS products against banded in-order sums
+    # (chip_smoke.py's K4 bound, the JAX package's tests/test_lfcc.py:112)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("scale", [0.0, 1e30])
+def test_fb_log_dct_kernel_extremes(cuda, scale):
+    """All-zero power: every filter sits on the log floor; 1e30: energies
+    near 1e30, far from overflow."""
+    from dfac_tpu_torch.features.lfcc import device_constants
+
+    power = (_power((100,), 3) * scale).to(cuda)
+    got = fused_fb_log_dct(power, CFG)
+    want = fb_log_dct_plain(power, CFG)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # f32 sums of 120 terms: the rounding error scales with sum |log E * DCT|
+    # (n eps of it), not with the output, and |log E| reaches 69 here
+    _, fb, dct = device_constants(CFG, cuda, torch.float32)
+    terms = torch.log(torch.clamp(power @ fb, min=CFG.log_floor)).abs() @ dct.abs()
+    assert bool(((got - want).abs() <= 1e-4 + 120 * 2.0**-24 * terms).all())
+
+
+def test_fb_log_dct_misaligned_and_strided(cuda):
+    power = _power((130,), 4).to(cuda)
+    flat = torch.empty(1 + power.numel(), device=cuda)
+    flat[1:] = power.reshape(-1)
+    shifted = flat[1:].view(130, 257)  # data pointer 4 bytes past a 16-byte boundary
+    torch.testing.assert_close(fused_fb_log_dct(shifted, CFG), fused_fb_log_dct(power, CFG), atol=0, rtol=0)
+    wide = torch.zeros(130, 300, device=cuda)
+    wide[:, :257] = power
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_fb_log_dct(wide[:, :257], CFG)
+    with pytest.raises(ValueError, match="257 bins"):
+        fused_fb_log_dct(wide, CFG)
+    with pytest.raises(TypeError, match="float32"):
+        fused_fb_log_dct(power.double(), CFG)
+
+
+@pytest.mark.parametrize("method,kernel", [("gemm", "gemm_frontend"), ("fft-pallas", "fb_log_dct"), ("fft", None)])
+def test_batch_driver_cuda_matches_cpu(cuda, method, kernel):
+    """The extraction driver on the card against its CPU run (plain
+    versions), with one launch of the method's kernel per batch."""
+    from dfac_tpu_torch.features.lfcc import lfcc_features_batch
+
+    waves = torch.randn(5, CFG.num_samples(33), generator=torch.Generator().manual_seed(5)).numpy()
+    _build.reset_launch_counts()
+    got = lfcc_features_batch(waves, CFG, batch_size=2, method=method, device="cuda")
+    counts = _build.launch_counts()
+    assert counts == {k: (3 if k == kernel else 0) for k in counts}
+    want = lfcc_features_batch(waves, CFG, batch_size=2, method=method, device="cpu")
+    assert got.shape == want.shape == (5, 180, 33)
+    # K1's bound (chip_smoke.py) covers both kernels; the deltas add sums of
+    # five scaled terms
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)

@@ -12,11 +12,13 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 EXPECTED = {
-    "dfac_tpu_torch.cli.evaluate", "dfac_tpu_torch.cli.predict", "dfac_tpu_torch.data.pipeline",
-    "dfac_tpu_torch.device", "dfac_tpu_torch.features.lfcc", "dfac_tpu_torch.io.pickle_io",
-    "dfac_tpu_torch.io.prefetch", "dfac_tpu_torch.models.cnn2d", "dfac_tpu_torch.models.common",
-    "dfac_tpu_torch.models.fast_infer", "dfac_tpu_torch.ops._build", "dfac_tpu_torch.ops.conv_block",
-    "dfac_tpu_torch.ops.eer", "dfac_tpu_torch.ops.gemm_frontend", "dfac_tpu_torch.train.checkpoint",
+    "dfac_tpu_torch.cli.evaluate", "dfac_tpu_torch.cli.extract_features", "dfac_tpu_torch.cli.predict",
+    "dfac_tpu_torch.data.pipeline", "dfac_tpu_torch.device", "dfac_tpu_torch.features.lfcc",
+    "dfac_tpu_torch.io.npy_store", "dfac_tpu_torch.io.pickle_io", "dfac_tpu_torch.io.prefetch",
+    "dfac_tpu_torch.models.cnn2d", "dfac_tpu_torch.models.common", "dfac_tpu_torch.models.fast_infer",
+    "dfac_tpu_torch.ops._build", "dfac_tpu_torch.ops.conv_block", "dfac_tpu_torch.ops.eer",
+    "dfac_tpu_torch.ops.gemm_frontend", "dfac_tpu_torch.ops.lfcc_kernel", "dfac_tpu_torch.profiling",
+    "dfac_tpu_torch.train.checkpoint",
     "dfac_tpu_torch.train.evaluate", "dfac_tpu_torch.utils.convert",
 }
 
@@ -28,7 +30,7 @@ mods = sorted(m.name for m in pkgutil.walk_packages(dfac_tpu_torch.__path__, "df
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dfac_tpu"))
-from dfac_tpu_torch.features.lfcc import LFCCConfig
+from dfac_tpu_torch.features.lfcc import LFCCConfig, lfcc_features_batch
 from dfac_tpu_torch.ops import _build
 from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores, fused_conv_block
 from dfac_tpu_torch.ops.gemm_frontend import gemm_lfcc_cepstra, gemm_lfcc_features_tf
@@ -38,6 +40,8 @@ fused_conv_block(torch.zeros(1, 4, 4, 1), torch.zeros(3, 3, 1, 2), torch.zeros(2
 folded = {f"w{i}": torch.zeros(3, 3, c, 2 * c if i > 1 else 4) for i, c in ((1, 1), (2, 4), (3, 8))}
 folded.update({f"b{i}": torch.zeros(c) for i, c in ((1, 4), (2, 8), (3, 16))}, w_cls=torch.zeros(16 * 180, 1), b_cls=torch.zeros(1))
 scores = cnn2d_fused_scores(folded, feats)
+for method in ("gemm", "fft-pallas", "fft"):
+    lfcc_features_batch(torch.zeros(3, cfg.num_samples(9)).numpy(), cfg, 2, method, device="cpu")
 print(json.dumps({"mods": mods, "bad": bad, "launches": _build.launch_counts(), "scores": list(scores.shape)}))
 """
 
@@ -50,7 +54,8 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     report = json.loads(out.strip().splitlines()[-1])
     assert EXPECTED <= set(report["mods"])
     assert report["bad"] == []
-    assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0}  # CPU tensors: plain versions only
+    # CPU tensors: plain versions only
+    assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0}
     assert report["scores"] == [2]
 
 
