@@ -33,16 +33,35 @@ non-zero exit code and no result line:
             512-utterance .npz of varied lengths, as features.pkl and as a
             .npy store (identical features), then predict on the store
             against the slice's scores of the same padded waveforms
-10. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
+10. K5      the standalone (2,1) time-pool kernel against its plain version
+            at the pool probe's two shapes at B=512 (bit for bit), at odd T,
+            in f32 and on rows that are not 16-byte vectors
+11. conv-probe  the conv-probe checksum kernel, cases g, h, i, j, k, against
+            their plain versions at stage 13's shapes at B=512, bf16, one
+            launch per call, a second call equal bit for bit
+12. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
+            --stages 13`` and ``pool_kernel_probe`` as ``python -m`` at their
+            defaults: exit 0, their result lines, logits of the ``pallas``
+            chain within 2e-2 of ``reduce_window``; each prints its run's
+            launch counters (a new process, so they start at 0), which must
+            show the conv-probe kernel for the first two, K5 for the pool
+            probe (twice per batch of its ``pallas`` variant), and nothing else
+13. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
             7, host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            and rFFT + K4 against K1
+            rFFT + K4 against K1, and K5 against ``F.avg_pool2d``
 
-The last two lines are a JSON object with one entry per kernel (for
-``conv_block``, ``ms`` and ``plain_ms`` are the sums over the three block
-shapes of one batch) and ``{"ok": true, "device": {...}}``. The script
-imports nothing of JAX.
+The last three lines are the card's name and power limit, a JSON object
+with one entry per kernel (for ``conv_block``, ``time_pool`` and
+``conv_probe``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are
+sums over the shapes or cases of one batch) and ``{"ok": true, "device":
+{...}}``. ``bound_ms`` is the least time the card could take for the same
+work: the larger of the bytes each call must move (inputs read once,
+outputs written once) over 3.35 TB/s and its operations of each type over
+the dense peak for that type (989 TFLOP/s bf16 on the tensor cores, 67
+TFLOP/s f32 on the CUDA cores; NVIDIA's H100 SXM data sheet; the two units
+run at once, so the larger time counts). The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -67,6 +86,10 @@ CLI_UTTS = 512
 EXTRACT_BATCH = 64  # the extraction CLI's default
 EXTRACT_UTTS = 512
 EXTRACT_CORPUS = 2048  # utterances per timed extraction run
+PROBE_BATCH = 512  # the probes' default batch
+POOL_SHAPES = [(PROBE_BATCH, 321, 180, 32), (PROBE_BATCH, 160, 180, 64)]  # the pool probe's two pools
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense, H100 SXM
 
 # tolerances, with their reasons
 K1_ATOL, K1_RTOL = 1e-3, 1e-3  # same operands; only the f32 summation order of
@@ -82,6 +105,9 @@ K4_ATOL, K4_RTOL = 1e-4, 1e-4  # same f32 operands and math; only the summation
 # inside the same bound
 METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package's
 # bound, tests/test_torch_port_frontend.py:105-109
+CHECKSUM_RTOL = 1e-5  # conv-probe checksums: bf16 x bf16 products are exact in
+# f32, so kernel and plain differ only by f32 summation order; bound relative
+# to the sample's sum |y|
 
 
 def card_line() -> str:
@@ -121,6 +147,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, **flops: float) -> tuple[float, str]:
+    """(ms, limiter): the largest of ``n_bytes`` over the HBM rate and the
+    operations of each type over its peak rate (``bf16=``, ``f32=``; the
+    tensor cores and the CUDA cores work at the same time)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max((n / PEAK_FLOPS[kind] for kind, n in flops.items()), default=0.0)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_sum(parts) -> tuple[float, str]:
+    """Bounds of the shapes of one entry, summed; the limiter of the larger share."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for ms, limiter in parts:
+        by[limiter] += ms
+    return sum(by.values()), max(by, key=by.get)
+
+
 def in_turns(plain, kernel, reps: int = 10):
     """plain, kernel, kernel, plain after a warm-up of each; returns the mean
     ms of the kernel and of the plain version."""
@@ -131,21 +174,24 @@ def in_turns(plain, kernel, reps: int = 10):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from dfac_tpu_torch.features.lfcc import METHODS, LFCCConfig, batch_features, lfcc_features, \
-        lfcc_features_batch, power_spectrum
+        lfcc_features_batch, linear_filterbank, power_spectrum
     from dfac_tpu_torch.io.npy_store import load_npy_dataset
     from dfac_tpu_torch.io.pickle_io import load_features
     from dfac_tpu_torch.models import build_model
     from dfac_tpu_torch.models.fast_infer import fold_cnn2d
-    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.ops import _build, conv_probe
     from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores, cnn2d_head, fused_conv_block, reference_conv_block
     from dfac_tpu_torch.ops.gemm_frontend import append_deltas, cepstra_plain, gemm_lfcc_cepstra, gemm_lfcc_features_tf
     from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
+    from dfac_tpu_torch.ops.pool import time_pool, time_pool_plain
+    from dfac_tpu_torch.scripts import train_opt_probe
 
     # -- 1. device --------------------------------------------------------
     dev = torch.device("cuda")
@@ -170,14 +216,17 @@ def main() -> int:
         "conv_block_mma 32->64": lib.dfac_conv_block_smem(32, 64, 1),
         "conv_block_mma 64->128": lib.dfac_conv_block_smem(64, 128, 1),
         "fb_log_dct_kernel": lib.dfac_fb_log_dct_smem(),
+        "conv1_checksum g": lib.dfac_conv_probe_smem(0, 256, 256, 32),
+        "conv1_checksum i": lib.dfac_conv_probe_smem(2, 256, 256, 32),
+        "conv2_checksum": lib.dfac_conv_probe_smem(3, 192, 176, 64),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
     name = None
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
-            k = re.search(r"(frontend_kernel|conv_block_mma|conv_block_direct|conv_block_cin1|fb_log_dct_kernel)"
-                          r"(?:I(\w*?)EEv)?", m.group(1))
+            k = re.search(r"(frontend_kernel|conv_block_mma|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
+                          r"time_pool_kernel|conv1_checksum|conv2_checksum)(?:I(\w*?)EEv)?", m.group(1))
             name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
@@ -270,7 +319,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     phase("slice", f"launches over {n_batches} batches: {launches}")
-    if launches != {"gemm_frontend": n_batches, "conv_block": 3 * n_batches, "fb_log_dct": 0}:
+    if launches != {**dict.fromkeys(launches, 0), "gemm_frontend": n_batches, "conv_block": 3 * n_batches}:
         raise AssertionError(f"the slice did not run through the kernels as expected: {launches}")
 
     with torch.inference_mode():
@@ -404,7 +453,101 @@ def main() -> int:
         if not d <= SCORE_ATOL:
             raise AssertionError("predict on the extracted store disagrees with the slice")
 
-    # -- 10. timing --------------------------------------------------------
+    # -- 10. K5 vs plain --------------------------------------------------
+    k5_inputs = [torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16) for shape in POOL_SHAPES]
+    k5_err = 0.0
+    for x in k5_inputs:
+        before = _build.launch_counts()["time_pool"]
+        got = time_pool(x)
+        want = time_pool_plain(x)
+        torch.cuda.synchronize()
+        require(_build.launch_counts()["time_pool"] == before + 1, "K5: one launch per call")
+        require(got.shape == want.shape == (x.shape[0], x.shape[1] // 2, *x.shape[2:]), got.shape)
+        k5_err = max(k5_err, max_errors(got, want)[0])
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {tuple(x.shape)} differs from its plain version")
+        lib_equal = torch.equal(F.avg_pool2d(x.permute(0, 3, 1, 2), (2, 1)).permute(0, 2, 3, 1), got)
+        phase("K5", f"bf16 {tuple(x.shape)} -> {tuple(got.shape)}: bit-identical to the plain version "
+                    f"(max abs {k5_err:.3e}; tolerance: none); F.avg_pool2d {'identical' if lib_equal else 'differs'}")
+    for shape, dt in (((8, 33, 180, 32), torch.float32), ((8, 65, 7, 3), torch.bfloat16)):
+        x = torch.randn(*shape, device=dev, generator=gen).to(dt)
+        got, want = time_pool(x), time_pool_plain(x)
+        torch.cuda.synchronize()
+        k5_err = max(k5_err, max_errors(got, want)[0])
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {shape} {dt} differs from its plain version")
+        phase("K5", f"{str(dt)[6:]} {shape} -> {tuple(got.shape)} (odd T, rows of {shape[2] * shape[3]} "
+                    f"elements): bit-identical")
+
+    # -- 11. conv-probe checksums vs plain ----------------------------------
+    probe_arrs = train_opt_probe.stage13_inputs(PROBE_BATCH, torch.bfloat16, dev, SEED)
+    cp_err = 0.0
+    for name, case in conv_probe.CASES.items():
+        a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
+        before = _build.launch_counts()["conv_probe"]
+        got = case.kernel(a, wt)
+        torch.cuda.synchronize()
+        require(_build.launch_counts()["conv_probe"] == before + 1, "conv-probe: one launch per call")
+        y = case.plain(a, wt)
+        want = conv_probe.checksum(y)
+        abs_sum = y.abs().sum(dim=(1, 2, 3), dtype=torch.float64)
+        y_shape = tuple(y.shape)
+        del y
+        require(got.shape == want.shape == (PROBE_BATCH, 8, 128) and torch.isfinite(got).all(), got.shape)
+        require(torch.equal(got, got[:, :1, :1].expand_as(got)), f"{name}: checksum block not uniform")
+        require(torch.equal(case.kernel(a, wt), got), f"{name}: a second call gives other sums")
+        err = (got[:, 0, 0].double() - want[:, 0, 0].double()).abs()
+        phase("conv-probe", f"{name} y {y_shape} -> {tuple(got.shape)}: max |kernel - plain| {err.max().item():.3e}, "
+                            f"max over samples of |kernel - plain| / sum|y| {(err / abs_sum).max().item():.3e} "
+                            f"(tolerance {CHECKSUM_RTOL})")
+        if not bool((err <= CHECKSUM_RTOL * abs_sum).all()):
+            raise AssertionError(f"conv-probe case {name} disagrees with its plain version")
+        cp_err = max(cp_err, err.max().item())
+
+    # -- 12. the probes' CLIs, each with its launch counts -----------------
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    probe_out, probe_launches = {}, {}
+    for probe, args, kernel in (("pallas_err_probe", [], "conv_probe"),
+                                ("train_opt_probe", ["--stages", "13"], "conv_probe"),
+                                ("pool_kernel_probe", [], "time_pool")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"dfac_tpu_torch.scripts.{probe}", *args],
+                              capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+        for line in proc.stdout.strip().splitlines():
+            if line.strip():
+                phase("probes", f"{probe}: {line.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{probe} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        phase("probes", f"{probe}: exit 0 in {time.perf_counter() - t0:.1f}s")
+        probe_out[probe] = proc.stdout
+        m = re.search(r"^kernel launches: (\{.*\})$", proc.stdout, flags=re.M)
+        counts = json.loads(m.group(1)) if m else {}
+        if set(counts) != set(_build.LAUNCHES) or counts[kernel] == 0 or any(
+                n for k, n in counts.items() if k != kernel):
+            raise AssertionError(f"{probe} did not run through {kernel} alone: launches {counts}")
+        probe_launches[probe] = counts[kernel]
+    phase("probes", f"launches: {probe_launches}")
+    sums = re.findall(r"^== ([gijk]): OK -?\d+\.\d{3}$", probe_out["pallas_err_probe"], flags=re.M)
+    if sums != list("gijk"):
+        raise AssertionError(f"pallas_err_probe: want four OK lines, got {sums}")
+    rows = re.findall(r"^  ([ghijk]) .+: +\d+\.\d+ ms  \( *\S+ TF/s\)$", probe_out["train_opt_probe"], flags=re.M)
+    if rows != list("ghijk"):
+        raise AssertionError(f"train_opt_probe --stages 13: want five case lines, got {rows}")
+    diffs = dict(re.findall(r"^max \|logit diff\| vs base \((\w+)\): (\S+)$", probe_out["pool_kernel_probe"],
+                            flags=re.M))
+    rates = re.findall(r"^(reduce_window|depthwise|pallas) *: +[\d,]+ utt/s$", probe_out["pool_kernel_probe"], flags=re.M)
+    m = re.search(r"^time_pool launches in the timed pallas runs: (\d+) over (\d+) batches$",
+                  probe_out["pool_kernel_probe"], flags=re.M)
+    if set(diffs) != {"depthwise", "pallas"} or rates != ["reduce_window", "depthwise", "pallas"] or not m:
+        raise AssertionError("pool_kernel_probe: missing result lines")
+    if not float(diffs["pallas"]) <= SCORE_ATOL:
+        raise AssertionError(f"pool_kernel_probe: pallas logits differ by {diffs['pallas']} (tolerance {SCORE_ATOL})")
+    if int(m.group(1)) != 2 * int(m.group(2)):
+        raise AssertionError(f"pool_kernel_probe: K5 launched {m.group(1)} times over {m.group(2)} batches")
+    phase("probes", f"CLIs: result lines present; pallas logits within {SCORE_ATOL} of reduce_window "
+                    f"({diffs['pallas']}); K5 twice per batch ({m.group(1)} over {m.group(2)})")
+
+    # -- 13. timing --------------------------------------------------------
     corpus = torch.randn(CORPUS // BATCH, BATCH, n_samples, device=dev, generator=gen)
 
     def score_corpus():
@@ -470,17 +613,65 @@ def main() -> int:
         phase("timing", f"K2 conv_block bf16 x{tuple(x.shape)} pool={pool}: kernel {ms:.4f} ms, "
                         f"plain {plain_ms:.4f} ms, on {card}")
 
+    k5_ms = k5_plain = k5_lib = 0.0
+    for x in k5_inputs:
+        ms, plain_ms = in_turns(lambda: time_pool_plain(x), lambda: time_pool(x))
+        ms2, lib_ms = in_turns(lambda: F.avg_pool2d(x.permute(0, 3, 1, 2), (2, 1)), lambda: time_pool(x))
+        k5_ms, k5_plain, k5_lib = k5_ms + ms, k5_plain + plain_ms, k5_lib + lib_ms
+        phase("timing", f"K5 time_pool bf16 {tuple(x.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel "
+                        f"{ms2:.4f} ms, F.avg_pool2d (channels-last view) {lib_ms:.4f} ms, on {card}")
+    cp_ms = cp_plain = 0.0
+    for name, case in conv_probe.CASES.items():
+        a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
+        ms, plain_ms = in_turns(lambda: conv_probe.checksum(case.plain(a, wt)), lambda: case.kernel(a, wt))
+        cp_ms, cp_plain = cp_ms + ms, cp_plain + plain_ms
+        phase("timing", f"conv-probe {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
+
+    # bounds from this run's shapes (bytes: inputs read once, outputs written once)
+    rows, fb_nnz = BATCH * N_FRAMES, int(np.count_nonzero(linear_filterbank(cfg)))
+    n_bins, epilogue = cfg.n_fft // 2 + 1, 2 * fb_nnz + 2 * cfg.n_filters * cfg.n_ceps  # per frame, f32
+    k1_bound = bound(wave.numel() * 4 + rows * cfg.n_ceps * 4,
+                     bf16=2 * rows * cfg.win_length * 2 * n_bins, f32=rows * (3 * n_bins + epilogue))
+    k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
+    k2_bound = bound_sum(
+        bound((x.numel() + x.shape[0] * (x.shape[1] // 2 if pool else x.shape[1]) * x.shape[2] * w.shape[-1]) * 2,
+              bf16=2 * x.shape[0] * (x.shape[1] - x.shape[1] % 2 if pool else x.shape[1]) * x.shape[2] * w.numel())
+        for x, w, b, pool in k2_inputs)
+    k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
+    cp_parts = []
+    for name, case in conv_probe.CASES.items():
+        a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
+        t_out = conv_probe.CONV2_ROWS if name in "jk" else conv_probe.CONV1_ROWS
+        width = {"g": a.shape[2], "h": conv_probe.CONV1_SLICE_COLS, "i": a.shape[2],
+                 "j": conv_probe.CONV2_SLICE_COLS, "k": a.shape[2]}[name]
+        # the part of the input the case depends on: rows t + dy; columns f + dx unless they wrap
+        read = a.numel() if name == "i" else a[:, : t_out + 2, : width + 2 if name in "hj" else None].numel()
+        macs = a.shape[0] * t_out * width * wt.numel()
+        cp_parts.append(bound((read + wt.numel()) * 2 + PROBE_BATCH * 8 * 128 * 4, bf16=2 * macs))
+    cp_bound = bound_sum(cp_parts)
+
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     kernels = [
-        {"name": "gemm_frontend", "route": "cuda", "source": "dfac_tpu_torch/csrc/gemm_frontend.cu",
-         "replaces": "dfac_tpu/ops/pallas/gemm_frontend.py:71", "launches": launches["gemm_frontend"],
-         "max_abs_err": k1_err[torch.bfloat16], "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "conv_block", "route": "cuda", "source": "dfac_tpu_torch/csrc/conv_block.cu",
-         "replaces": "dfac_tpu/ops/pallas/conv_block.py:142", "launches": launches["conv_block"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "fb_log_dct", "route": "cuda", "source": "dfac_tpu_torch/csrc/lfcc_kernel.cu",
-         "replaces": "dfac_tpu/ops/pallas/lfcc_kernel.py:41", "launches": ext_launches["fft-pallas"]["fb_log_dct"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
+        entry("gemm_frontend", "dfac_tpu_torch/csrc/gemm_frontend.cu", "dfac_tpu/ops/pallas/gemm_frontend.py:71",
+              launches["gemm_frontend"], k1_err[torch.bfloat16], k1_ms, k1_plain, k1_bound),
+        entry("conv_block", "dfac_tpu_torch/csrc/conv_block.cu", "dfac_tpu/ops/pallas/conv_block.py:142",
+              launches["conv_block"], k2_err, k2_ms, k2_plain, k2_bound),
+        entry("fb_log_dct", "dfac_tpu_torch/csrc/lfcc_kernel.cu", "dfac_tpu/ops/pallas/lfcc_kernel.py:41",
+              ext_launches["fft-pallas"]["fb_log_dct"], k4_err, k4_ms, k4_plain, k4_bound),
+        entry("time_pool", "dfac_tpu_torch/csrc/pool_kernel.cu", "scripts/pool_kernel_probe.py:81",
+              probe_launches["pool_kernel_probe"], k5_err, k5_ms, k5_plain, k5_bound, k5_lib),
+        entry("conv_probe", "dfac_tpu_torch/csrc/conv_probe.cu",
+              "scripts/train_opt_probe.py:1108, scripts/pallas_err_probe.py:44",
+              probe_launches["pallas_err_probe"] + probe_launches["train_opt_probe"], cp_err, cp_ms, cp_plain,
+              cp_bound),
     ]
+    for k in kernels:
+        phase("timing", f"{k['name']}: kernel {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+                        f"{k['bound_ms'] / k['ms']:.1%} of the bound's rate, on {card}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -46,9 +46,13 @@
 
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using dfac::ld32;
+using dfac::mma_bf16;
 
 constexpr int THREADS = 256;  // 8 warps: 4 column groups x 2 halves of Cout
 constexpr int TW = 64;        // output columns per tile
@@ -69,19 +73,6 @@ struct MmaCfg {
   static_assert(W_BYTES % 16 == 0 && X_BYTES % 16 == 0, "16-byte aligned sections");
   static_assert(SMEM <= 232448, "227 KB of shared memory per block");
 };
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int CIN, int COUT>
 __global__ void __launch_bounds__(THREADS)

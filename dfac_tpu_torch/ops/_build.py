@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset
-LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0}
+LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0, "conv_probe": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -48,10 +48,16 @@ _SIGNATURES = {
     "dfac_conv_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # power, fb, fb_lo, fb_hi, dct, out, rows, log_floor, stream
     "dfac_fb_log_dct": [_P, _P, _P, _P, _P, _P, _I, _F, _P],
-    # dynamic shared memory per block, bytes: (bf16), (c_in, c_out, bf16), ()
+    # x, out, batch, t_in, row (F * C), tt, bf16, stream
+    "dfac_time_pool": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # case, in, w, out, y (or null), done, batch, t_in, f_in, rows, cols, n_out, stream
+    "dfac_conv_probe": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dynamic shared memory per block, bytes: (bf16), (c_in, c_out, bf16), (),
+    # (case, f_in, cols, n_out)
     "dfac_gemm_frontend_smem": [_I],
     "dfac_conv_block_smem": [_I, _I, _I],
     "dfac_fb_log_dct_smem": [],
+    "dfac_conv_probe_smem": [_I, _I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -64,6 +70,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """Launches per kernel since ``before`` (an earlier :func:`launch_counts`)."""
+    return {k: n - before[k] for k, n in LAUNCHES.items()}
 
 
 def _nvcc() -> str:

@@ -15,7 +15,10 @@ take the most device time. The paths, at the corpus geometry (16 kHz,
   :func:`~dfac_tpu_torch.features.lfcc.batch_features`, B=64;
 * ``extract <method>, host round trip``: the CLI's driver
   :func:`~dfac_tpu_torch.features.lfcc.lfcc_features_batch` on host numpy,
-  so the uploads and the device-to-host copies show.
+  so the uploads and the device-to-host copies show;
+* ``pool probe <pool>``: the chain of
+  :mod:`dfac_tpu_torch.scripts.pool_kernel_probe` with each of its three
+  pools on on-device bf16 features, B=512.
 
 On the CPU the profiler records no device time; every path still runs.
 """
@@ -33,6 +36,8 @@ BATCHES = 16  # per timed and per profiled run
 FRAMES = 321
 SLICE_BATCH = 128  # the slice's throughput geometry (chip_smoke.py)
 EXTRACT_BATCH = 64  # the extraction CLI's default
+POOL_BATCH = 512  # the pool probe's default
+POOL_FRAMES = 321
 SEED = 0
 
 
@@ -82,7 +87,7 @@ def profile_path(label: str, fn, n_batches: int, device: torch.device) -> dict:
 
 
 def main(argv=None) -> list[dict]:
-    p = argparse.ArgumentParser(description="Profile the port's serving slice and extraction paths.")
+    p = argparse.ArgumentParser(description="Profile the port's serving slice, extraction and pool-probe paths.")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
     args = p.parse_args(argv)
     from dfac_tpu_torch.device import resolve_device
@@ -91,6 +96,7 @@ def main(argv=None) -> list[dict]:
     from dfac_tpu_torch.models.fast_infer import fold_cnn2d
     from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores
     from dfac_tpu_torch.ops.gemm_frontend import gemm_lfcc_features_tf
+    from dfac_tpu_torch.scripts import pool_kernel_probe
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -126,6 +132,18 @@ def main(argv=None) -> list[dict]:
         out.append(profile_path(f"extract {method} B={EXTRACT_BATCH}", on_device, BATCHES, dev))
         out.append(profile_path(f"extract {method} B={EXTRACT_BATCH}, host round trip", round_trip,
                                 BATCHES, dev))
+    folded = {k: v.to(dev) for k, v in fold_cnn2d(pool_kernel_probe.random_cnn2d(SEED).state_dict()).items()}
+    feats = torch.randn(BATCHES, POOL_BATCH, POOL_FRAMES, cfg.feature_dim, device=dev, generator=gen)
+    feats = feats.to(torch.bfloat16)
+    for name, pool in pool_kernel_probe.POOLS.items():
+        chain = pool_kernel_probe.make_chain(folded, pool)
+
+        def run_chain(chain=chain):
+            with torch.inference_mode():
+                for x in feats:
+                    chain(x)
+
+        out.append(profile_path(f"pool probe {name} B={POOL_BATCH}", run_chain, BATCHES, dev))
     return out
 
 

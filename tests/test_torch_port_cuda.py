@@ -6,7 +6,10 @@ serving shapes; these check the edges (odd H with and without the pool, W
 not a multiple of the 64-column tile, tiny H and T, every kernel case of
 the conv block, f32, misaligned inputs; for the post-FFT kernel one row,
 rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
-and non-contiguous power). On the card, without the JAX
+and non-contiguous power; for the time pool odd T, f32, rows that are not
+16-byte vectors, misaligned, transposed and untileable inputs; for the
+conv-probe checksums each case at B=1 and B=3 with every output, the wrap
+columns included, against the plain version). On the card, without the JAX
 package's conftest (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
@@ -18,9 +21,11 @@ import torch
 
 from dfac_tpu_torch.features.lfcc import LFCCConfig
 from dfac_tpu_torch.ops import _build
+from dfac_tpu_torch.ops import conv_probe
 from dfac_tpu_torch.ops.conv_block import fused_conv_block, reference_conv_block
 from dfac_tpu_torch.ops.gemm_frontend import cepstra_plain, gemm_lfcc_cepstra
 from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
+from dfac_tpu_torch.ops.pool import time_pool, time_pool_plain
 
 pytestmark = pytest.mark.cuda
 CFG = LFCCConfig()
@@ -186,3 +191,79 @@ def test_batch_driver_cuda_matches_cpu(cuda, method, kernel):
     # K1's bound (chip_smoke.py) covers both kernels; the deltas add sums of
     # five scaled terms
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape,tt", [((3, 33, 180, 32), 16), ((2, 64, 7, 3), 8), ((1, 321, 180, 64), 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_time_pool_kernel_matches_plain(cuda, shape, tt, dtype):
+    """Odd T (the last row is dropped), and rows of 21 elements that are not
+    16-byte vectors (the kernel's scalar path)."""
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(sum(shape))).to(cuda, dtype)
+    before = _build.launch_counts()["time_pool"]
+    got = time_pool(x, tt)
+    want = time_pool_plain(x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["time_pool"] == before + 1
+    assert got.shape == want.shape == (shape[0], shape[1] // 2, *shape[2:]) and got.dtype == dtype
+    assert torch.equal(got, want)  # one rounding of the sum, an exact halving: bit for bit
+
+
+def test_time_pool_kernel_input_layouts(cuda):
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 32, 180, 32, generator=gen).to(cuda, torch.bfloat16)
+    flat = torch.empty(1 + x.numel(), device=cuda, dtype=torch.bfloat16)
+    flat[1:] = x.reshape(-1)
+    shifted = flat[1:].view_as(x)  # data pointer 2 bytes past a 16-byte boundary
+    assert torch.equal(time_pool(shifted), time_pool_plain(x))
+    transposed = x.transpose(2, 3)  # (B, T, C, F) view of the same memory
+    with pytest.raises(ValueError, match="contiguous"):
+        time_pool(transposed)
+    assert torch.equal(time_pool(transposed.contiguous()), time_pool_plain(transposed))
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        time_pool(x[:1, :30], tt=16)  # T // 2 = 15
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        time_pool(x.half())
+
+
+def _probe_inputs(batch, device, seed):
+    from dfac_tpu_torch.scripts.train_opt_probe import stage13_inputs
+
+    return stage13_inputs(batch, torch.bfloat16, device, seed)
+
+
+@pytest.mark.parametrize("name", list(conv_probe.CASES))
+@pytest.mark.parametrize("batch", [1, 3])
+def test_conv_probe_kernel_matches_plain(cuda, name, batch):
+    """Every output y at stage 13's shapes, the wrap columns 0 and Fp - 1
+    (roll cases) element by element, and the checksum within the bound."""
+    case = conv_probe.CASES[name]
+    arrs = _probe_inputs(batch, cuda, seed=batch)
+    inp, w = case.inp, case.weights
+    fn = {"g": lambda a, b: conv_probe.conv1_taps_checksum(a, b, "roll", return_y=True),
+          "h": lambda a, b: conv_probe.conv1_taps_checksum(a, b, "slice", return_y=True),
+          "i": lambda a, b: conv_probe.patches_checksum(a, b, return_y=True),
+          "j": lambda a, b: conv_probe.conv2_checksum(a, b, "slice", return_y=True),
+          "k": lambda a, b: conv_probe.conv2_checksum(a, b, "roll", return_y=True)}[name]
+    before = _build.launch_counts()["conv_probe"]
+    out, y = fn(arrs[inp], arrs[w])
+    want_y = case.plain(arrs[inp], arrs[w])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["conv_probe"] == before + 1
+    assert y.shape == want_y.shape and out.shape == (batch, 8, 128)
+    # exact bf16 products; f32 sums of 9 (conv1) or 288 (conv2) terms in another order
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-5)
+    for col in (0, y.shape[2] - 1):
+        torch.testing.assert_close(y[:, :, col], want_y[:, :, col], atol=1e-4, rtol=1e-5)
+    assert torch.equal(out, out[:, :1, :1].expand_as(out))
+    bound = 1e-5 * want_y.double().abs().sum(dim=(1, 2, 3))
+    assert bool(((out[:, 0, 0].double() - want_y.double().sum(dim=(1, 2, 3))).abs() <= bound).all())
+    # the checksum alone (no y) is the same kernel's sum, bit for bit
+    assert torch.equal(case.kernel(arrs[inp], arrs[w]), out)
+
+
+def test_conv_probe_kernel_rejects_what_it_does_not_take(cuda):
+    arrs = _probe_inputs(1, cuda, seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv_probe.conv1_taps_checksum(arrs["x"].float(), arrs["w9"].float())
+    with pytest.raises(ValueError, match="32 -> 64"):
+        conv_probe.conv2_checksum(arrs["h1"], torch.zeros(9, 32, 16, device=cuda, dtype=torch.bfloat16))

@@ -16,8 +16,10 @@ EXPECTED = {
     "dfac_tpu_torch.data.pipeline", "dfac_tpu_torch.device", "dfac_tpu_torch.features.lfcc",
     "dfac_tpu_torch.io.npy_store", "dfac_tpu_torch.io.pickle_io", "dfac_tpu_torch.io.prefetch",
     "dfac_tpu_torch.models.cnn2d", "dfac_tpu_torch.models.common", "dfac_tpu_torch.models.fast_infer",
-    "dfac_tpu_torch.ops._build", "dfac_tpu_torch.ops.conv_block", "dfac_tpu_torch.ops.eer",
-    "dfac_tpu_torch.ops.gemm_frontend", "dfac_tpu_torch.ops.lfcc_kernel", "dfac_tpu_torch.profiling",
+    "dfac_tpu_torch.ops._build", "dfac_tpu_torch.ops.conv_block", "dfac_tpu_torch.ops.conv_probe",
+    "dfac_tpu_torch.ops.eer", "dfac_tpu_torch.ops.gemm_frontend", "dfac_tpu_torch.ops.lfcc_kernel",
+    "dfac_tpu_torch.ops.pool", "dfac_tpu_torch.profiling", "dfac_tpu_torch.scripts.pallas_err_probe",
+    "dfac_tpu_torch.scripts.pool_kernel_probe", "dfac_tpu_torch.scripts.train_opt_probe",
     "dfac_tpu_torch.train.checkpoint",
     "dfac_tpu_torch.train.evaluate", "dfac_tpu_torch.utils.convert",
 }
@@ -42,6 +44,12 @@ folded.update({f"b{i}": torch.zeros(c) for i, c in ((1, 4), (2, 8), (3, 16))}, w
 scores = cnn2d_fused_scores(folded, feats)
 for method in ("gemm", "fft-pallas", "fft"):
     lfcc_features_batch(torch.zeros(3, cfg.num_samples(9)).numpy(), cfg, 2, method, device="cpu")
+from dfac_tpu_torch.ops.conv_probe import conv1_taps_checksum, conv2_checksum, patches_checksum
+from dfac_tpu_torch.ops.pool import time_pool
+time_pool(torch.zeros(1, 5, 2, 2, dtype=torch.bfloat16), tt=2)
+conv1_taps_checksum(torch.zeros(1, 322, 130, dtype=torch.bfloat16), torch.zeros(9, 2, dtype=torch.bfloat16), "slice")
+patches_checksum(torch.zeros(1, 2, 3, 9, dtype=torch.bfloat16), torch.zeros(9, 2, dtype=torch.bfloat16))
+conv2_checksum(torch.zeros(1, 162, 8, 4, dtype=torch.bfloat16), torch.zeros(9, 4, 2, dtype=torch.bfloat16), "roll")
 print(json.dumps({"mods": mods, "bad": bad, "launches": _build.launch_counts(), "scores": list(scores.shape)}))
 """
 
@@ -55,7 +63,8 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     assert EXPECTED <= set(report["mods"])
     assert report["bad"] == []
     # CPU tensors: plain versions only
-    assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0}
+    assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0,
+                                  "conv_probe": 0}
     assert report["scores"] == [2]
 
 

@@ -5,13 +5,14 @@ from dfac_tpu_torch import profiling
 
 
 def test_profiler_runs_every_path(capsys, monkeypatch):
-    for name, value in (("BATCHES", 2), ("FRAMES", 9), ("SLICE_BATCH", 2), ("EXTRACT_BATCH", 2)):
+    for name, value in (("BATCHES", 2), ("FRAMES", 9), ("SLICE_BATCH", 2), ("EXTRACT_BATCH", 2), ("POOL_BATCH", 2),
+                        ("POOL_FRAMES", 64)):
         monkeypatch.setattr(profiling, name, value)
     out = profiling.main(["--device", "cpu"])
     labels = [r["label"] for r in out]
     assert labels == ["slice B=2"] + [
         f"extract {m} B=2{tail}" for m in ("gemm", "fft-pallas", "fft") for tail in ("", ", host round trip")
-    ]
+    ] + [f"pool probe {p} B=2" for p in ("reduce_window", "depthwise", "pallas")]
     assert all(r["wall_ms"] > 0 and r["device_ms"] == 0 and r["busy"] is None for r in out)
     printed = capsys.readouterr().out
     assert printed.count("device time not traced on cpu") == len(out)
