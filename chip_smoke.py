@@ -39,24 +39,31 @@ non-zero exit code and no result line:
 11. conv-probe  the conv-probe checksum kernel, cases g, h, i, j, k, against
             their plain versions at stage 13's shapes at B=512, bf16, one
             launch per call, a second call equal bit for bit
-12. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
-            --stages 13`` and ``pool_kernel_probe`` as ``python -m`` at their
-            defaults: exit 0, their result lines, logits of the ``pallas``
-            chain within 2e-2 of ``reduce_window``; each prints its run's
-            launch counters (a new process, so they start at 0), which must
-            show the conv-probe kernel for the first two, K5 for the pool
-            probe (twice per batch of its ``pallas`` variant), and nothing else
-13. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
+12. conv-pass  stages 11 and 12's kernels (K7: v0-v4, K8: a, c, d, f)
+            against their plain versions at the stages' shapes at B=512,
+            bf16: the checksums within 1e-5 of sum |y|, v4's emitted tensor
+            within one bf16 last bit; one launch per call, a second call
+            equal bit for bit
+13. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
+            --stages 11,12,13`` and ``pool_kernel_probe`` as ``python -m`` at
+            their defaults: exit 0, their result lines, logits of the
+            ``pallas`` chain within 2e-2 of ``reduce_window``; each prints
+            its run's launch counters (a new process, so they start at 0),
+            which must show the conv-probe kernels (for ``train_opt_probe``
+            K9, K7 and K8, each once per case call), K5 for the pool probe
+            (twice per batch of its ``pallas`` variant), and nothing else
+14. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
             7, host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            rFFT + K4 against K1, and K5 against ``F.avg_pool2d``
+            rFFT + K4 against K1, K5 against ``F.avg_pool2d``, and stage
+            11's cuDNN conv1 control
 
 The last three lines are the card's name and power limit, a JSON object
-with one entry per kernel (for ``conv_block``, ``time_pool`` and
-``conv_probe``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are
-sums over the shapes or cases of one batch) and ``{"ok": true, "device":
-{...}}``. ``bound_ms`` is the least time the card could take for the same
+with one entry per kernel (for ``conv_block``, ``time_pool``,
+``conv_probe``, ``conv1_pass`` and ``conv_forms``, ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms`` are sums over the shapes or cases of one
+batch) and ``{"ok": true, "device": {...}}``. ``bound_ms`` is the least time the card could take for the same
 work: the larger of the bytes each call must move (inputs read once,
 outputs written once) over 3.35 TB/s and its operations of each type over
 the dense peak for that type (989 TFLOP/s bf16 on the tensor cores, 67
@@ -108,6 +115,7 @@ METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package
 CHECKSUM_RTOL = 1e-5  # conv-probe checksums: bf16 x bf16 products are exact in
 # f32, so kernel and plain differ only by f32 summation order; bound relative
 # to the sample's sum |y|
+PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12"}  # K7, K8 -> their train_opt_probe stage
 
 
 def card_line() -> str:
@@ -162,6 +170,23 @@ def bound_sum(parts) -> tuple[float, str]:
     for ms, limiter in parts:
         by[limiter] += ms
     return sum(by.values()), max(by, key=by.get)
+
+
+def conv_pass_work(name: str, a, wt) -> tuple[int, int]:
+    """(multiply-adds, bytes of the result) of one call of stage 11/12's case
+    ``name`` on input ``a`` and weights ``wt``, from their shapes."""
+    from dfac_tpu_torch.ops import conv_probe
+
+    b, sums = a.shape[0], 8 * 128 * 4  # a checksum's (8, 128) f32 block per result
+    if name == "f":  # every output pixel of the pre-padded h1 against all 9 x 32 x 64 weights
+        return b * (a.shape[1] - 2) * (a.shape[2] - 2) * wt.numel(), b * sums
+    if name == "c":  # M = Np - 2W outputs per sample
+        return b * (a.shape[-1] - 2 * conv_probe.FLAT_WIDTH) * wt.numel(), b * sums
+    t, f = a.shape[1:]
+    pixels = {"v0": 0, "v1": b * t * f, "v2": b * t * f, "v3": b // 8 * 8 * t * f, "v4": b * (t // 2 * 2) * f,
+              "a": b * (t - 2) * (f - 2), "d": b * (t - 2) * (f - 2)}[name]
+    out_bytes = {"v3": b // 8 * sums, "v4": b * (t // 2) * f * wt.shape[-1] * 2}.get(name, b * sums)
+    return pixels * wt.numel(), out_bytes  # 9 taps x CO weights per output pixel
 
 
 def in_turns(plain, kernel, reps: int = 10):
@@ -219,6 +244,11 @@ def main() -> int:
         "conv1_checksum g": lib.dfac_conv_probe_smem(0, 256, 256, 32),
         "conv1_checksum i": lib.dfac_conv_probe_smem(2, 256, 256, 32),
         "conv2_checksum": lib.dfac_conv_probe_smem(3, 192, 176, 64),
+        "conv1_checksum v1": lib.dfac_conv_pass_smem(1, 180, 32),
+        "conv1_mma v2": lib.dfac_conv_pass_smem(2, 180, 32),
+        "conv1_mma a": lib.dfac_conv_pass_smem(5, 180, 32),
+        "conv1_mma c": lib.dfac_conv_pass_smem(6, 182, 32),
+        "conv1_emit v4": lib.dfac_conv_pass_smem(4, 180, 32),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
     name = None
@@ -226,7 +256,8 @@ def main() -> int:
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
             k = re.search(r"(frontend_kernel|conv_block_mma|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
-                          r"time_pool_kernel|conv1_checksum|conv2_checksum)(?:I(\w*?)EEv)?", m.group(1))
+                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
+                          r"(?:I(\w*?)EEv)?", m.group(1))
             name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
@@ -504,12 +535,51 @@ def main() -> int:
             raise AssertionError(f"conv-probe case {name} disagrees with its plain version")
         cp_err = max(cp_err, err.max().item())
 
-    # -- 12. the probes' CLIs, each with its launch counts -----------------
+    # -- 12. stages 11 and 12's kernels (K7, K8) vs plain --------------------
+    pass_arrs = {"11": train_opt_probe.stage11_inputs(PROBE_BATCH, torch.bfloat16, dev, SEED),
+                 "12": train_opt_probe.stage12_inputs(PROBE_BATCH, torch.bfloat16, dev, SEED)}
+    pass_cases = [(key, name, case, pass_arrs[stage][case.inp], pass_arrs[stage][case.weights])
+                  for key, stage in PASS_KERNELS.items()
+                  for name, case in getattr(conv_probe, f"STAGE{stage}_CASES").items()]
+    pass_err = dict.fromkeys(PASS_KERNELS, 0.0)
+    for key, name, case, a, wt in pass_cases:
+        before = _build.launch_counts()
+        got = case.kernel(a, wt)
+        torch.cuda.synchronize()
+        require(_build.launch_counts() == {**before, key: before[key] + 1}, f"{name}: one {key} launch per call")
+        require(torch.equal(case.kernel(a, wt), got), f"{name}: a second call gives another result")
+        want = case.plain(a, wt)
+        if name == conv_probe.EMIT_CASE:
+            require(got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16, (got.shape, want.shape))
+            gf, wf = got.float(), want.float()
+            ok = bool(((gf - wf).abs() <= K2_ATOL + K2_RTOL * torch.maximum(gf.abs(), wf.abs())).all())
+            err, rel_err = max_errors(got, want)
+            phase("conv-pass", f"{name} bf16 x{tuple(a.shape)} -> {tuple(got.shape)}: max abs {err:.3e}, max rel "
+                               f"{rel_err:.3e}, {(gf != wf).float().mean().item():.2e} of values differ (tolerance "
+                               f"one bf16 last bit: rtol 2^-7 + atol {K2_ATOL})")
+        else:
+            dims = tuple(range(1, want.dim()))
+            sums = want.sum(dim=dims)
+            abs_sum = want.abs().sum(dim=dims, dtype=torch.float64)
+            require(got.shape == (want.shape[0], 8, 128) and torch.isfinite(got).all(), got.shape)
+            require(torch.equal(got, got[:, :1, :1].expand_as(got)), f"{name}: checksum block not uniform")
+            d = (got[:, 0, 0].double() - sums.double()).abs()
+            ok = bool((d <= CHECKSUM_RTOL * abs_sum).all())
+            err = d.max().item()
+            phase("conv-pass", f"{name} x{tuple(a.shape)} -> y {tuple(want.shape)} -> {tuple(got.shape)}: max "
+                               f"|kernel - plain| {err:.3e}, max over results of |kernel - plain| / sum|y| "
+                               f"{(d / abs_sum).max().item():.3e} (tolerance {CHECKSUM_RTOL})")
+        del want
+        if not ok:
+            raise AssertionError(f"{key} case {name} disagrees with its plain version")
+        pass_err[key] = max(pass_err[key], err)
+
+    # -- 13. the probes' CLIs, each with its launch counts -----------------
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     probe_out, probe_launches = {}, {}
-    for probe, args, kernel in (("pallas_err_probe", [], "conv_probe"),
-                                ("train_opt_probe", ["--stages", "13"], "conv_probe"),
-                                ("pool_kernel_probe", [], "time_pool")):
+    for probe, args, kernels in (("pallas_err_probe", [], ["conv_probe"]),
+                                 ("train_opt_probe", ["--stages", "11,12,13"], ["conv_probe", *PASS_KERNELS]),
+                                 ("pool_kernel_probe", [], ["time_pool"])):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"dfac_tpu_torch.scripts.{probe}", *args],
                               capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
@@ -522,17 +592,27 @@ def main() -> int:
         probe_out[probe] = proc.stdout
         m = re.search(r"^kernel launches: (\{.*\})$", proc.stdout, flags=re.M)
         counts = json.loads(m.group(1)) if m else {}
-        if set(counts) != set(_build.LAUNCHES) or counts[kernel] == 0 or any(
-                n for k, n in counts.items() if k != kernel):
-            raise AssertionError(f"{probe} did not run through {kernel} alone: launches {counts}")
-        probe_launches[probe] = counts[kernel]
+        if set(counts) != set(_build.LAUNCHES) or not all(counts[k] for k in kernels) or any(
+                n for k, n in counts.items() if k not in kernels):
+            raise AssertionError(f"{probe} did not run through {kernels} alone: launches {counts}")
+        probe_launches[probe] = {k: counts[k] for k in kernels}
     phase("probes", f"launches: {probe_launches}")
     sums = re.findall(r"^== ([gijk]): OK -?\d+\.\d{3}$", probe_out["pallas_err_probe"], flags=re.M)
     if sums != list("gijk"):
         raise AssertionError(f"pallas_err_probe: want four OK lines, got {sums}")
-    rows = re.findall(r"^  ([ghijk]) .+: +\d+\.\d+ ms  \( *\S+ TF/s\)$", probe_out["train_opt_probe"], flags=re.M)
-    if rows != list("ghijk"):
-        raise AssertionError(f"train_opt_probe --stages 13: want five case lines, got {rows}")
+    opt_out = probe_out["train_opt_probe"]
+    rows = re.findall(r"^  ([acdfghijk]) .+: +\d+\.\d+ ms  \( *\S+ TF/s\)$", opt_out, flags=re.M)
+    rows += re.findall(r"^  (cuDNN conv1 fwd \(control\)) +: +\d+\.\d+ ms$", opt_out, flags=re.M)
+    rows += re.findall(r"^  (v[0-4]) .+: +\d+\.\d+ ms$", opt_out, flags=re.M)
+    want_rows = [*conv_probe.STAGE12_CASES, *conv_probe.CASES, "cuDNN conv1 fwd (control)", *conv_probe.STAGE11_CASES]
+    if rows != want_rows:
+        raise AssertionError(f"train_opt_probe --stages 11,12,13: want the case lines {want_rows}, got {rows}")
+    n_cases = {"conv_probe": len(conv_probe.CASES), "conv1_pass": len(conv_probe.STAGE11_CASES),
+               "conv_forms": len(conv_probe.STAGE12_CASES)}
+    case_calls = train_opt_probe.calls_per_case()
+    if probe_launches["train_opt_probe"] != {k: case_calls * n for k, n in n_cases.items()}:
+        raise AssertionError(f"train_opt_probe: want {case_calls} launches per case call of each kernel, got "
+                             f"{probe_launches['train_opt_probe']}")
     diffs = dict(re.findall(r"^max \|logit diff\| vs base \((\w+)\): (\S+)$", probe_out["pool_kernel_probe"],
                             flags=re.M))
     rates = re.findall(r"^(reduce_window|depthwise|pallas) *: +[\d,]+ utt/s$", probe_out["pool_kernel_probe"], flags=re.M)
@@ -545,9 +625,10 @@ def main() -> int:
     if int(m.group(1)) != 2 * int(m.group(2)):
         raise AssertionError(f"pool_kernel_probe: K5 launched {m.group(1)} times over {m.group(2)} batches")
     phase("probes", f"CLIs: result lines present; pallas logits within {SCORE_ATOL} of reduce_window "
-                    f"({diffs['pallas']}); K5 twice per batch ({m.group(1)} over {m.group(2)})")
+                    f"({diffs['pallas']}); K5 twice per batch ({m.group(1)} over {m.group(2)}); train_opt_probe "
+                    f"one launch per case call ({case_calls} calls per case)")
 
-    # -- 13. timing --------------------------------------------------------
+    # -- 14. timing --------------------------------------------------------
     corpus = torch.randn(CORPUS // BATCH, BATCH, n_samples, device=dev, generator=gen)
 
     def score_corpus():
@@ -626,6 +707,17 @@ def main() -> int:
         ms, plain_ms = in_turns(lambda: conv_probe.checksum(case.plain(a, wt)), lambda: case.kernel(a, wt))
         cp_ms, cp_plain = cp_ms + ms, cp_plain + plain_ms
         phase("timing", f"conv-probe {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
+    pass_ms, pass_plain = dict.fromkeys(PASS_KERNELS, 0.0), dict.fromkeys(PASS_KERNELS, 0.0)
+    for key, name, case, a, wt in pass_cases:
+        reduce = (lambda y: y) if name == conv_probe.EMIT_CASE else conv_probe.checksum
+        ms, plain_ms = in_turns(lambda: reduce(case.plain(a, wt)), lambda: case.kernel(a, wt))
+        pass_ms[key], pass_plain[key] = pass_ms[key] + ms, pass_plain[key] + plain_ms
+        phase("timing", f"{key} {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
+    x11, w11 = pass_arrs["11"]["x"], pass_arrs["11"]["w"]
+    train_opt_probe.conv1_control(x11, w11)
+    control_ms = statistics.mean(cuda_ms(lambda: train_opt_probe.conv1_control(x11, w11), 10) for _ in range(2))
+    phase("timing", f"stage 11 control, cuDNN conv1 fwd (one bf16 F.conv2d, SAME, NHWC out) B={PROBE_BATCH}: "
+                    f"{control_ms:.4f} ms, on {card}")
 
     # bounds from this run's shapes (bytes: inputs read once, outputs written once)
     rows, fb_nnz = BATCH * N_FRAMES, int(np.count_nonzero(linear_filterbank(cfg)))
@@ -649,6 +741,14 @@ def main() -> int:
         macs = a.shape[0] * t_out * width * wt.numel()
         cp_parts.append(bound((read + wt.numel()) * 2 + PROBE_BATCH * 8 * 128 * 4, bf16=2 * macs))
     cp_bound = bound_sum(cp_parts)
+    pass_parts = {key: [] for key in PASS_KERNELS}
+    for key, name, case, a, wt in pass_cases:
+        macs, out_bytes = conv_pass_work(name, a, wt)
+        if name == "v0":  # reads no weights; an add and an FMA per value on the CUDA cores
+            pass_parts[key].append(bound(a.numel() * 2 + out_bytes, f32=3 * a.numel()))
+        else:  # counted at the bf16 rate whichever unit runs it
+            pass_parts[key].append(bound((a.numel() + wt.numel()) * 2 + out_bytes, bf16=2 * macs))
+    pass_bound = {key: bound_sum(parts) for key, parts in pass_parts.items()}
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,
@@ -663,11 +763,15 @@ def main() -> int:
         entry("fb_log_dct", "dfac_tpu_torch/csrc/lfcc_kernel.cu", "dfac_tpu/ops/pallas/lfcc_kernel.py:41",
               ext_launches["fft-pallas"]["fb_log_dct"], k4_err, k4_ms, k4_plain, k4_bound),
         entry("time_pool", "dfac_tpu_torch/csrc/pool_kernel.cu", "scripts/pool_kernel_probe.py:81",
-              probe_launches["pool_kernel_probe"], k5_err, k5_ms, k5_plain, k5_bound, k5_lib),
+              probe_launches["pool_kernel_probe"]["time_pool"], k5_err, k5_ms, k5_plain, k5_bound, k5_lib),
         entry("conv_probe", "dfac_tpu_torch/csrc/conv_probe.cu",
               "scripts/train_opt_probe.py:1108, scripts/pallas_err_probe.py:44",
-              probe_launches["pallas_err_probe"] + probe_launches["train_opt_probe"], cp_err, cp_ms, cp_plain,
-              cp_bound),
+              probe_launches["pallas_err_probe"]["conv_probe"] + probe_launches["train_opt_probe"]["conv_probe"],
+              cp_err, cp_ms, cp_plain, cp_bound),
+        *(entry(key, "dfac_tpu_torch/csrc/conv_probe.cu", replaces, probe_launches["train_opt_probe"][key],
+                pass_err[key], pass_ms[key], pass_plain[key], pass_bound[key])
+          for key, replaces in (("conv1_pass", "scripts/train_opt_probe.py:845"),
+                                ("conv_forms", "scripts/train_opt_probe.py:974"))),
     ]
     for k in kernels:
         phase("timing", f"{k['name']}: kernel {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

@@ -1,8 +1,9 @@
-// Conv-formulation probe checksums for Hopper (sm_90a): K6 and K9.
+// Conv-formulation probe checksums for Hopper (sm_90a): K6, K7, K8 and K9.
 //
-// Replaces: scripts/train_opt_probe.py  stage 13's kern_g (:1108), kern_h
-// (:1123), kern_i (:1136), kern_j (:1154) and kern_k (:1166), launched by
-// run (:1179-1189); and scripts/pallas_err_probe.py  kern_g (:44), kern_i
+// K6 and K9 (dfac_conv_probe) replace: scripts/train_opt_probe.py  stage
+// 13's kern_g (:1108), kern_h (:1123), kern_i (:1136), kern_j (:1154) and
+// kern_k (:1166), launched by run (:1179-1189); and
+// scripts/pallas_err_probe.py  kern_g (:44), kern_i
 // (:60), kern_j (:69), kern_k (:82), launched by run (:96-106), which are
 // the same four kernels on the same inputs. Each forms every output of a
 // conv in f32 from bf16 operands and writes the per-sample sum of them into
@@ -45,6 +46,55 @@
 //    repeats bit for bit.
 //  * Optionally (tests) every y is written to a (B, rows, cols, N) f32
 //    buffer as it is formed.
+//
+// K7 and K8 (dfac_conv_pass) replace: scripts/train_opt_probe.py  stage
+// 11's kern_v0..v4 (:845-901, launched by run :903-919) and stage 12's
+// kern_a (:974), kern_c (:989), kern_d (:1001) and kern_f (:1021),
+// launched by run (:1038-1048). x (B, T, F), w9 (9, 32), k = 3 dy + dx:
+//   v0  sum x + sum x^2 per sample                            (no conv)
+//   v1  y[t,f,co] = sum_k xp[t+dy, f+dx] w9[k,co], t<T, f<F   (SAME: xp is x zero-padded by 1)
+//   v2  as v1, on the tensor cores
+//   v3  as v2, summed over each group of 8 samples; a tail of < 8 samples is dropped
+//   v4  SAME conv -> y 1.01 + 0.01 -> ReLU -> mean of rows 2t, 2t+1 (t < T/2) -> bf16 (B, T/2, F, 32)
+//   a   y[t,f,co] = sum_k x[t+dy, f+dx] w9[k,co], t<T-2, f<F-2  (VALID), tensor cores
+//   c   y[m,co] = sum_k xf[min(dy W + dx, 2W) + m] w9[k,co], m < Np - 2W, on the flat padded
+//       sample xf (Np = (T+2) W, W = F+2); jax.lax.dynamic_slice clamps its start so that
+//       the slice fits, so taps 7 and 8 read tap 6's window. Tensor cores
+//   d   a's y on the CUDA cores: the h kernel above at rows T-2, cols F-2
+//   f   conv2 of h1 (B, T2+2, F+2, 32) with w2dx (3, 96, 64), w[3dy+dx][ci][co] =
+//       w2dx[dx][32 dy + ci][co]: the j kernel above, reading w2dx's layout as it stages
+//       the weights (one launch, no re-layout op)
+//
+// What bounds K7/K8 on the card, at the probe's B=512, T=321, F=180: every
+// case but v4 and f reads ~59 MB of x (~18 us at 3.35 TB/s) for 8.4-8.6e9
+// MACs (~17 us at the 989 TFLOP/s bf16 peak), so bytes and operations are
+// nearly even; on the CUDA cores (v1, d) the f32 FMA rate (67 TFLOP/s)
+// makes them ~0.25 ms of arithmetic. v4 writes 944 MB (~0.28 ms); f is
+// 0.54 TFLOP (~0.55 ms at the bf16 peak).
+//
+// Design (K7/K8):
+//  * v1 and d: the CUDA-core conv1 kernel of g/h; v1 adds a SAME mode that
+//    stages its rows zero-padded (R1 + 2 rows of F + 2 columns, the rows
+//    above and below the sample zero), so the inner loop is h's.
+//  * v2, v3, a, c: one tensor-core kernel, mma.sync m16n8k16 with K = 9
+//    padded to 16 by zero weight rows (exact). A block stages its input
+//    window in shared memory (SAME: 10 zero-padded rows; VALID: 10 rows;
+//    flat: a 2048-output chunk plus its 2W-element reach); each warp takes
+//    16 consecutive outputs of a row as the M tile, builds its A fragment
+//    from the window (thread (gid, tq) reads taps 2tq, 2tq + 1 and, for
+//    tq = 0, tap 8 of pixels gid and gid + 8), and multiplies it by the
+//    four 8-channel B fragments it keeps in registers. For v3 a block's
+//    rows run across the group's 8 samples (virtual row v is row v mod T of
+//    sample v / T), and a tap in a row of another sample reads zero. The
+//    K padding wastes 7/16 of the tensor-core work, which is not the limit:
+//    the fragment build is.
+//  * v4: one thread per pooled pixel holds its 4 x 3 inputs in registers
+//    and forms the two conv rows of all 32 channels with f32 FMAs, then
+//    the affine, ReLU and the pool in f32 and one cast, written as 16-byte
+//    vectors (the style of conv_block.cu's Cin = 1 kernel): the write bounds it.
+//  * v0: 4-byte (bf16 pair) loads, f32 sums, the checksum reduction below.
+//  * Every checksum case ends in finish_sample: one launch, a result that
+//    repeats bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,13 +153,42 @@ __device__ void finish_sample(float total, float* out, unsigned int* done) {
 }
 
 // Copy `n` bf16 from global to shared memory, 16 bytes a step when both
-// ends allow it; elements past `valid` are zero.
+// ends allow it; elements past `valid` are zero. The scalar path loads 8
+// values into registers before it stores any, so 8 loads are in flight.
 __device__ void stage(bf16* dst, const bf16* src, int n, int valid, bool vec) {
   if (vec && valid == n) {
     for (int i = threadIdx.x; i < n / 8; i += THREADS)
       reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
   } else {
-    for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = i < valid ? src[i] : __float2bfloat16_rn(0.f);
+    constexpr int U = 8;
+    for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
+      bf16 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = i0 + u * THREADS < valid ? src[i0 + u * THREADS] : __float2bfloat16_rn(0.f);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * THREADS < n) dst[i0 + u * THREADS] = v[u];
+    }
+  }
+}
+
+// Stage the zero-padded rows r0 - 1 .. r0 + R1 of `n_rows` contiguous rows
+// of width f_in (a sample, or v3's group of samples) into R1 + 2 rows of
+// f_in + 2 columns: each thread loads its column of all rows into registers
+// before it stores any, so they are in flight together.
+template <int R>
+__device__ void stage_padded(bf16* dst, const bf16* rows, int n_rows, int f_in, int r0) {
+  const int stride = f_in + 2;
+  for (int c = threadIdx.x; c < stride; c += THREADS) {
+    const bool col_ok = c >= 1 && c <= f_in;
+    bf16 v[R + 2];
+#pragma unroll
+    for (int j = 0; j < R + 2; ++j) {
+      const int t = r0 - 1 + j;
+      v[j] = col_ok && t >= 0 && t < n_rows ? rows[size_t(t) * f_in + c - 1] : __float2bfloat16_rn(0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < R + 2; ++j) dst[j * stride + c] = v[j];
   }
 }
 
@@ -117,13 +196,18 @@ __device__ void stage(bf16* dst, const bf16* src, int n, int valid, bool vec) {
 
 constexpr int R1 = 8;   // output rows per block
 constexpr int PX = 4;   // pixels (rows of one column) per thread step
+constexpr int SAME_PAD = 5;  // conv1_checksum's zero-padded taps (stage 11's v1)
 
-size_t conv1_smem(int mode, int f_in, int cols, int n_out) {
-  const size_t in = mode == I_PATCHES ? size_t(R1) * cols * 9 : size_t(R1 + 2) * f_in;
-  return (in * sizeof(bf16) + 15) / 16 * 16 + size_t(9) * n_out * sizeof(float);
+__host__ __device__ size_t conv1_in_elems(int mode, int f_in, int cols) {
+  if (mode == I_PATCHES) return size_t(R1) * cols * 9;
+  return size_t(R1 + 2) * (mode == SAME_PAD ? f_in + 2 : f_in);
 }
 
-// in: x (B, t_in, f_in) for g/h, p (B, rows, cols, 9) for i; w (9, n_out).
+size_t conv1_smem(int mode, int f_in, int cols, int n_out) {
+  return (conv1_in_elems(mode, f_in, cols) * sizeof(bf16) + 15) / 16 * 16 + size_t(9) * n_out * sizeof(float);
+}
+
+// in: x (B, t_in, f_in) for g/h/SAME, p (B, rows, cols, 9) for i; w (9, n_out).
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* __restrict__ out,
@@ -131,15 +215,17 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
                int n_out, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* s_in = reinterpret_cast<bf16*>(smem);
-  const size_t in_elems = MODE == I_PATCHES ? size_t(R1) * cols * 9 : size_t(R1 + 2) * f_in;
-  float* s_w = reinterpret_cast<float*>(smem + (in_elems * sizeof(bf16) + 15) / 16 * 16);
+  float* s_w = reinterpret_cast<float*>(smem + (conv1_in_elems(MODE, f_in, cols) * sizeof(bf16) + 15) / 16 * 16);
   const int b = blockIdx.y, r0 = blockIdx.x * R1;
+  const int stride = MODE == SAME_PAD ? f_in + 2 : f_in;  // of a staged x row
 
   for (int i = threadIdx.x; i < 9 * n_out; i += THREADS) s_w[i] = __bfloat162float(w[i]);
   if (MODE == I_PATCHES) {
     const int n = R1 * cols * 9;
     const int valid = min(rows - r0, R1) * cols * 9;
     stage(s_in, in + (size_t(b) * rows + r0) * cols * 9, n, valid, vec);
+  } else if (MODE == SAME_PAD) {  // rows r0 - 1 .. r0 + R1, a zero column on each side
+    stage_padded<R1>(s_in, in + size_t(b) * t_in * f_in, t_in, f_in, r0);
   } else {
     const int n = (R1 + 2) * f_in;
     const int valid = max(0, min(t_in - r0, R1 + 2)) * f_in;
@@ -165,7 +251,7 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
 #pragma unroll
       for (int r = 0; r < PX + 2; ++r)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) v[r][dx] = __bfloat162float(s_in[(rr + r) * f_in + col[dx]]);
+        for (int dx = 0; dx < 3; ++dx) v[r][dx] = __bfloat162float(s_in[(rr + r) * stride + col[dx]]);
 #pragma unroll
       for (int p = 0; p < PX; ++p)
 #pragma unroll
@@ -209,8 +295,10 @@ constexpr size_t SMEM2 = W_BYTES + X_BYTES;
 constexpr int MAX_BLOCKS2 = 8;  // blocks per sample: each loads the weights once
 static_assert(SMEM2 <= 232448, "227 KB of shared memory per block");
 
-// h (B, t_in, f_in, 32), w (9, 32, 64); y over t < rows, f < cols.
-template <bool WRAP>
+// h (B, t_in, f_in, 32), w (9, 32, 64), or with DX_LAYOUT stage 12's w2dx
+// (3, 96, 64), w[3 dy + dx][ci][co] = w2dx[dx][32 dy + ci][co]; y over
+// t < rows, f < cols.
+template <bool WRAP, bool DX_LAYOUT = false>
 __global__ void __launch_bounds__(THREADS)
 conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __restrict__ out,
                float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int rows, int cols) {
@@ -221,7 +309,8 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
 
   for (int i = threadIdx.x; i < 9 * CI2 * CO2; i += THREADS) {
     const int co = i % CO2, ci = (i / CO2) % CI2, t = i / (CO2 * CI2);
-    sW[(t * CO2 + co) * WS + ci] = w[i];
+    const int src = DX_LAYOUT ? ((t % 3) * 3 * CI2 + (t / 3) * CI2 + ci) * CO2 + co : i;
+    sW[(t * CO2 + co) * WS + ci] = w[src];
   }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -323,6 +412,262 @@ cudaError_t set_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
+// ---- K7 / K8 (stages 11 and 12) -------------------------------------------
+
+enum Pass { V0_SUMS = 0, V1_SAME_FMA, V2_SAME_MMA, V3_GROUP_MMA, V4_EMIT, A_VALID_MMA, C_FLAT_MMA, D_VALID_FMA,
+            F_CONV2_DX };
+
+// v0: out[b] = sum x + sum x^2 over the n elements of sample b.
+constexpr int V0_CHUNK = THREADS * 32;  // elements per block
+
+__global__ void __launch_bounds__(THREADS)
+sum_sq_checksum(const bf16* __restrict__ x, float* __restrict__ out, unsigned int* __restrict__ done, int n) {
+  const bf16* xs = x + size_t(blockIdx.y) * n;
+  const int e0 = blockIdx.x * V0_CHUNK, e1 = min(n, e0 + V0_CHUNK);
+  float s = 0.f, q = 0.f;
+  if (n % 2 == 0) {  // bf16 pairs: every sample starts 4-byte aligned
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(xs);
+    for (int i = e0 / 2 + threadIdx.x; i < e1 / 2; i += THREADS) {
+      const float2 v = __bfloat1622float2(x2[i]);
+      s += v.x + v.y;
+      q = fmaf(v.x, v.x, fmaf(v.y, v.y, q));
+    }
+  } else {
+    for (int i = e0 + threadIdx.x; i < e1; i += THREADS) {
+      const float v = __bfloat162float(xs[i]);
+      s += v;
+      q = fmaf(v, v, q);
+    }
+  }
+  finish_sample(block_sum(s + q), out, done);
+}
+
+// v2, v3, a, c: conv1 with N = 32 output channels on the tensor cores.
+constexpr int CO1 = 32;
+constexpr int FLAT_CHUNK = 2048;  // c: outputs per block
+enum MmaMode { M_SAME = 0, M_VALID = 1, M_FLAT = 2 };
+
+// Elements of the block's input window in shared memory (after the 16 x 32
+// weights). SAME: t_in, f_in are x's; VALID: the same; FLAT: t_in = Np, f_in = W.
+size_t conv1_mma_smem(int mode, int f_in) {
+  const size_t elems = mode == M_SAME    ? size_t(R1 + 2) * (f_in + 2)
+                       : mode == M_VALID ? size_t(R1 + 2) * f_in
+                                         : size_t(FLAT_CHUNK) + 2 * size_t(f_in);
+  return (size_t(CO1) * 16 + elems) * sizeof(bf16);
+}
+
+// Output blocks per result block (a sample, or v3's group of `group` samples).
+int conv1_mma_blocks(int mode, int t_in, int f_in, int group) {
+  if (mode == M_SAME) return (group * t_in + R1 - 1) / R1;
+  if (mode == M_VALID) return (t_in - 2 + R1 - 1) / R1;
+  return (t_in - 2 * f_in + FLAT_CHUNK - 1) / FLAT_CHUNK;
+}
+
+// x: (B, t_in, f_in) for SAME / VALID, (B, 1, Np = t_in) for FLAT (W = f_in);
+// w: (9, 32). Result block blockIdx.y covers samples blockIdx.y * group ..
+// + group - 1 (group = 1 but for v3). y, when given, is (outputs, 32) f32 in
+// the order of the result blocks' rows and columns.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ out,
+          float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sW = reinterpret_cast<bf16*>(smem);  // [co][k]: taps 0-8, zeros at k = 9..15
+  bf16* sX = sW + CO1 * 16;                  // the block's input window
+  const unsigned short* sXu = reinterpret_cast<const unsigned short*>(sX);
+  const int bo = blockIdx.y;
+
+  for (int i = threadIdx.x; i < CO1 * 16; i += THREADS) {
+    const int co = i / 16, k = i % 16;
+    sW[i] = k < 9 ? w[k * CO1 + co] : __float2bfloat16_rn(0.f);
+  }
+
+  // the result block's outputs: n_rows x cols; this block's window starts at
+  // output row row0 and, for FLAT (one row of M outputs), at column c_base
+  int stride, n_rows, cols, row0 = 0, c_base = 0;
+  __shared__ int s_edge[R1];  // SAME: bit 0, output row r is a sample's first row; bit 1, its last
+  if (MODE == M_SAME) {
+    stride = f_in + 2, n_rows = group * t_in, cols = f_in, row0 = blockIdx.x * R1;
+    // the group's samples are contiguous: its row v is row v % T of sample v / T
+    stage_padded<R1>(sX, x + size_t(bo) * n_rows * f_in, n_rows, f_in, row0);
+    if (threadIdx.x < R1) {
+      const int t = (row0 + threadIdx.x) % t_in;
+      s_edge[threadIdx.x] = (t == 0 ? 1 : 0) | (t == t_in - 1 ? 2 : 0);
+    }
+  } else if (MODE == M_VALID) {
+    stride = f_in, n_rows = t_in - 2, cols = f_in - 2, row0 = blockIdx.x * R1;
+    const int valid = max(0, min(t_in - row0, R1 + 2)) * f_in;
+    stage(sX, x + (size_t(bo) * t_in + row0) * f_in, (R1 + 2) * f_in, valid, f_in % 8 == 0);
+  } else {
+    stride = f_in, n_rows = 1, cols = t_in - 2 * f_in, c_base = blockIdx.x * FLAT_CHUNK;
+    const int n = FLAT_CHUNK + 2 * f_in;
+    stage(sX, x + size_t(bo) * t_in + c_base, n, min(n, t_in - c_base), false);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  // this thread's taps in the A fragment: k = 2tq, 2tq + 1 and (tq = 0) k = 8
+  int off[3], dyk[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int k = e < 2 ? 2 * tq + e : 8, dy = k / 3, dx = k % 3;
+    dyk[e] = dy;
+    off[e] = MODE == M_FLAT ? min(dy * stride + dx, 2 * stride) : dy * stride + dx;
+  }
+  uint32_t bw[CO1 / 8][2];  // B fragments: rows k, column co = 8 j + gid
+#pragma unroll
+  for (int j = 0; j < CO1 / 8; ++j) {
+    bw[j][0] = ld32(sW + (8 * j + gid) * 16 + 2 * tq);
+    bw[j][1] = ld32(sW + (8 * j + gid) * 16 + 2 * tq + 8);
+  }
+
+  const int ct = MODE == M_FLAT ? FLAT_CHUNK / 16 : (cols + 15) / 16;  // 16-output tiles per row
+  const int n_rows_blk = MODE == M_FLAT ? 1 : R1;
+  float s = 0.f;
+  // warp w takes tiles w, w + 8, ... of the block's n_rows_blk x ct tiles, row by row
+  int r = warp / ct, cb = warp % ct;
+  for (; r < n_rows_blk; cb += THREADS / 32) {
+    while (cb >= ct) cb -= ct, ++r;
+    if (r >= n_rows_blk) break;
+    const int c0 = cb * 16, row = row0 + r;
+    bool tap_ok[3] = {true, true, true};
+    if (MODE == M_SAME) {  // taps above the first / below the last row of a sample read zero
+      const int edge = s_edge[r];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) tap_ok[e] = !((dyk[e] == 0 && (edge & 1)) || (dyk[e] == 2 && (edge & 2)));
+    }
+    uint32_t a[4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // pixels gid and gid + 8 of the tile
+      const int c = c0 + gid + 8 * hh, base = r * stride + c;
+      uint32_t lo = 0u, hi = 0u, k8 = 0u;
+      if (row < n_rows && c_base + c < cols) {
+        if (tap_ok[0]) lo = sXu[base + off[0]];
+        if (tap_ok[1]) hi = sXu[base + off[1]];
+        if (tq == 0 && tap_ok[2]) k8 = sXu[base + off[2]];
+      }
+      a[hh] = lo | (hi << 16);
+      a[2 + hh] = k8;
+    }
+    float acc[CO1 / 8][4];
+#pragma unroll
+    for (int j = 0; j < CO1 / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      mma_bf16(acc[j], a, bw[j][0], bw[j][1]);
+    }
+    // accumulator (j, 2 hh + e) holds y[pixel gid + 8 hh, co 8 j + 2 tq + e]; a
+    // pixel outside the outputs has a zero A row, so its y is 0
+#pragma unroll
+    for (int j = 0; j < CO1 / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s += acc[j][e];
+    if (y) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = c_base + c0 + gid + 8 * hh;
+        if (row >= n_rows || c >= cols) continue;
+        float* yp = y + ((size_t(bo) * n_rows + row) * cols + c) * CO1 + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < CO1 / 8; ++j) {
+          yp[8 * j] = acc[j][2 * hh];
+          yp[8 * j + 1] = acc[j][2 * hh + 1];
+        }
+      }
+    }
+  }
+  finish_sample(block_sum(s), out, done);
+}
+
+// v4: x (B, t_in, f_in), w (9, n_out) -> out (B, t_in / 2, f_in, n_out) bf16:
+// SAME conv, y 1.01 + 0.01, ReLU, the mean of conv rows 2t and 2t + 1, one
+// cast. One thread per pooled pixel.
+__global__ void __launch_bounds__(THREADS)
+conv1_emit(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out, int batch, int t_in,
+           int f_in, int n_out) {
+  extern __shared__ float s_w[];  // [9][n_out]
+  for (int i = threadIdx.x; i < 9 * n_out; i += THREADS) s_w[i] = __bfloat162float(w[i]);
+  __syncthreads();
+  const int t_out = t_in / 2;
+  const long long pix = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (pix >= (long long)batch * t_out * f_in) return;
+  const int col = int(pix % f_in);
+  const long long r = pix / f_in;
+  const int to = int(r % t_out), b = int(r / t_out);
+  float xv[4][3];  // rows 2 to - 1 .. 2 to + 2, columns col - 1 .. col + 1
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = 2 * to - 1 + i;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int c = col - 1 + j;
+      xv[i][j] = t >= 0 && t < t_in && c >= 0 && c < f_in ? __bfloat162float(x[(size_t(b) * t_in + t) * f_in + c])
+                                                           : 0.f;
+    }
+  }
+  bf16* o = out + pix * n_out;
+  for (int c0 = 0; c0 < n_out; c0 += 8) {
+    float res[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) res[e] = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float acc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const float v = xv[rr + t / 3][t % 3];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = fmaf(v, s_w[t * n_out + c0 + e], acc[e]);
+      }
+      // separate multiply and add, as the reference's y * 1.01 + 0.01 (no contraction)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) res[e] += fmaxf(__fadd_rn(__fmul_rn(acc[e], 1.01f), 0.01f), 0.f);
+    }
+    uint4 v;
+    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p2[e] = __floats2bfloat162_rn(0.5f * res[2 * e], 0.5f * res[2 * e + 1]);
+    *reinterpret_cast<uint4*>(o + c0) = v;
+  }
+}
+
+// Blocks per result block of a K7/K8 case (0: its geometry is refused).
+int pass_blocks(int kase, int t_in, int f_in, int group) {
+  switch (kase) {
+    case V0_SUMS: return (t_in * f_in + V0_CHUNK - 1) / V0_CHUNK;
+    case V1_SAME_FMA: return (t_in + R1 - 1) / R1;
+    case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(H_SLICE, t_in - 2, f_in - 2) : 0;
+    case F_CONV2_DX: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(J_SLICE, t_in - 2, f_in - 2) : 0;
+    case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_blocks(M_SAME, t_in, f_in, group);
+    case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? conv1_mma_blocks(M_VALID, t_in, f_in, 1) : 0;
+    case C_FLAT_MMA: return t_in > 2 * f_in ? conv1_mma_blocks(M_FLAT, t_in, f_in, 1) : 0;
+    default: return 0;
+  }
+}
+
+size_t pass_smem(int kase, int f_in, int n_out) {
+  switch (kase) {
+    case V1_SAME_FMA: return conv1_smem(SAME_PAD, f_in, f_in, n_out);
+    case D_VALID_FMA: return conv1_smem(H_SLICE, f_in, f_in - 2, n_out);
+    case F_CONV2_DX: return SMEM2;
+    case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_smem(M_SAME, f_in);
+    case A_VALID_MMA: return conv1_mma_smem(M_VALID, f_in);
+    case C_FLAT_MMA: return conv1_mma_smem(M_FLAT, f_in);
+    case V4_EMIT: return size_t(9) * n_out * sizeof(float);
+    default: return 0;
+  }
+}
+
+template <typename K, typename... Args>
+cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
+  cudaError_t err = set_smem(kern, smem);
+  if (err == cudaSuccess) kern<<<grid, THREADS, smem, s>>>(args...);
+  return err;
+}
+
 }  // namespace
 
 // kase: 0 g, 1 h, 2 i, 3 j, 4 k. in: x (B, t_in, f_in) bf16 for g/h, patches
@@ -379,3 +724,74 @@ extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* o
 extern "C" int dfac_conv_probe_smem(int kase, int f_in, int cols, int n_out) {
   return kase <= I_PATCHES ? int(conv1_smem(kase, f_in, cols, n_out)) : int(SMEM2);
 }
+
+// Stages 11 and 12 (K7, K8). kase: 0 v0, 1 v1, 2 v2, 3 v3, 4 v4, 5 a, 6 c,
+// 7 d, 8 f. in: x (B, t_in, f_in) bf16, but for c the flat padded samples
+// (B, 1, t_in = Np) with f_in = W (M = Np - 2W outputs), and for f h1 (B,
+// t_in, f_in, 32). w: (9, n_out) for v1, d, v4; (9, 32) for v2, v3, a, c
+// (n_out = 32); w2dx (3, 96, 64) for f (n_out = 64); unused for v0. out:
+// (n_res, 8, 128) f32, where n_res = batch result blocks (samples; for v3
+// groups of `group` samples), or for v4 (batch, t_in / 2, f_in, n_out) bf16.
+// y: null, or every output in f32 (not for v0 and v4). done: n_res zeroed
+// counters (scratch; unused for v4). 16-byte aligned `in` and `out`. One
+// kernel launch on `stream`, no synchronisation; returns cudaGetLastError().
+extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out, float* y, void* done_, int batch,
+                              int t_in, int f_in, int n_out, int group, void* stream) {
+  if (kase < V0_SUMS || kase > F_CONV2_DX || batch <= 0 || batch > 65535 || t_in <= 0 || f_in <= 0 ||
+      group < 1 || (kase != V3_GROUP_MMA && group != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool mma = kase == V2_SAME_MMA || kase == V3_GROUP_MMA || kase == A_VALID_MMA || kase == C_FLAT_MMA;
+  if ((mma && n_out != CO1) || (kase == F_CONV2_DX && n_out != CO2) ||
+      ((kase == V1_SAME_FMA || kase == D_VALID_FMA) && (n_out <= 0 || n_out > 1024)) ||
+      (kase == V4_EMIT && (n_out <= 0 || n_out % 8 || t_in < 2)) || size_t(t_in) * f_in > (size_t(1) << 30))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = pass_blocks(kase, t_in, f_in, group);
+  const size_t smem = pass_smem(kase, f_in, n_out);
+  if ((kase != V4_EMIT && (blocks <= 0 || blocks > OUT_PER_SAMPLE)) || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* x = static_cast<const bf16*>(in);
+  const bf16* wk = static_cast<const bf16*>(w);
+  float* o = static_cast<float*>(out);
+  unsigned int* done = static_cast<unsigned int*>(done_);
+  const dim3 grid(blocks, batch);
+  cudaError_t err = cudaSuccess;
+  switch (kase) {
+    case V0_SUMS:
+      sum_sq_checksum<<<grid, THREADS, 0, s>>>(x, o, done, t_in * f_in);
+      break;
+    case V1_SAME_FMA:
+      err = launch(conv1_checksum<SAME_PAD>, grid, smem, s, x, wk, o, y, done, t_in, f_in, t_in, f_in, n_out, 0);
+      break;
+    case D_VALID_FMA:
+      err = launch(conv1_checksum<H_SLICE>, grid, smem, s, x, wk, o, y, done, t_in, f_in, t_in - 2, f_in - 2, n_out,
+                   int(f_in % 8 == 0));
+      break;
+    case F_CONV2_DX:
+      err = launch(conv2_checksum<false, true>, grid, smem, s, x, wk, o, y, done, t_in, f_in, t_in - 2, f_in - 2);
+      break;
+    case V2_SAME_MMA:
+    case V3_GROUP_MMA:
+      err = launch(conv1_mma<M_SAME>, grid, smem, s, x, wk, o, y, done, t_in, f_in, group);
+      break;
+    case A_VALID_MMA:
+      err = launch(conv1_mma<M_VALID>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1);
+      break;
+    case C_FLAT_MMA:
+      err = launch(conv1_mma<M_FLAT>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1);
+      break;
+    case V4_EMIT: {
+      const long long pixels = (long long)batch * (t_in / 2) * f_in;
+      if (pixels == 0) return (int)cudaSuccess;
+      err = launch(conv1_emit, dim3(unsigned((pixels + THREADS - 1) / THREADS)), smem, s, x, wk,
+                   static_cast<bf16*>(out), batch, t_in, f_in, n_out);
+      break;
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block of the kernel dfac_conv_pass runs for this
+// case and geometry, in bytes.
+extern "C" int dfac_conv_pass_smem(int kase, int f_in, int n_out) { return int(pass_smem(kase, f_in, n_out)); }

@@ -36,8 +36,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel name -> launches since the last reset
-LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0, "conv_probe": 0}
+# kernel name -> launches since the last reset. conv_probe counts K6/K9
+# (stage 13's g-k), conv1_pass K7 (stage 11's v0-v4), conv_forms K8
+# (stage 12's a, c, d, f); the three share csrc/conv_probe.cu.
+LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0, "conv_probe": 0,
+            "conv1_pass": 0, "conv_forms": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -52,12 +55,15 @@ _SIGNATURES = {
     "dfac_time_pool": [_P, _P, _I, _I, _I, _I, _I, _P],
     # case, in, w, out, y (or null), done, batch, t_in, f_in, rows, cols, n_out, stream
     "dfac_conv_probe": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # case, in, w, out, y (or null), done, batch, t_in, f_in, n_out, group, stream
+    "dfac_conv_pass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dynamic shared memory per block, bytes: (bf16), (c_in, c_out, bf16), (),
-    # (case, f_in, cols, n_out)
+    # (case, f_in, cols, n_out), (case, f_in, n_out)
     "dfac_gemm_frontend_smem": [_I],
     "dfac_conv_block_smem": [_I, _I, _I],
     "dfac_fb_log_dct_smem": [],
     "dfac_conv_probe_smem": [_I, _I, _I, _I],
+    "dfac_conv_pass_smem": [_I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

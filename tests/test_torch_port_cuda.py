@@ -9,7 +9,10 @@ rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
 and non-contiguous power; for the time pool odd T, f32, rows that are not
 16-byte vectors, misaligned, transposed and untileable inputs; for the
 conv-probe checksums each case at B=1 and B=3 with every output, the wrap
-columns included, against the plain version). On the card, without the JAX
+columns included, against the plain version; for stages 11 and 12's cases
+odd T, F that is not a multiple of 8 (d's scalar staging path), batches
+that are not multiples of v3's group of 8, every output against the plain
+version). On the card, without the JAX
 package's conftest (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
@@ -267,3 +270,105 @@ def test_conv_probe_kernel_rejects_what_it_does_not_take(cuda):
         conv_probe.conv1_taps_checksum(arrs["x"].float(), arrs["w9"].float())
     with pytest.raises(ValueError, match="32 -> 64"):
         conv_probe.conv2_checksum(arrs["h1"], torch.zeros(9, 32, 16, device=cuda, dtype=torch.bfloat16))
+
+
+def _pass_inputs(batch, t, f, device, seed):
+    """Stage 11/12 arrays at (B, T, F): x, w (3, 3, 32), w9 (its (9, 32) view),
+    xpad_flat, h1 (B, T // 2 + 2, F + 2, 32), w2dx (3, 96, 64)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, t, f, generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn(3, 3, 32, generator=gen) * 0.1).to(device, torch.bfloat16)
+    return {"x": x, "w": w, "w9": w.reshape(9, 32),
+            "xpad_flat": torch.nn.functional.pad(x, (1, 1, 1, 1)).reshape(batch, 1, -1),
+            "h1": torch.randn(batch, t // 2 + 2, f + 2, 32, generator=gen).to(device, torch.bfloat16),
+            "w2dx": (torch.randn(3, 96, 64, generator=gen) * 0.1).to(device, torch.bfloat16)}
+
+
+PASS_CASES = {**conv_probe.STAGE11_CASES, **conv_probe.STAGE12_CASES}
+PASS_Y = {  # checksum case -> f(input, weights) -> (sums, y); v0 forms no y, so its plain one stands in
+    "v0": lambda x, _: (conv_probe.sum_sq_checksum(x), conv_probe.sum_sq_plain(x)),
+    "v1": lambda x, w: conv_probe.conv1_same_checksum(x, w, "fma", return_y=True),
+    "v2": lambda x, w: conv_probe.conv1_same_checksum(x, w, "mma", return_y=True),
+    "v3": lambda x, w: conv_probe.conv1_group_checksum(x, w, return_y=True),
+    "a": lambda x, w: conv_probe.conv1_valid_checksum(x, w, "mma", return_y=True),
+    "c": lambda x, w: conv_probe.flat_shift_checksum(x, w, return_y=True),
+    "d": lambda x, w: conv_probe.conv1_valid_checksum(x, w, "fma", return_y=True),
+    "f": lambda x, w: conv_probe.conv2_dx_checksum(x, w, return_y=True),
+}
+PASS_SHAPES = [(10, 33, 21), (19, 321, 180)]  # B = 8 + 2 and 2 * 8 + 3; odd T; F % 8 = 5, 4
+
+
+@pytest.mark.parametrize("name", list(PASS_Y))
+@pytest.mark.parametrize("shape", PASS_SHAPES)
+def test_conv_pass_kernel_matches_plain(cuda, name, shape, monkeypatch):
+    """Every y of the stage 11/12 checksum cases against the plain version,
+    the checksum within 1e-5 sum |y|, one launch per call, and the sums alone
+    equal to the sums with y, bit for bit."""
+    monkeypatch.setattr(conv_probe, "FLAT_WIDTH", shape[2] + 2)  # c's row width at this F
+    arrs = _pass_inputs(*shape, cuda, seed=shape[0])
+    case = PASS_CASES[name]
+    inp, w = arrs[case.inp], arrs[case.weights]
+    key = "conv1_pass" if name in conv_probe.STAGE11_CASES else "conv_forms"
+    before = _build.launch_counts()
+    out, y = PASS_Y[name](inp, w)
+    want_y = case.plain(inp, w)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {**before, key: before[key] + 1}
+    assert out.shape == (want_y.shape[0], 8, 128) and torch.equal(out, out[:, :1, :1].expand_as(out))
+    if name != "v0":  # v0 forms no y
+        assert y.shape == want_y.shape
+        # exact bf16 products; f32 sums of 9 (conv1) or 288 (conv2) terms in another order
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-5)
+    dims = tuple(range(1, want_y.dim()))
+    bound = 1e-5 * want_y.double().abs().sum(dim=dims)
+    assert bool(((out[:, 0, 0].double() - want_y.double().sum(dim=dims)).abs() <= bound).all())
+    assert torch.equal(case.kernel(inp, w), out)
+
+
+@pytest.mark.parametrize("shape", PASS_SHAPES + [(3, 8, 16), (2, 1, 9)])
+def test_conv_emit_kernel_matches_plain(cuda, shape):
+    """v4 within one bf16 last bit of its plain version (odd T: the last conv
+    row is dropped; T = 1: no pooled row, no launch), bit for bit twice."""
+    arrs = _pass_inputs(*shape, cuda, seed=shape[1])
+    before = _build.launch_counts()["conv1_pass"]
+    got = conv_probe.conv1_emit(arrs["x"], arrs["w"])
+    want = conv_probe.conv1_emit_plain(arrs["x"], arrs["w"])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["conv1_pass"] == before + (shape[1] >= 2)
+    assert got.shape == want.shape == (shape[0], shape[1] // 2, shape[2], 32) and got.dtype == torch.bfloat16
+    assert _close_bf16_last_bit(got, want)
+    assert torch.equal(conv_probe.conv1_emit(arrs["x"], arrs["w"]), got)
+
+
+def test_conv_pass_group_tail(cuda):
+    """v3 below one group: an empty result and no launch; a tail past the
+    last group is not read."""
+    arrs = _pass_inputs(12, 9, 13, cuda, seed=3)
+    before = _build.launch_counts()["conv1_pass"]
+    assert conv_probe.conv1_group_checksum(arrs["x"][:7], arrs["w"]).shape == (0, 8, 128)
+    assert _build.launch_counts()["conv1_pass"] == before
+    tail = arrs["x"].clone()
+    tail[8:] = 1e4
+    assert torch.equal(conv_probe.conv1_group_checksum(tail, arrs["w"]),
+                       conv_probe.conv1_group_checksum(arrs["x"], arrs["w"]))
+
+
+def test_conv_pass_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
+    monkeypatch.setattr(conv_probe, "FLAT_WIDTH", 15)  # xpad_flat's row width at F = 13
+    arrs = _pass_inputs(2, 9, 13, cuda, seed=0)
+    x, w, w9 = arrs["x"], arrs["w"], arrs["w9"]
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv_probe.conv1_same_checksum(x.float(), w.float(), "mma")
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv_probe.sum_sq_checksum(x.half())
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.conv1_valid_checksum(x, w9[:, :16], "mma")
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.flat_shift_checksum(arrs["xpad_flat"], w9[:, :16])
+    with pytest.raises(ValueError, match="8 channels"):
+        conv_probe.conv1_emit(x, w[..., :12])
+    with pytest.raises(ValueError, match="32 -> 64"):
+        conv_probe.conv2_dx_checksum(arrs["h1"], arrs["w2dx"][..., :32])
+    monkeypatch.setattr(conv_probe, "FLAT_WIDTH", 10 * 15)
+    with pytest.raises(ValueError, match="no output"):
+        conv_probe.flat_shift_checksum(arrs["xpad_flat"], w9)

@@ -50,6 +50,14 @@ time_pool(torch.zeros(1, 5, 2, 2, dtype=torch.bfloat16), tt=2)
 conv1_taps_checksum(torch.zeros(1, 322, 130, dtype=torch.bfloat16), torch.zeros(9, 2, dtype=torch.bfloat16), "slice")
 patches_checksum(torch.zeros(1, 2, 3, 9, dtype=torch.bfloat16), torch.zeros(9, 2, dtype=torch.bfloat16))
 conv2_checksum(torch.zeros(1, 162, 8, 4, dtype=torch.bfloat16), torch.zeros(9, 4, 2, dtype=torch.bfloat16), "roll")
+from dfac_tpu_torch.ops import conv_probe
+x, w = torch.zeros(8, 5, 6, dtype=torch.bfloat16), torch.zeros(3, 3, 8, dtype=torch.bfloat16)
+for case in conv_probe.STAGE11_CASES.values():
+    case.kernel(x, w)
+conv_probe.conv1_valid_checksum(x, w.reshape(9, 8), "fma")
+conv_probe.FLAT_WIDTH = 8
+conv_probe.flat_shift_checksum(torch.zeros(1, 1, 56, dtype=torch.bfloat16), w.reshape(9, 8))
+conv_probe.conv2_dx_checksum(torch.zeros(1, 5, 6, 4, dtype=torch.bfloat16), torch.zeros(3, 12, 2, dtype=torch.bfloat16))
 print(json.dumps({"mods": mods, "bad": bad, "launches": _build.launch_counts(), "scores": list(scores.shape)}))
 """
 
@@ -64,7 +72,7 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     assert report["bad"] == []
     # CPU tensors: plain versions only
     assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0,
-                                  "conv_probe": 0}
+                                  "conv_probe": 0, "conv1_pass": 0, "conv_forms": 0}
     assert report["scores"] == [2]
 
 
