@@ -5,8 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; each prints its lines, and any failure ends the run with a
-non-zero exit code and no result line:
+Phases, in order; each prints its lines, headed by the seconds since the
+start, and any failure ends the run with a non-zero exit code and no result
+line:
 
 1. device   torch / CUDA / nvcc versions, the card's name and power limit
 2. build    every kernel from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
@@ -39,19 +40,21 @@ non-zero exit code and no result line:
 11. conv-probe  the conv-probe checksum kernel, cases g, h, i, j, k, against
             their plain versions at stage 13's shapes at B=512, bf16, one
             launch per call, a second call equal bit for bit
-12. conv-pass  stages 11 and 12's kernels (K7: v0-v4, K8: a, c, d, f)
-            against their plain versions at the stages' shapes at B=512,
-            bf16: the checksums within 1e-5 of sum |y|, v4's emitted tensor
-            within one bf16 last bit; one launch per call, a second call
-            equal bit for bit
+12. conv-pass  stages 11, 12, 14 and 15's kernels (K7: v0-v4, K8: a, c, d,
+            f, K10: h2, i2, j2, K11: j3, j4, j5, c2) against their plain
+            versions at the stages' shapes at B=512, bf16: the checksums
+            within 1e-5 of sum |y|, v4's emitted tensor within one bf16 last
+            bit; one launch per call under the stage's counter, a second
+            call equal bit for bit
 13. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
-            --stages 11,12,13`` and ``pool_kernel_probe`` as ``python -m`` at
-            their defaults: exit 0, their result lines, logits of the
-            ``pallas`` chain within 2e-2 of ``reduce_window``; each prints
-            its run's launch counters (a new process, so they start at 0),
-            which must show the conv-probe kernels (for ``train_opt_probe``
-            K9, K7 and K8, each once per case call), K5 for the pool probe
-            (twice per batch of its ``pallas`` variant), and nothing else
+            --stages 11,12,13,14,15`` and ``pool_kernel_probe`` as ``python
+            -m`` at their defaults: exit 0, their result lines, logits of
+            the ``pallas`` chain within 2e-2 of ``reduce_window``; each
+            prints its run's launch counters (a new process, so they start
+            at 0), which must show the conv-probe kernels (for
+            ``train_opt_probe`` K9, K7, K8, K10 and K11, each once per case
+            call), K5 for the pool probe (twice per batch of its ``pallas``
+            variant), and nothing else
 14. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
             7, host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
@@ -61,7 +64,8 @@ non-zero exit code and no result line:
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (for ``conv_block``, ``time_pool``,
-``conv_probe``, ``conv1_pass`` and ``conv_forms``, ``ms``, ``plain_ms``,
+``conv_probe``, ``conv1_pass``, ``conv_forms``, ``conv_chunked`` and
+``conv_trailing``, ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over the shapes or cases of one
 batch) and ``{"ok": true, "device": {...}}``. ``bound_ms`` is the least time the card could take for the same
 work: the larger of the bytes each call must move (inputs read once,
@@ -85,6 +89,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 SEED = 0
 BATCH = 128
 N_FRAMES = 321
@@ -115,7 +120,10 @@ METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package
 CHECKSUM_RTOL = 1e-5  # conv-probe checksums: bf16 x bf16 products are exact in
 # f32, so kernel and plain differ only by f32 summation order; bound relative
 # to the sample's sum |y|
-PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12"}  # K7, K8 -> their train_opt_probe stage
+# K7, K8, K10, K11 -> their train_opt_probe stage
+PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12", "conv_chunked": "14", "conv_trailing": "15"}
+PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
+                 "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
 
 def card_line() -> str:
@@ -133,7 +141,7 @@ def require(ok, msg) -> None:
 
 
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name} {time.perf_counter() - START:.1f}s] {msg}", flush=True)
 
 
 def max_errors(got, want):
@@ -187,6 +195,23 @@ def conv_pass_work(name: str, a, wt) -> tuple[int, int]:
               "a": b * (t - 2) * (f - 2), "d": b * (t - 2) * (f - 2)}[name]
     out_bytes = {"v3": b // 8 * sums, "v4": b * (t // 2) * f * wt.shape[-1] * 2}.get(name, b * sums)
     return pixels * wt.numel(), out_bytes  # 9 taps x CO weights per output pixel
+
+
+def chunk_work(name: str, a, wt) -> tuple[int, int]:
+    """(multiply-adds, input elements the result depends on) of one call of
+    stage 14/15's case ``name`` on input ``a`` and weights ``wt``."""
+    from dfac_tpu_torch.ops import conv_probe as cp
+
+    b = a.shape[0]
+    if name == "c2":  # row 0 of xf alone; taps 9-15 are zero and add nothing
+        return b * cp.CHUNKS * cp.CHUNK_LEN * 9 * wt.shape[0], b * a.shape[-1]
+    if name == "i2":  # the planes' rows t < CONV1_ROWS
+        return b * cp.CONV1_ROWS * a.shape[-1] * wt.numel(), a[:, :, : cp.CONV1_ROWS].numel()
+    if name == "h2":  # rows t + dy, the columns of the windows
+        read = set().union(*(range(s, s + cp.H2_WINDOW + 2) for s in cp.h2_col_starts(a.shape[2])))
+        return b * cp.CONV1_ROWS * cp.H2_WINDOWS * cp.H2_WINDOW * wt.numel(), b * (cp.CONV1_ROWS + 2) * len(read)
+    rows, cols = (cp.CONV3_ROWS, cp.CONV3_COLS) if name == "j5" else (cp.CONV2_ROWS, cp.CONV2_SLICE_COLS)
+    return b * rows * cols * wt.numel(), a[:, : rows + 2, : cols + 2].numel()  # j2-j4: w2 or w2i, 9 x 32 x 64
 
 
 def in_turns(plain, kernel, reps: int = 10):
@@ -249,6 +274,11 @@ def main() -> int:
         "conv1_mma a": lib.dfac_conv_pass_smem(5, 180, 32),
         "conv1_mma c": lib.dfac_conv_pass_smem(6, 182, 32),
         "conv1_emit v4": lib.dfac_conv_pass_smem(4, 180, 32),
+        "conv1_mma h2": lib.dfac_conv_chunk_smem(0, 256, 256, 32),
+        "conv1_checksum i2": lib.dfac_conv_chunk_smem(1, 256, 256, 32),
+        "conv2_checksum j4": lib.dfac_conv_chunk_smem(2, 192, 176, 64),
+        "conv2_checksum j5": lib.dfac_conv_chunk_smem(3, 192, 176, 128),
+        "conv1_mma c2": lib.dfac_conv_chunk_smem(4, 182, 65536, 32),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
     name = None
@@ -535,9 +565,9 @@ def main() -> int:
             raise AssertionError(f"conv-probe case {name} disagrees with its plain version")
         cp_err = max(cp_err, err.max().item())
 
-    # -- 12. stages 11 and 12's kernels (K7, K8) vs plain --------------------
-    pass_arrs = {"11": train_opt_probe.stage11_inputs(PROBE_BATCH, torch.bfloat16, dev, SEED),
-                 "12": train_opt_probe.stage12_inputs(PROBE_BATCH, torch.bfloat16, dev, SEED)}
+    # -- 12. stages 11, 12, 14 and 15's kernels (K7, K8, K10, K11) vs plain --
+    pass_arrs = {stage: getattr(train_opt_probe, f"stage{stage}_inputs")(PROBE_BATCH, torch.bfloat16, dev, SEED)
+                 for stage in PASS_KERNELS.values()}
     pass_cases = [(key, name, case, pass_arrs[stage][case.inp], pass_arrs[stage][case.weights])
                   for key, stage in PASS_KERNELS.items()
                   for name, case in getattr(conv_probe, f"STAGE{stage}_CASES").items()]
@@ -575,10 +605,11 @@ def main() -> int:
         pass_err[key] = max(pass_err[key], err)
 
     # -- 13. the probes' CLIs, each with its launch counts -----------------
+    torch.cuda.empty_cache()  # phase 12's plain outputs stay cached otherwise, and the probes need the memory
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     probe_out, probe_launches = {}, {}
     for probe, args, kernels in (("pallas_err_probe", [], ["conv_probe"]),
-                                 ("train_opt_probe", ["--stages", "11,12,13"], ["conv_probe", *PASS_KERNELS]),
+                                 ("train_opt_probe", ["--stages", "11,12,13,14,15"], ["conv_probe", *PASS_KERNELS]),
                                  ("pool_kernel_probe", [], ["time_pool"])):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"dfac_tpu_torch.scripts.{probe}", *args],
@@ -604,11 +635,13 @@ def main() -> int:
     rows = re.findall(r"^  ([acdfghijk]) .+: +\d+\.\d+ ms  \( *\S+ TF/s\)$", opt_out, flags=re.M)
     rows += re.findall(r"^  (cuDNN conv1 fwd \(control\)) +: +\d+\.\d+ ms$", opt_out, flags=re.M)
     rows += re.findall(r"^  (v[0-4]) .+: +\d+\.\d+ ms$", opt_out, flags=re.M)
-    want_rows = [*conv_probe.STAGE12_CASES, *conv_probe.CASES, "cuDNN conv1 fwd (control)", *conv_probe.STAGE11_CASES]
+    rows += re.findall(r"^  ([hijc]\d) .+: +\d+\.\d+ ms  \( *\S+ TF/s\)$", opt_out, flags=re.M)
+    want_rows = [*conv_probe.STAGE12_CASES, *conv_probe.CASES, "cuDNN conv1 fwd (control)", *conv_probe.STAGE11_CASES,
+                 *conv_probe.STAGE14_CASES, *conv_probe.STAGE15_CASES]
     if rows != want_rows:
-        raise AssertionError(f"train_opt_probe --stages 11,12,13: want the case lines {want_rows}, got {rows}")
-    n_cases = {"conv_probe": len(conv_probe.CASES), "conv1_pass": len(conv_probe.STAGE11_CASES),
-               "conv_forms": len(conv_probe.STAGE12_CASES)}
+        raise AssertionError(f"train_opt_probe --stages 11,12,13,14,15: want the case lines {want_rows}, got {rows}")
+    n_cases = {"conv_probe": len(conv_probe.CASES),
+               **{key: len(getattr(conv_probe, f"STAGE{stage}_CASES")) for key, stage in PASS_KERNELS.items()}}
     case_calls = train_opt_probe.calls_per_case()
     if probe_launches["train_opt_probe"] != {k: case_calls * n for k, n in n_cases.items()}:
         raise AssertionError(f"train_opt_probe: want {case_calls} launches per case call of each kernel, got "
@@ -743,11 +776,17 @@ def main() -> int:
     cp_bound = bound_sum(cp_parts)
     pass_parts = {key: [] for key in PASS_KERNELS}
     for key, name, case, a, wt in pass_cases:
+        if PASS_KERNELS[key] in ("14", "15"):  # only the part of the input the result depends on
+            macs, read = chunk_work(name, a, wt)
+            pass_parts[key].append(bound((read + wt.numel()) * 2 + PROBE_BATCH * 8 * 128 * 4, bf16=2 * macs))
+            continue
         macs, out_bytes = conv_pass_work(name, a, wt)
         if name == "v0":  # reads no weights; an add and an FMA per value on the CUDA cores
             pass_parts[key].append(bound(a.numel() * 2 + out_bytes, f32=3 * a.numel()))
         else:  # counted at the bf16 rate whichever unit runs it
             pass_parts[key].append(bound((a.numel() + wt.numel()) * 2 + out_bytes, bf16=2 * macs))
+    for (key, name, *_), (ms, by) in zip(pass_cases, (p for parts in pass_parts.values() for p in parts)):
+        phase("timing", f"{key} {name} B={PROBE_BATCH}: bound {ms:.4f} ms ({by})")
     pass_bound = {key: bound_sum(parts) for key, parts in pass_parts.items()}
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms=None):
@@ -768,10 +807,8 @@ def main() -> int:
               "scripts/train_opt_probe.py:1108, scripts/pallas_err_probe.py:44",
               probe_launches["pallas_err_probe"]["conv_probe"] + probe_launches["train_opt_probe"]["conv_probe"],
               cp_err, cp_ms, cp_plain, cp_bound),
-        *(entry(key, "dfac_tpu_torch/csrc/conv_probe.cu", replaces, probe_launches["train_opt_probe"][key],
-                pass_err[key], pass_ms[key], pass_plain[key], pass_bound[key])
-          for key, replaces in (("conv1_pass", "scripts/train_opt_probe.py:845"),
-                                ("conv_forms", "scripts/train_opt_probe.py:974"))),
+        *(entry(key, "dfac_tpu_torch/csrc/conv_probe.cu", PASS_REPLACES[key], probe_launches["train_opt_probe"][key],
+                pass_err[key], pass_ms[key], pass_plain[key], pass_bound[key]) for key in PASS_KERNELS),
     ]
     for k in kernels:
         phase("timing", f"{k['name']}: kernel {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "

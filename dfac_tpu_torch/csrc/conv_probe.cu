@@ -1,4 +1,4 @@
-// Conv-formulation probe checksums for Hopper (sm_90a): K6, K7, K8 and K9.
+// Conv-formulation probe checksums for Hopper (sm_90a): K6 to K11.
 //
 // K6 and K9 (dfac_conv_probe) replace: scripts/train_opt_probe.py  stage
 // 13's kern_g (:1108), kern_h (:1123), kern_i (:1136), kern_j (:1154) and
@@ -95,6 +95,53 @@
 //  * v0: 4-byte (bf16 pair) loads, f32 sums, the checksum reduction below.
 //  * Every checksum case ends in finish_sample: one launch, a result that
 //    repeats bit for bit.
+//
+// K10 and K11 (dfac_conv_chunk, and dfac_conv_probe's j) replace:
+// scripts/train_opt_probe.py  stage 14's kern_h2 (:1248), kern_i2 (:1266)
+// and kern_j2 (:1288), launched by run (:1304-1314); stage 15's make_convk
+// (:1355, as j3 at :1426 and j5 at :1440), make_conv_inter (:1375, as j4)
+// and kern_c2 (:1456), launched by run (:1401-1411). k = 3 dy + dx:
+//   h2  y[t,f,co] = sum_k x[t+dy, s_i + j + dx] w9[k,co], f = 128 i + j, j < 128, i < 2, t < 320;
+//       s_i = min(128 i, Fp - 130): kern_h2 reads pl.ds(128 fi, 130) of a 256-wide ref
+//       (:1251), and JAX's interpreter clamps that read as jax.lax.dynamic_slice clamps a
+//       start, so window 1 reads columns 126-255 (Mosaic reads past the block: undefined)
+//   i2  y[t,f,co] = sum_k p9[k, t, f] w9[k,co], t < 320, on tap-leading patches (B, 9, 336, 256)
+//   j2, j3  stage 13's j (dfac_conv_probe, kase 3)
+//   j4  f's y on h1 (B, 176, 192, 32) over t < 160, f < 176 (w2i in w2dx's layout)
+//   j5  conv3: y[t,f,co] = sum_{k,ci} h2[t+dy, f+dx, ci] w3[k,ci,co], CI = 64, CO = 128, t < 80, f < 176
+//   c2  y[m,co] = sum_{k<16} wt[co,k] tap_k[m], m < 8 x 8,192: chunk c = m / Mc reads tap k < 9
+//       at m + min(o_k, L - Mc - c Mc), o_k = dy W + dx, W = 182 (the interpreter's clamp of
+//       pl.ds(c Mc + o_k, Mc), :1462: chunk 7 reads all nine taps from L - Mc), taps 9-15 zero
+//
+// What bounds K10/K11 on the card, at the stages' B=512: h2 reads 84 MB of x
+// (~25 us) for 2.4e10 FLOP (~24 us at the 989 TFLOP/s bf16 peak); i2 reads
+// 755 MB of patches (~0.23 ms) for the same FLOP, so bytes bound it ~10x
+// over operations and the CUDA cores serve; j2-j4 are 0.53 TFLOP each (~0.54
+// ms), j5 1.06 TFLOP (~1.08 ms); c2 is 1.9e10 FLOP (~20 us) on 60 MB of xf's
+// row 0 (~18 us), not the 967 MB array.
+//
+// Design (K10/K11): every case reuses a kernel above, so the stage's
+// question -- which formulation feeds the matrix unit best -- is asked of
+// the same tensor-core (or CUDA-core) code paths:
+//  * h2: conv1_mma's VALID mode with output windows: a block stages its 10
+//    input rows at full width, and each output column maps to its window's
+//    input column (the clamp is index arithmetic; the window is found by
+//    comparisons, as a division per pixel cost h2 ~30% per tile). One launch.
+//  * i2: conv1_checksum with a tap-plane layout: a block stages rows r0 ..
+//    r0 + 7 of each of the 9 planes (9 x 8 x 256 bf16), a thread's 9 vector
+//    loads in flight together; the inner loop is i's.
+//  * j4: f's kernel (dx layout) with rows and columns given, not T - 2, F - 2.
+//  * j5: j's kernel templated on (CI, CO) = (64, 128). Its weights (9 x 128
+//    x 72 bf16, 165,888 B) and tile (38,016 B) fit one block per SM; each
+//    warp takes 16 columns x 64 channels. Splitting CO into two halves across
+//    blocks was the alternative: each input tile would be staged twice, and
+//    at 120,960 B per block it still fits only one block per SM.
+//  * c2: conv1_mma's flat mode in chunks: a block of 2,048 outputs lies in
+//    one chunk, and its taps' offsets min(o_k, L - Mc - c Mc) are fixed for
+//    the block, so the staged window starts at tap 0's and the clamp costs
+//    nothing in the loop; wt (32, 16) is already the kernel's [co][k] layout,
+//    and taps 9-15 are the A fragment's zero lanes, so 0 x wt[co, 9..15] is
+//    formed as the reference forms it. Only row 0 of each sample is read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -197,9 +244,10 @@ __device__ void stage_padded(bf16* dst, const bf16* rows, int n_rows, int f_in, 
 constexpr int R1 = 8;   // output rows per block
 constexpr int PX = 4;   // pixels (rows of one column) per thread step
 constexpr int SAME_PAD = 5;  // conv1_checksum's zero-padded taps (stage 11's v1)
+constexpr int I_PLANES = 6;  // conv1_checksum's tap-leading patches (stage 14's i2)
 
 __host__ __device__ size_t conv1_in_elems(int mode, int f_in, int cols) {
-  if (mode == I_PATCHES) return size_t(R1) * cols * 9;
+  if (mode == I_PATCHES || mode == I_PLANES) return size_t(R1) * cols * 9;
   return size_t(R1 + 2) * (mode == SAME_PAD ? f_in + 2 : f_in);
 }
 
@@ -207,7 +255,26 @@ size_t conv1_smem(int mode, int f_in, int cols, int n_out) {
   return (conv1_in_elems(mode, f_in, cols) * sizeof(bf16) + 15) / 16 * 16 + size_t(9) * n_out * sizeof(float);
 }
 
-// in: x (B, t_in, f_in) for g/h/SAME, p (B, rows, cols, 9) for i; w (9, n_out).
+// Stage rows r0 .. r0 + R1 - 1 of the 9 tap planes of one sample, `plane`
+// elements apart, n = R1 x cols elements each (rows past `valid` zero): a
+// thread loads its vector of all 9 planes into registers before it stores
+// any, so they are in flight together.
+__device__ void stage_planes(bf16* dst, const bf16* src, size_t plane, int n, int valid, bool vec) {
+  if (vec && valid == n) {
+    for (int i = threadIdx.x; i < n / 8; i += THREADS) {
+      uint4 v[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) v[k] = reinterpret_cast<const uint4*>(src + k * plane)[i];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) reinterpret_cast<uint4*>(dst + k * n)[i] = v[k];
+    }
+  } else {
+    for (int k = 0; k < 9; ++k) stage(dst + k * n, src + k * plane, n, valid, false);
+  }
+}
+
+// in: x (B, t_in, f_in) for g/h/SAME, p (B, rows, cols, 9) for i, p9 (B, 9,
+// t_in, f_in) for I_PLANES (cols = f_in); w (9, n_out).
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* __restrict__ out,
@@ -224,6 +291,9 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
     const int n = R1 * cols * 9;
     const int valid = min(rows - r0, R1) * cols * 9;
     stage(s_in, in + (size_t(b) * rows + r0) * cols * 9, n, valid, vec);
+  } else if (MODE == I_PLANES) {  // rows r0 .. r0 + R1 - 1 of each tap plane
+    stage_planes(s_in, in + (size_t(b) * 9 * t_in + r0) * f_in, size_t(t_in) * f_in, R1 * cols,
+                 max(0, min(t_in - r0, R1)) * cols, vec);
   } else if (MODE == SAME_PAD) {  // rows r0 - 1 .. r0 + R1, a zero column on each side
     stage_padded<R1>(s_in, in + size_t(b) * t_in * f_in, t_in, f_in, r0);
   } else {
@@ -242,6 +312,11 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
       for (int p = 0; p < PX; ++p)
 #pragma unroll
         for (int k = 0; k < 9; ++k) tap[p][k] = __bfloat162float(s_in[((rr + p) * cols + c) * 9 + k]);
+    } else if (MODE == I_PLANES) {
+#pragma unroll
+      for (int p = 0; p < PX; ++p)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) tap[p][k] = __bfloat162float(s_in[(k * R1 + rr + p) * cols + c]);
     } else {
       int col[3];
 #pragma unroll
@@ -281,36 +356,44 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
 
 // ---- j, k: tensor cores ---------------------------------------------------
 
-constexpr int CI2 = 32, CO2 = 64;
+constexpr int CI2 = 32, CO2 = 64;  // conv2
+constexpr int CI3 = 64, CO3 = 128;  // conv3 (stage 15's j5)
 constexpr int TW = 64;          // output columns per tile
 constexpr int IN_ROWS = 4;      // 2 output rows + 2
 constexpr int IN_COLS = TW + 2;
-constexpr int XS = CI2 + 8;     // smem pixel stride (bf16): conflict-free fragment loads
-constexpr int WS = CI2 + 8;     // smem weight row stride, rows = (tap, co)
-constexpr int WN = CO2 / 2;     // output channels per warp
-constexpr int NFRAG = WN / 8;
-constexpr size_t W_BYTES = size_t(9) * CO2 * WS * 2;
-constexpr size_t X_BYTES = size_t(IN_ROWS) * IN_COLS * XS * 2;
-constexpr size_t SMEM2 = W_BYTES + X_BYTES;
 constexpr int MAX_BLOCKS2 = 8;  // blocks per sample: each loads the weights once
-static_assert(SMEM2 <= 232448, "227 KB of shared memory per block");
 
-// h (B, t_in, f_in, 32), w (9, 32, 64), or with DX_LAYOUT stage 12's w2dx
-// (3, 96, 64), w[3 dy + dx][ci][co] = w2dx[dx][32 dy + ci][co]; y over
+template <int CI, int CO>
+struct Conv2Tile {
+  static constexpr int XS = CI + 8;     // smem pixel stride (bf16): conflict-free fragment loads
+  static constexpr int WS = CI + 8;     // smem weight row stride, rows = (tap, co)
+  static constexpr int WN = CO / 2;     // output channels per warp
+  static constexpr int NFRAG = WN / 8;
+  static constexpr size_t W_BYTES = size_t(9) * CO * WS * 2;
+  static constexpr size_t SMEM = W_BYTES + size_t(IN_ROWS) * IN_COLS * XS * 2;
+  static_assert(SMEM <= 232448, "227 KB of shared memory per block");
+};
+constexpr size_t SMEM2 = Conv2Tile<CI2, CO2>::SMEM;  // 67,200 B: three blocks per SM
+constexpr size_t SMEM3 = Conv2Tile<CI3, CO3>::SMEM;  // 203,904 B: one block per SM
+
+// h (B, t_in, f_in, CI), w (9, CI, CO), or with DX_LAYOUT stage 12's w2dx
+// (3, 3 CI, CO), w[3 dy + dx][ci][co] = w2dx[dx][CI dy + ci][co]; y over
 // t < rows, f < cols.
-template <bool WRAP, bool DX_LAYOUT = false>
+template <bool WRAP, bool DX_LAYOUT = false, int CI = CI2, int CO = CO2>
 __global__ void __launch_bounds__(THREADS)
 conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __restrict__ out,
                float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int rows, int cols) {
+  using G = Conv2Tile<CI, CO>;
+  constexpr int XS = G::XS, WS = G::WS, WN = G::WN, NFRAG = G::NFRAG;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);            // [tap][co][ci + 8]
-  bf16* sX = reinterpret_cast<bf16*>(smem + W_BYTES);  // [row][col][ci + 8]
+  bf16* sW = reinterpret_cast<bf16*>(smem);               // [tap][co][ci + 8]
+  bf16* sX = reinterpret_cast<bf16*>(smem + G::W_BYTES);  // [row][col][ci + 8]
   const int b = blockIdx.y;
 
-  for (int i = threadIdx.x; i < 9 * CI2 * CO2; i += THREADS) {
-    const int co = i % CO2, ci = (i / CO2) % CI2, t = i / (CO2 * CI2);
-    const int src = DX_LAYOUT ? ((t % 3) * 3 * CI2 + (t / 3) * CI2 + ci) * CO2 + co : i;
-    sW[(t * CO2 + co) * WS + ci] = w[src];
+  for (int i = threadIdx.x; i < 9 * CI * CO; i += THREADS) {
+    const int co = i % CO, ci = (i / CO) % CI, t = i / (CO * CI);
+    const int src = DX_LAYOUT ? ((t % 3) * 3 * CI + (t / 3) * CI + ci) * CO + co : i;
+    sW[(t * CO + co) * WS + ci] = w[src];
   }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -319,7 +402,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
   const int nw = warp >> 2;  // half of the output channels
   const int row_tiles = (rows + 1) / 2, col_tiles = (cols + TW - 1) / TW;
   const int n_tiles = row_tiles * col_tiles;
-  const bf16* hs = h + size_t(b) * t_in * f_in * CI2;
+  const bf16* hs = h + size_t(b) * t_in * f_in * CI;
   float acc_sum = 0.f;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -327,7 +410,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
     const int y0 = 2 * p, x0 = cb * TW - (WRAP ? 1 : 0);
 
     __syncthreads();  // weights are in / the previous tile's readers are done
-    constexpr int VEC = CI2 / 8;
+    constexpr int VEC = CI / 8;
     for (int i = threadIdx.x; i < IN_ROWS * IN_COLS * VEC; i += THREADS) {
       const int v = i % VEC, pix = i / VEC;
       const int ic = pix % IN_COLS, ir = pix / IN_COLS;
@@ -336,7 +419,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
       if (WRAP) xc = (xc % f_in + f_in) % f_in;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (yy < t_in && xc < f_in)
-        val = *reinterpret_cast<const uint4*>(hs + (size_t(yy) * f_in + xc) * CI2 + v * 8);
+        val = *reinterpret_cast<const uint4*>(hs + (size_t(yy) * f_in + xc) * CI + v * 8);
       *reinterpret_cast<uint4*>(sX + pix * XS + v * 8) = val;
     }
     __syncthreads();
@@ -353,7 +436,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
     for (int t = 0; t < 9; ++t) {
       const int dy = t / 3, dx = t % 3;
 #pragma unroll
-      for (int k0 = 0; k0 < CI2; k0 += 16) {
+      for (int k0 = 0; k0 < CI; k0 += 16) {
         uint32_t a[2][4];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -366,7 +449,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
         }
 #pragma unroll
         for (int j = 0; j < NFRAG; ++j) {
-          const bf16* pw = sW + (t * CO2 + nw * WN + 8 * j + gid) * WS + k0 + 2 * tq;
+          const bf16* pw = sW + (t * CO + nw * WN + 8 * j + gid) * WS + k0 + 2 * tq;
           const uint32_t b0 = ld32(pw), b1 = ld32(pw + 8);
           mma_bf16(acc[0][j], a[0], b0, b1);
           mma_bf16(acc[1][j], a[1], b0, b1);
@@ -389,7 +472,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
           if (col >= cols) continue;
           s += acc[r][j][2 * hh] + acc[r][j][2 * hh + 1];
           if (y) {
-            float* yp = y + ((size_t(b) * rows + row) * cols + col) * CO2 + n;
+            float* yp = y + ((size_t(b) * rows + row) * cols + col) * CO + n;
             yp[0] = acc[r][j][2 * hh];
             yp[1] = acc[r][j][2 * hh + 1];
           }
@@ -448,46 +531,60 @@ constexpr int FLAT_CHUNK = 2048;  // c: outputs per block
 enum MmaMode { M_SAME = 0, M_VALID = 1, M_FLAT = 2 };
 
 // Elements of the block's input window in shared memory (after the 16 x 32
-// weights). SAME: t_in, f_in are x's; VALID: the same; FLAT: t_in = Np, f_in = W.
+// weights). SAME: t_in, f_in are x's; VALID: the same; FLAT: t_in = L, f_in = W
+// (a chunk of outputs reaches 2W + 2 further).
 size_t conv1_mma_smem(int mode, int f_in) {
   const size_t elems = mode == M_SAME    ? size_t(R1 + 2) * (f_in + 2)
                        : mode == M_VALID ? size_t(R1 + 2) * f_in
-                                         : size_t(FLAT_CHUNK) + 2 * size_t(f_in);
+                                         : size_t(FLAT_CHUNK) + 2 * size_t(f_in) + 2;
   return (size_t(CO1) * 16 + elems) * sizeof(bf16);
 }
 
-// Output blocks per result block (a sample, or v3's group of `group` samples).
-int conv1_mma_blocks(int mode, int t_in, int f_in, int group) {
+// Output blocks per result block: SAME, a sample (or v3's group of `group`
+// samples) of t_in rows; VALID, `rows` output rows; FLAT, n_win chunks of
+// `win` outputs.
+int conv1_mma_blocks(int mode, int t_in, int group, int rows, int win, int n_win) {
   if (mode == M_SAME) return (group * t_in + R1 - 1) / R1;
-  if (mode == M_VALID) return (t_in - 2 + R1 - 1) / R1;
-  return (t_in - 2 * f_in + FLAT_CHUNK - 1) / FLAT_CHUNK;
+  if (mode == M_VALID) return (rows + R1 - 1) / R1;
+  return n_win * ((win + FLAT_CHUNK - 1) / FLAT_CHUNK);
 }
 
-// x: (B, t_in, f_in) for SAME / VALID, (B, 1, Np = t_in) for FLAT (W = f_in);
-// w: (9, 32). Result block blockIdx.y covers samples blockIdx.y * group ..
-// + group - 1 (group = 1 but for v3). y, when given, is (outputs, 32) f32 in
-// the order of the result blocks' rows and columns.
-template <int MODE>
+// w: (9, 32), or with W_CO_K (32, 16) read as it is (k = 9..15 meet zero taps).
+// SAME: x (B, t_in, f_in); result block blockIdx.y covers samples
+//   blockIdx.y * group .. + group - 1 (group = 1 but for v3): (group t_in) x f_in outputs.
+// VALID: x (B, t_in, f_in); output rows t < rows and n_win windows of `win`
+//   columns; window i reads input columns from min(i win, f_in - win - 2),
+//   as jax.lax.dynamic_slice clamps the start of a (win + 2)-wide slice
+//   (stage 12's a: one window of f_in - 2; stage 14's h2: two of 128).
+// FLAT: the flat padded row of each sample (L = t_in elements, row width W =
+//   f_in) starts in_stride elements after the previous one; n_win chunks of
+//   `win` outputs; output m of chunk c reads tap k at m + min(dy W + dx, L -
+//   win - c win), the start clamped as in VALID (stage 12's c: one chunk of
+//   L - 2W; stage 15's c2: eight of 8,192).
+// y, when given, is (results, rows, cols, 32) f32.
+template <int MODE, bool W_CO_K = false>
 __global__ void __launch_bounds__(THREADS)
 conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ out,
-          float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int group) {
+          float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int group, int rows,
+          int win, int n_win, long long in_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);  // [co][k]: taps 0-8, zeros at k = 9..15
+  bf16* sW = reinterpret_cast<bf16*>(smem);  // [co][k]: taps 0-8, then zeros or wt's own k = 9..15
   bf16* sX = sW + CO1 * 16;                  // the block's input window
   const unsigned short* sXu = reinterpret_cast<const unsigned short*>(sX);
   const int bo = blockIdx.y;
 
   for (int i = threadIdx.x; i < CO1 * 16; i += THREADS) {
     const int co = i / 16, k = i % 16;
-    sW[i] = k < 9 ? w[k * CO1 + co] : __float2bfloat16_rn(0.f);
+    sW[i] = W_CO_K ? w[i] : k < 9 ? w[k * CO1 + co] : __float2bfloat16_rn(0.f);
   }
 
   // the result block's outputs: n_rows x cols; this block's window starts at
-  // output row row0 and, for FLAT (one row of M outputs), at column c_base
-  int stride, n_rows, cols, row0 = 0, c_base = 0;
+  // output row row0 and, for FLAT (one row of outputs), at column c_base, and
+  // holds c_lim columns of outputs
+  int stride, n_rows, cols, c_lim, row0 = 0, c_base = 0, flat_lim = 0;
   __shared__ int s_edge[R1];  // SAME: bit 0, output row r is a sample's first row; bit 1, its last
   if (MODE == M_SAME) {
-    stride = f_in + 2, n_rows = group * t_in, cols = f_in, row0 = blockIdx.x * R1;
+    stride = f_in + 2, n_rows = group * t_in, cols = c_lim = f_in, row0 = blockIdx.x * R1;
     // the group's samples are contiguous: its row v is row v % T of sample v / T
     stage_padded<R1>(sX, x + size_t(bo) * n_rows * f_in, n_rows, f_in, row0);
     if (threadIdx.x < R1) {
@@ -495,13 +592,18 @@ conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restr
       s_edge[threadIdx.x] = (t == 0 ? 1 : 0) | (t == t_in - 1 ? 2 : 0);
     }
   } else if (MODE == M_VALID) {
-    stride = f_in, n_rows = t_in - 2, cols = f_in - 2, row0 = blockIdx.x * R1;
+    stride = f_in, n_rows = rows, cols = c_lim = n_win * win, row0 = blockIdx.x * R1;
     const int valid = max(0, min(t_in - row0, R1 + 2)) * f_in;
     stage(sX, x + (size_t(bo) * t_in + row0) * f_in, (R1 + 2) * f_in, valid, f_in % 8 == 0);
   } else {
-    stride = f_in, n_rows = 1, cols = t_in - 2 * f_in, c_base = blockIdx.x * FLAT_CHUNK;
-    const int n = FLAT_CHUNK + 2 * f_in;
-    stage(sX, x + size_t(bo) * t_in + c_base, n, min(n, t_in - c_base), false);
+    const int parts = (win + FLAT_CHUNK - 1) / FLAT_CHUNK, chunk = blockIdx.x / parts;
+    const int part = blockIdx.x - chunk * parts;
+    stride = f_in, n_rows = 1, cols = n_win * win;
+    c_base = chunk * win + part * FLAT_CHUNK, c_lim = min(FLAT_CHUNK, win - part * FLAT_CHUNK);
+    flat_lim = t_in - win - chunk * win;  // a tap offset past it is clamped to it
+    const int start = c_base + min(0, flat_lim);  // tap 0's window; every tap starts at or after it
+    const int n = FLAT_CHUNK + 2 * f_in + 2;
+    stage(sX, x + size_t(bo) * in_stride + start, n, min(n, t_in - start), false);
   }
   __syncthreads();
 
@@ -513,7 +615,7 @@ conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restr
   for (int e = 0; e < 3; ++e) {
     const int k = e < 2 ? 2 * tq + e : 8, dy = k / 3, dx = k % 3;
     dyk[e] = dy;
-    off[e] = MODE == M_FLAT ? min(dy * stride + dx, 2 * stride) : dy * stride + dx;
+    off[e] = MODE == M_FLAT ? min(dy * stride + dx, flat_lim) - min(0, flat_lim) : dy * stride + dx;
   }
   uint32_t bw[CO1 / 8][2];  // B fragments: rows k, column co = 8 j + gid
 #pragma unroll
@@ -540,9 +642,16 @@ conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restr
     uint32_t a[4];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {  // pixels gid and gid + 8 of the tile
-      const int c = c0 + gid + 8 * hh, base = r * stride + c;
+      const int c = c0 + gid + 8 * hh;
+      int in_c = c;  // the input column of tap 0
+      if (MODE == M_VALID && n_win > 1) {  // window wi = c / win, by comparisons: a division costs ~20 instructions
+        int wi = 0;
+        while (wi + 1 < n_win && c >= (wi + 1) * win) ++wi;
+        in_c = min(wi * win, f_in - win - 2) + c - wi * win;
+      }
+      const int base = r * stride + in_c;
       uint32_t lo = 0u, hi = 0u, k8 = 0u;
-      if (row < n_rows && c_base + c < cols) {
+      if (row < n_rows && c < c_lim) {
         if (tap_ok[0]) lo = sXu[base + off[0]];
         if (tap_ok[1]) hi = sXu[base + off[1]];
         if (tq == 0 && tap_ok[2]) k8 = sXu[base + off[2]];
@@ -566,9 +675,9 @@ conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restr
     if (y) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int c = c_base + c0 + gid + 8 * hh;
-        if (row >= n_rows || c >= cols) continue;
-        float* yp = y + ((size_t(bo) * n_rows + row) * cols + c) * CO1 + 2 * tq;
+        const int c = c0 + gid + 8 * hh;
+        if (row >= n_rows || c >= c_lim) continue;
+        float* yp = y + ((size_t(bo) * n_rows + row) * cols + c_base + c) * CO1 + 2 * tq;
 #pragma unroll
         for (int j = 0; j < CO1 / 8; ++j) {
           yp[8 * j] = acc[j][2 * hh];
@@ -641,9 +750,9 @@ int pass_blocks(int kase, int t_in, int f_in, int group) {
     case V1_SAME_FMA: return (t_in + R1 - 1) / R1;
     case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(H_SLICE, t_in - 2, f_in - 2) : 0;
     case F_CONV2_DX: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(J_SLICE, t_in - 2, f_in - 2) : 0;
-    case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_blocks(M_SAME, t_in, f_in, group);
-    case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? conv1_mma_blocks(M_VALID, t_in, f_in, 1) : 0;
-    case C_FLAT_MMA: return t_in > 2 * f_in ? conv1_mma_blocks(M_FLAT, t_in, f_in, 1) : 0;
+    case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_blocks(M_SAME, t_in, group, 0, 0, 0);
+    case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? conv1_mma_blocks(M_VALID, t_in, 1, t_in - 2, f_in - 2, 1) : 0;
+    case C_FLAT_MMA: return t_in > 2 * f_in ? conv1_mma_blocks(M_FLAT, t_in, 1, 1, t_in - 2 * f_in, 1) : 0;
     default: return 0;
   }
 }
@@ -772,13 +881,14 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
       break;
     case V2_SAME_MMA:
     case V3_GROUP_MMA:
-      err = launch(conv1_mma<M_SAME>, grid, smem, s, x, wk, o, y, done, t_in, f_in, group);
+      err = launch(conv1_mma<M_SAME>, grid, smem, s, x, wk, o, y, done, t_in, f_in, group, 0, 0, 0, 0LL);
       break;
     case A_VALID_MMA:
-      err = launch(conv1_mma<M_VALID>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1);
+      err = launch(conv1_mma<M_VALID>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1, t_in - 2, f_in - 2, 1, 0LL);
       break;
     case C_FLAT_MMA:
-      err = launch(conv1_mma<M_FLAT>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1);
+      err = launch(conv1_mma<M_FLAT>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1, 1, t_in - 2 * f_in, 1,
+                   (long long)t_in);
       break;
     case V4_EMIT: {
       const long long pixels = (long long)batch * (t_in / 2) * f_in;
@@ -795,3 +905,96 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
 // Dynamic shared memory per block of the kernel dfac_conv_pass runs for this
 // case and geometry, in bytes.
 extern "C" int dfac_conv_pass_smem(int kase, int f_in, int n_out) { return int(pass_smem(kase, f_in, n_out)); }
+
+// ---- K10 / K11 (stages 14 and 15) -------------------------------------------
+
+namespace {
+
+enum Chunked { H2_WINDOWS = 0, I2_PLANES = 1, J4_CONV2_DX = 2, J5_CONV3 = 3, C2_FLAT_CHUNKS = 4 };
+
+// Blocks per sample of a K10/K11 case (0: its geometry is refused).
+int chunk_blocks(int kase, int t_in, int f_in, int rows, int cols, int win) {
+  switch (kase) {
+    case H2_WINDOWS:
+      return win > 0 && cols % win == 0 && rows + 2 <= t_in && win + 2 <= f_in
+                 ? conv1_mma_blocks(M_VALID, t_in, 1, rows, win, cols / win) : 0;
+    case I2_PLANES: return rows <= t_in && cols == f_in ? (rows + R1 - 1) / R1 : 0;
+    case J4_CONV2_DX: case J5_CONV3:
+      return rows + 2 <= t_in && cols + 2 <= f_in ? blocks_per_sample(J_SLICE, rows, cols) : 0;
+    case C2_FLAT_CHUNKS:
+      return win > 0 && cols % win == 0 && win <= t_in ? conv1_mma_blocks(M_FLAT, t_in, 1, 1, win, cols / win) : 0;
+    default: return 0;
+  }
+}
+
+size_t chunk_smem(int kase, int f_in, int cols, int n_out) {
+  switch (kase) {
+    case H2_WINDOWS: return conv1_mma_smem(M_VALID, f_in);
+    case I2_PLANES: return conv1_smem(I_PLANES, f_in, cols, n_out);
+    case J4_CONV2_DX: return SMEM2;
+    case J5_CONV3: return SMEM3;
+    case C2_FLAT_CHUNKS: return conv1_mma_smem(M_FLAT, f_in);
+    default: return 0;
+  }
+}
+
+}  // namespace
+
+// Stages 14 and 15 (K10, K11); j2 and j3 are dfac_conv_probe's j. kase:
+//   0 h2: x (B, t_in, f_in), w9 (9, 32); rows x cols outputs in windows of `win` columns
+//   1 i2: p9 (B, 9, t_in, f_in) tap-leading patches, w9 (9, n_out); rows <= t_in, cols = f_in
+//   2 j4: h1 (B, t_in, f_in, 32), w2i (3, 96, 64) as stage 12's w2dx; rows x cols outputs
+//   3 j5: h2 (B, t_in, f_in, 64), w3 (9, 64, 128); rows x cols outputs
+//   4 c2: xf (B, rows, L = t_in) of which row 0 is read, flat padded rows of width W = f_in;
+//         wt (32, 16); cols = n_chunks x win outputs in chunks of win = Mc
+// n_out: 32 (h2, c2), 64 (j4), 128 (j5), any of 1..1024 (i2). out (B, 8, 128)
+// f32; y: null, or (B, rows, cols, n_out) f32 for every output (c2: (B, 1,
+// cols, 32)); done: B zeroed counters (scratch). 16-byte aligned `in` and
+// `out`. One kernel launch on `stream`, no synchronisation; returns
+// cudaGetLastError().
+extern "C" int dfac_conv_chunk(int kase, const void* in, const void* w, float* out, float* y, void* done_,
+                               int batch, int t_in, int f_in, int rows, int cols, int win, int n_out,
+                               void* stream) {
+  const int want_out[] = {CO1, n_out, CO2, CO3, CO1};
+  if (kase < H2_WINDOWS || kase > C2_FLAT_CHUNKS || batch <= 0 || batch > 65535 || t_in <= 0 || f_in <= 0 ||
+      rows <= 0 || cols <= 0 || n_out <= 0 || n_out > 1024 || n_out != want_out[kase] ||
+      size_t(t_in) * f_in * (kase == I2_PLANES ? 9 : 1) * (kase == J5_CONV3 ? CI3 : kase == J4_CONV2_DX ? CI2 : 1) >
+          (size_t(1) << 30))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = chunk_blocks(kase, t_in, f_in, rows, cols, win);
+  const size_t smem = chunk_smem(kase, f_in, cols, n_out);
+  if (blocks <= 0 || blocks > OUT_PER_SAMPLE || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* x = static_cast<const bf16*>(in);
+  const bf16* wk = static_cast<const bf16*>(w);
+  unsigned int* done = static_cast<unsigned int*>(done_);
+  const dim3 grid(blocks, batch);
+  cudaError_t err = cudaSuccess;
+  switch (kase) {
+    case H2_WINDOWS:
+      err = launch(conv1_mma<M_VALID>, grid, smem, s, x, wk, out, y, done, t_in, f_in, 1, rows, win, cols / win, 0LL);
+      break;
+    case I2_PLANES:
+      err = launch(conv1_checksum<I_PLANES>, grid, smem, s, x, wk, out, y, done, t_in, f_in, rows, cols, n_out,
+                   int(f_in % 8 == 0));
+      break;
+    case J4_CONV2_DX:
+      err = launch(conv2_checksum<false, true>, grid, smem, s, x, wk, out, y, done, t_in, f_in, rows, cols);
+      break;
+    case J5_CONV3:
+      err = launch(conv2_checksum<false, false, CI3, CO3>, grid, smem, s, x, wk, out, y, done, t_in, f_in, rows, cols);
+      break;
+    case C2_FLAT_CHUNKS:
+      err = launch(conv1_mma<M_FLAT, true>, grid, smem, s, x, wk, out, y, done, t_in, f_in, 1, 1, win, cols / win,
+                   (long long)rows * t_in);
+      break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block of the kernel dfac_conv_chunk runs for this
+// case and geometry, in bytes.
+extern "C" int dfac_conv_chunk_smem(int kase, int f_in, int cols, int n_out) {
+  return int(chunk_smem(kase, f_in, cols, n_out));
+}

@@ -38,9 +38,11 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset. conv_probe counts K6/K9
 # (stage 13's g-k), conv1_pass K7 (stage 11's v0-v4), conv_forms K8
-# (stage 12's a, c, d, f); the three share csrc/conv_probe.cu.
+# (stage 12's a, c, d, f), conv_chunked K10 (stage 14's h2, i2, j2),
+# conv_trailing K11 (stage 15's j3, j4, j5, c2); the five share
+# csrc/conv_probe.cu.
 LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0, "conv_probe": 0,
-            "conv1_pass": 0, "conv_forms": 0}
+            "conv1_pass": 0, "conv_forms": 0, "conv_chunked": 0, "conv_trailing": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -57,13 +59,16 @@ _SIGNATURES = {
     "dfac_conv_probe": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # case, in, w, out, y (or null), done, batch, t_in, f_in, n_out, group, stream
     "dfac_conv_pass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # case, in, w, out, y (or null), done, batch, t_in, f_in, rows, cols, win, n_out, stream
+    "dfac_conv_chunk": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dynamic shared memory per block, bytes: (bf16), (c_in, c_out, bf16), (),
-    # (case, f_in, cols, n_out), (case, f_in, n_out)
+    # (case, f_in, cols, n_out), (case, f_in, n_out), (case, f_in, cols, n_out)
     "dfac_gemm_frontend_smem": [_I],
     "dfac_conv_block_smem": [_I, _I, _I],
     "dfac_fb_log_dct_smem": [],
     "dfac_conv_probe_smem": [_I, _I, _I, _I],
     "dfac_conv_pass_smem": [_I, _I, _I],
+    "dfac_conv_chunk_smem": [_I, _I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

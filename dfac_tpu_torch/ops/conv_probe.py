@@ -1,9 +1,10 @@
-"""Conv-formulation probe kernels 6, 7, 8 and 9 and their plain versions.
+"""Conv-formulation probe kernels 6 to 11 and their plain versions.
 
 Counterpart of the Pallas kernels of ``scripts/pallas_err_probe.py``
-(``kern_g/i/j/k``, K6) and of stages 11, 12 and 13 of
+(``kern_g/i/j/k``, K6) and of stages 11 to 15 of
 ``scripts/train_opt_probe.py`` (K7 ``kern_v0..v4``, K8 ``kern_a/c/d/f``,
-K9 ``kern_g/h/i/j/k``). Each checksum case forms every output ``y`` of a
+K9 ``kern_g/h/i/j/k``, K10 ``kern_h2/i2/j2``, K11 ``make_convk``,
+``make_conv_inter`` and ``kern_c2``). Each checksum case forms every output ``y`` of a
 conv in f32 from bf16 operands and returns the per-sample sum, broadcast to
 ``(B, 8, 128)`` f32 as the Pallas kernels write it:
 
@@ -28,19 +29,35 @@ c     ``flat_shift_checksum``                       y[b, m, co] = sum_k xf[min(d
 d     ``conv1_valid_checksum(unit="fma")``          as a
 f     ``conv2_dx_checksum``                         conv2 of h1 (B, T2+2, F+2, CI) with w2[3dy+dx, ci] =
                                                     w2dx[dx, CI dy + ci], t < T2, f < F
+h2    ``chunked_taps_checksum``                     sum_k x[t+dy, s_i + j + dx] w9[k, co] at f = i H2_WINDOW + j,
+                                                    j < H2_WINDOW, i < H2_WINDOWS, s_i = ``h2_col_starts(Fp)[i]``
+i2    ``tap_planes_checksum``                       sum_k p9[k, t, f] w9[k, co], f < Fp (tap-leading patches)
+j2    ``conv2_checksum(mode="slice")``              j's y
+j3    ``conv2_checksum(mode="slice")``              j's y
+j4    ``conv2_dx_window_checksum``                  f's y on h1 (B, T2p, F2p, CI), f < CONV2_SLICE_COLS
+j5    ``conv3_checksum``                            sum_{k,ci} h2[t+dy, f+dx, ci] w3[k, ci, co], t < CONV3_ROWS,
+                                                    f < CONV3_COLS
+c2    ``flat_chunks_checksum``                      y[b, m, co] = sum_{k<16} wt[co, k] tap_k[m], m < CHUNKS CHUNK_LEN:
+                                                    tap_k[m] = xf[b, 0, ``chunk_starts(L)[c][k]`` + m - c CHUNK_LEN]
+                                                    for k < 9 (c = m // CHUNK_LEN), 0 for k >= 9
 ====  ============================================  ======================================================
 
-with ``k = 3 dy + dx`` and, for g-k, ``t < CONV1_ROWS`` or ``CONV2_ROWS``:
-stage 13's aligned windows, module constants (the tests shrink them).
-``pltpu.roll`` is ``np.roll``, so the roll taps wrap around the padded
-width. ``jax.lax.dynamic_slice`` clamps a start so that the slice fits, so
-c's taps 7 and 8 (offsets 2W + 1, 2W + 2) read tap 6's window (2W): that is
-the reference's result, and the port's. ``unit`` picks the hardware: f32
+with ``k = 3 dy + dx`` and, for g-k and i2-j5, ``t < CONV1_ROWS`` (conv1)
+or ``CONV2_ROWS`` (conv2): stage 13's aligned windows, module constants
+(the tests shrink them). ``pltpu.roll`` is ``np.roll``, so the roll taps
+wrap around the padded width. ``jax.lax.dynamic_slice`` clamps a start so
+that the slice fits, and so does JAX's interpreter for a ``pl.ds`` read
+past the edge of a ref: c's taps 7 and 8 (offsets 2W + 1, 2W + 2) read
+tap 6's window (2W), h2's second window starts at Fp - 130, not 128, and
+c2's last chunk reads from L - CHUNK_LEN for every tap. That is the
+reference's result, and the port's. ``unit`` picks the hardware: f32
 FMAs on the CUDA cores (``"fma"``) or ``mma.sync`` on the tensor cores
 with K = 9 padded to 16 (``"mma"``).
 
 On a CUDA tensor each function launches ``csrc/conv_probe.cu`` (bf16 only)
-or raises; on a CPU tensor it runs the plain version. The plain versions
+or raises; on a CPU tensor it runs the plain version. A launch counts under
+its stage's key of ``_build.LAUNCHES`` (j2 and j3 under stage 14's and 15's,
+though they run j's kernel). The plain versions
 (``*_plain``) return ``y`` itself, in f32 (v0: ``(x, x^2)``; v3: grouped,
 ``(B // 8, 8 T, F, CO)``; v4: the emitted tensor); :func:`checksum` turns
 y into the ``(B, 8, 128)`` result. They run f32 products through
@@ -130,7 +147,7 @@ def _kernel_operands(inp, w):
     return inp, w.contiguous()
 
 
-def _launch(kind, mode, inp, w, rows, cols, n_out, return_y):
+def _launch(kind, mode, inp, w, rows, cols, n_out, return_y, key="conv_probe"):
     batch, t_in, f_in = inp.shape[:3]
     inp, w = _kernel_operands(inp, w)
     out = torch.empty((batch, 8, 128), device=inp.device, dtype=torch.float32)
@@ -145,7 +162,7 @@ def _launch(kind, mode, inp, w, rows, cols, n_out, return_y):
                                   y.data_ptr() if return_y else None, done.data_ptr(), batch, t_in, f_in, rows,
                                   cols, n_out, stream)
     _build.check(err, f"conv_probe {kind}/{mode} launch")
-    _build.LAUNCHES["conv_probe"] += 1
+    _build.LAUNCHES[key] += 1
     return (out, y) if return_y else out
 
 
@@ -181,10 +198,11 @@ def patches_checksum(p, w9, return_y=False):
                      lambda: patches_plain(p, w9), return_y)
 
 
-def conv2_checksum(h, w2, mode="slice", return_y=False):
+def conv2_checksum(h, w2, mode="slice", return_y=False, key="conv_probe"):
     """Cases j (``mode="slice"``, the first CONV2_SLICE_COLS columns) and k
     (``"roll"``, every column): h (B, T2p, F2p, CI), w2 (9, CI, CO) ->
-    (B, 8, 128) f32, and y if asked. The CUDA kernel takes CI=32, CO=64."""
+    (B, 8, 128) f32, and y if asked. The CUDA kernel takes CI=32, CO=64; its
+    launch counts under ``key``."""
     if h.dim() != 4 or w2.dim() != 3 or w2.shape[:2] != (9, h.shape[-1]):
         raise ValueError(f"want h (B, T, F, CI) and w2 (9, CI, CO); got {tuple(h.shape)}, {tuple(w2.shape)}")
     _check_mode(mode)
@@ -195,15 +213,15 @@ def conv2_checksum(h, w2, mode="slice", return_y=False):
         raise ValueError(f"the conv2 kernel takes {CONV2_CHANNELS[0]} -> {CONV2_CHANNELS[1]} channels, "
                          f"got w2 {tuple(w2.shape)}")
     width = h.shape[2] if mode == "roll" else cols
-    return _dispatch(h, lambda: _launch("conv2", mode, h, w2, rows, width, w2.shape[2], return_y),
+    return _dispatch(h, lambda: _launch("conv2", mode, h, w2, rows, width, w2.shape[2], return_y, key),
                      lambda: conv2_plain(h, w2, mode), return_y)
 
 
 class Case(NamedTuple):
     kernel: Callable  # f(input, weights) -> (B, 8, 128) f32
     plain: Callable   # f(input, weights) -> y, f32
-    inp: str          # the probes' input array (train_opt_probe.stage1N_inputs): x, patches, h1, xpad_flat
-    weights: str      # and its weights: w9, w2, w or w2dx
+    inp: str          # the probes' input array (train_opt_probe.stage1N_inputs): x, patches, h1, xpad_flat, p9, h2arr, xf
+    weights: str      # and its weights: w9, w2, w, w2dx, w2i, w3 or wt
 
 
 # The probes' five cases, in stage 13's order.
@@ -438,3 +456,187 @@ STAGE12_CASES = {
     "f": Case(conv2_dx_checksum, conv2_dx_plain, "h1", "w2dx"),
 }
 EMIT_CASE = "v4"
+
+
+# ---- stages 14 and 15 (kernels 10 and 11) ---------------------------------
+
+H2_WINDOW, H2_WINDOWS = 128, 2   # kern_h2's output columns per window and windows per row (pl.ds(fi 128, 130))
+CONV3_ROWS, CONV3_COLS = 80, 176  # stage 15's conv3 window: make_convk(96, 192, 64, 128, 16, 5)
+CONV3_CHANNELS = (64, 128)        # the conv3 kernel's C_in -> C_out
+CHUNK_LEN, CHUNKS = 8192, 8       # kern_c2's Mc and its loop's n_mc
+
+_CHUNK_ID = {"h2": 0, "i2": 1, "j4": 2, "j5": 3, "c2": 4}
+_CHUNK_KEY = {"h2": "conv_chunked", "i2": "conv_chunked", "j4": "conv_trailing", "j5": "conv_trailing",
+              "c2": "conv_trailing"}
+
+
+def h2_col_starts(fp: int) -> list[int]:
+    """The input column of each of h2's windows: ``pl.ds(i W, W + 2)`` on a
+    ref Fp wide (W = H2_WINDOW), its start clamped to Fp - W - 2 as JAX's
+    interpreter clamps it: [0, 126] at Fp = 256."""
+    return [min(i * H2_WINDOW, fp - H2_WINDOW - 2) for i in range(H2_WINDOWS)]
+
+
+def chunked_taps_plain(x, w9) -> torch.Tensor:
+    """h2: x (B, Tp, Fp), w9 (9, CO) -> y (B, CONV1_ROWS, H2_WINDOWS H2_WINDOW,
+    CO): window i is the VALID conv1 from input column h2_col_starts(Fp)[i]."""
+    return torch.cat([_taps_conv_plain(x[:, :, s:, None], w9[:, None, :], "slice", CONV1_ROWS, H2_WINDOW)
+                      for s in h2_col_starts(x.shape[2])], dim=2)
+
+
+@no_tf32()
+def tap_planes_plain(p9, w9) -> torch.Tensor:
+    """i2: p9 (B, 9, Tp, Fp) tap-leading patches, w9 (9, CO) -> y (B, CONV1_ROWS, Fp, CO)."""
+    return p9[:, :, :CONV1_ROWS].float().permute(0, 2, 3, 1) @ w9.float()
+
+
+def conv2_dx_window_plain(h1, w2i) -> torch.Tensor:
+    """j4: h1 (B, T2p, F2p, CI), w2i (3, 3 CI, CO) -> y (B, CONV2_ROWS, CONV2_SLICE_COLS, CO)."""
+    return _taps_conv_plain(h1, conv2_dx_weights(w2i), "slice", CONV2_ROWS, CONV2_SLICE_COLS)
+
+
+def conv3_plain(h2, w3) -> torch.Tensor:
+    """j5: h2 (B, T3p, F2p, CI), w3 (9, CI, CO) -> y (B, CONV3_ROWS, CONV3_COLS, CO)."""
+    return _taps_conv_plain(h2, w3, "slice", CONV3_ROWS, CONV3_COLS)
+
+
+def chunk_starts(length: int) -> list[list[int]]:
+    """c2's tap starts [c][k] = min(c Mc + dy W + dx, L - Mc) in a flat row
+    of L = ``length`` elements (W = FLAT_WIDTH, Mc = CHUNK_LEN): JAX's
+    interpreter clamps each ``pl.ds(c Mc + o_k, Mc)`` read so that it fits."""
+    width, mc = FLAT_WIDTH, CHUNK_LEN
+    return [[min(c * mc + dy * width + dx, length - mc) for dy in range(3) for dx in range(3)]
+            for c in range(CHUNKS)]
+
+
+@no_tf32()
+def flat_chunks_plain(xf, wt) -> torch.Tensor:
+    """c2: xf (B, R, L), wt (CO, 16) -> y (B, CHUNKS CHUNK_LEN, CO), chunk by
+    chunk: taps 0-8 from row 0 of xf at :func:`chunk_starts`, taps 9-15 zero
+    (as kern_c2 concatenates them), times wt transposed."""
+    x = xf[:, 0].float()
+    zeros = x.new_zeros(x.shape[0], CHUNK_LEN, 16 - 9)
+    return torch.cat([torch.cat([torch.stack([x[:, s : s + CHUNK_LEN] for s in starts], dim=-1), zeros], dim=-1)
+                      @ wt.float().t() for starts in chunk_starts(xf.shape[-1])], dim=1)
+
+
+def _chunk_launch(case, inp, w, y_shape, return_y, t_in, f_in, rows, cols, win, n_out):
+    """One launch of ``dfac_conv_chunk``: (B, 8, 128) f32, and y if asked."""
+    batch = inp.shape[0]
+    inp, w = _kernel_operands(inp, w)
+    out = _sums(batch, inp)
+    y = torch.empty(y_shape, device=inp.device, dtype=torch.float32) if return_y else None
+    if batch == 0:
+        return (out, y) if return_y else out
+    done = torch.zeros(batch, device=inp.device, dtype=torch.int32)  # finished blocks per sample
+    lib = _build.library()
+    stream = torch.cuda.current_stream(inp.device).cuda_stream
+    with torch.cuda.device(inp.device):
+        err = lib.dfac_conv_chunk(_CHUNK_ID[case], inp.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                  y.data_ptr() if return_y else None, done.data_ptr(), batch, t_in, f_in, rows, cols,
+                                  win, n_out, stream)
+    _build.check(err, f"conv_chunk {case} launch")
+    _build.LAUNCHES[_CHUNK_KEY[case]] += 1
+    return (out, y) if return_y else out
+
+
+def _check_window(inp, rows, cols, what) -> None:
+    if rows + 2 > inp.shape[1] or cols + 2 > inp.shape[2]:
+        raise ValueError(f"rows={rows}, cols={cols} need taps outside {what} {tuple(inp.shape)}")
+
+
+def chunked_taps_checksum(x, w9, return_y=False):
+    """h2: x (B, Tp, Fp), w9 (9, CO) -> (B, 8, 128) f32, and y (see
+    :func:`chunked_taps_plain`) if asked. The CUDA kernel takes CO = 32."""
+    _check_conv1(x, w9, (9,))
+    _check_unit("mma", x, w9)
+    _check_window(x, CONV1_ROWS, H2_WINDOW, "x")
+    b, t, f = x.shape
+    rows, cols, co = CONV1_ROWS, H2_WINDOWS * H2_WINDOW, w9.shape[1]
+    return _dispatch(x, lambda: _chunk_launch("h2", x, w9, (b, rows, cols, co), return_y, t, f, rows, cols, H2_WINDOW,
+                                              co),
+                     lambda: chunked_taps_plain(x, w9), return_y)
+
+
+def tap_planes_checksum(p9, w9, return_y=False):
+    """i2: p9 (B, 9, Tp, Fp), w9 (9, CO) -> (B, 8, 128) f32, and y (B,
+    CONV1_ROWS, Fp, CO) if asked."""
+    if p9.dim() != 4 or p9.shape[1] != 9 or w9.dim() != 2 or w9.shape[0] != 9:
+        raise ValueError(f"want p9 (B, 9, T, F) and w9 (9, CO); got {tuple(p9.shape)}, {tuple(w9.shape)}")
+    b, _, t, f = p9.shape
+    rows, co = CONV1_ROWS, w9.shape[1]
+    if rows > t:
+        raise ValueError(f"rows={rows} need planes of at least as many rows, got p9 {tuple(p9.shape)}")
+    return _dispatch(p9, lambda: _chunk_launch("i2", p9, w9, (b, rows, f, co), return_y, t, f, rows, f, 0, co),
+                     lambda: tap_planes_plain(p9, w9), return_y)
+
+
+def conv2_dx_window_checksum(h1, w2i, return_y=False):
+    """j4: h1 (B, T2p, F2p, CI), w2i (3, 3 CI, CO) -> (B, 8, 128) f32, and y
+    (B, CONV2_ROWS, CONV2_SLICE_COLS, CO) if asked. The CUDA kernel takes
+    CI = 32, CO = 64 and reads w2i as it is."""
+    if h1.dim() != 4 or w2i.dim() != 3 or w2i.shape[:2] != (3, 3 * h1.shape[-1]):
+        raise ValueError(f"want h1 (B, T, F, CI) and w2i (3, 3 CI, CO); got {tuple(h1.shape)}, {tuple(w2i.shape)}")
+    rows, cols = CONV2_ROWS, CONV2_SLICE_COLS
+    _check_window(h1, rows, cols, "h1")
+    b, t, f, ci = h1.shape
+    co = w2i.shape[-1]
+    if h1.is_cuda and (ci, co) != CONV2_CHANNELS:
+        raise ValueError(f"the conv2 kernel takes {CONV2_CHANNELS[0]} -> {CONV2_CHANNELS[1]} channels, "
+                         f"got w2i {tuple(w2i.shape)}")
+    return _dispatch(h1, lambda: _chunk_launch("j4", h1, w2i, (b, rows, cols, co), return_y, t, f, rows, cols, 0, co),
+                     lambda: conv2_dx_window_plain(h1, w2i), return_y)
+
+
+def conv3_checksum(h2, w3, return_y=False):
+    """j5: h2 (B, T3p, F2p, CI), w3 (9, CI, CO) -> (B, 8, 128) f32, and y (B,
+    CONV3_ROWS, CONV3_COLS, CO) if asked. The CUDA kernel takes CI = 64, CO = 128."""
+    if h2.dim() != 4 or w3.dim() != 3 or w3.shape[:2] != (9, h2.shape[-1]):
+        raise ValueError(f"want h2 (B, T, F, CI) and w3 (9, CI, CO); got {tuple(h2.shape)}, {tuple(w3.shape)}")
+    rows, cols = CONV3_ROWS, CONV3_COLS
+    _check_window(h2, rows, cols, "h2")
+    b, t, f, ci = h2.shape
+    co = w3.shape[-1]
+    if h2.is_cuda and (ci, co) != CONV3_CHANNELS:
+        raise ValueError(f"the conv3 kernel takes {CONV3_CHANNELS[0]} -> {CONV3_CHANNELS[1]} channels, "
+                         f"got w3 {tuple(w3.shape)}")
+    return _dispatch(h2, lambda: _chunk_launch("j5", h2, w3, (b, rows, cols, co), return_y, t, f, rows, cols, 0, co),
+                     lambda: conv3_plain(h2, w3), return_y)
+
+
+def flat_chunks_checksum(xf, wt, return_y=False):
+    """c2: xf (B, R, L) whose row 0 holds flat padded samples of row width
+    FLAT_WIDTH, wt (CO, 16) -> (B, 8, 128) f32, and y (B, CHUNKS CHUNK_LEN,
+    CO) if asked. The CUDA kernel takes CO = 32."""
+    if xf.dim() != 3 or wt.dim() != 2 or wt.shape[1] != 16:
+        raise ValueError(f"want xf (B, R, L) and wt (CO, 16); got {tuple(xf.shape)}, {tuple(wt.shape)}")
+    b, r, length = xf.shape
+    if length < CHUNK_LEN:
+        raise ValueError(f"CHUNK_LEN {CHUNK_LEN} does not fit in xf {tuple(xf.shape)}")
+    co = wt.shape[0]
+    if xf.is_cuda and co != MMA_CHANNELS:
+        raise ValueError(f"the tensor-core conv1 kernel takes {MMA_CHANNELS} output channels, got wt {tuple(wt.shape)}")
+    cols = CHUNKS * CHUNK_LEN
+    return _dispatch(xf, lambda: _chunk_launch("c2", xf, wt, (b, cols, co), return_y, length, FLAT_WIDTH, r, cols,
+                                               CHUNK_LEN, co),
+                     lambda: flat_chunks_plain(xf, wt), return_y)
+
+
+def _conv2_slice(key):
+    return Case(lambda h, w: conv2_checksum(h, w, "slice", key=key), lambda h, w: conv2_plain(h, w, "slice"),
+                "h1", "w2")
+
+
+# Stage 14's three cases (train_opt_probe.py:1316-1320); j2 is j's kernel.
+STAGE14_CASES = {
+    "h2": Case(chunked_taps_checksum, chunked_taps_plain, "x", "w9"),
+    "i2": Case(tap_planes_checksum, tap_planes_plain, "p9", "w9"),
+    "j2": _conv2_slice("conv_chunked"),
+}
+# Stage 15's four (:1426-1476); j3 is j's kernel.
+STAGE15_CASES = {
+    "j3": _conv2_slice("conv_trailing"),
+    "j4": Case(conv2_dx_window_checksum, conv2_dx_window_plain, "h1", "w2i"),
+    "j5": Case(conv3_checksum, conv3_plain, "h2arr", "w3"),
+    "c2": Case(flat_chunks_checksum, flat_chunks_plain, "xf", "wt"),
+}

@@ -1,17 +1,18 @@
-"""Counterpart of ``scripts/train_opt_probe.py``; stages 11, 12 and 13 are ported so far.
+"""Counterpart of ``scripts/train_opt_probe.py``; stages 11 to 15 are ported so far.
 
-Stages 11-13 time formulations of CNN2D's first two convs, each (but
-stage 11's emit pass) reduced to a per-sample checksum, with the CUDA
-kernels of :mod:`dfac_tpu_torch.ops.conv_probe` in place of the stages'
-Pallas kernels: stage 11 one conv1 pass five ways (``kern_v0..v4``, K7),
-stage 12 four more formulations (``kern_a/c/d/f``, K8), stage 13 five
-aligned ones (``kern_g/h/i/j/k``, K9):
+Stages 11-15 time formulations of CNN2D's convs, each (but stage 11's
+emit pass) reduced to a per-sample checksum, with the CUDA kernels of
+:mod:`dfac_tpu_torch.ops.conv_probe` in place of the stages' Pallas
+kernels: stage 11 one conv1 pass five ways (``kern_v0..v4``, K7), stage 12
+four more formulations (``kern_a/c/d/f``, K8), stage 13 five aligned ones
+(``kern_g/h/i/j/k``, K9), stage 14 three chunked ones (``kern_h2/i2/j2``,
+K10), stage 15 conv2 and conv3 as trailing dots and a flat-shift conv1
+(``make_convk``, ``make_conv_inter``, ``kern_c2``, K11):
 
-    python -m dfac_tpu_torch.scripts.train_opt_probe --stages 11,12,13 [--batch 512] [--device cuda|cpu]
+    python -m dfac_tpu_torch.scripts.train_opt_probe --stages 11,12,13,14,15 [--batch 512] [--device cuda|cpu]
 
-Every other stage exits non-zero with "stage N not yet ported": stages 14
-and 15 wait for their kernels (K10, K11), stages 1-10, 16 and 17 for CNN2D
-training (``ROADMAP.md``). Stage 11's control is one cuDNN conv1 forward
+Every other stage exits non-zero with "stage N not yet ported": stages
+1-10, 16 and 17 wait for CNN2D training (``ROADMAP.md``). Stage 11's control is one cuDNN conv1 forward
 (the JAX script's XLA conv), a library call timed as the stage's
 yardstick. A case that fails raises, so the script exits non-zero; the JAX
 script's ``try/except`` existed to print Mosaic compile errors, and on the
@@ -32,11 +33,14 @@ from torch.nn.functional import conv2d, pad
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.ops import _build, conv_probe
 
-# stages 11-13's geometry (train_opt_probe.py:832, 957, 972, 1012, 1092-1094, 1145-1146)
+# stages 11-15's geometry (train_opt_probe.py:832, 957, 972, 1012, 1092-1094, 1145-1146, 1233-1234,
+# 1415, 1432, 1444-1448)
 T, F, CO = 321, 180, 32
 TP, FP, TV = 336, 256, 320
 T2, CI2, CO2 = 160, 32, 64
 T2P, F2P = 176, 192
+T3, T3P, CI3, CO3 = 80, 96, 64, 128
+XF_ROWS, XF_LEN = 16, -(-((T + 2) * (F + 2) + 128) // 128) * 128  # kern_c2's xf: (B, 16, 59,008)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -85,6 +89,38 @@ def stage13_inputs(batch: int, dt: torch.dtype, device: torch.device, seed: int 
         "patches": normal(batch, TV, FP, 9),
         "h1": normal(batch, T2P, F2P, CI2),
         "w2": normal(9, CI2, CO2, scale=0.1),
+    }
+
+
+def stage14_inputs(batch: int, dt: torch.dtype, device: torch.device, seed: int = 0) -> dict:
+    """Stage 14's arrays (``:1235-1286``), N(0,1) and 0.1 N(0,1) weights in
+    ``dt``, drawn in the JAX script's order from one seeded generator: x (B,
+    336, 256), w9 (9, 32), p9 (B, 9, 336, 256) tap-leading patches, h1 (B,
+    176, 192, 32), w2 (9, 32, 64)."""
+    normal = _normal(device, dt, seed)
+    return {
+        "x": normal(batch, TP, FP),
+        "w9": normal(9, CO, scale=0.1),
+        "p9": normal(batch, 9, TP, FP),
+        "h1": normal(batch, T2P, F2P, CI2),
+        "w2": normal(9, CI2, CO2, scale=0.1),
+    }
+
+
+def stage15_inputs(batch: int, dt: torch.dtype, device: torch.device, seed: int = 0) -> dict:
+    """Stage 15's arrays (``:1416-1452``), drawn likewise: h1 (B, 176, 192,
+    32), w2 (9, 32, 64), w2i (3, 96, 64), h2arr (B, 96, 192, 64), w3 (9, 64,
+    128), xf (B, 16, 59,008) (row 0 stands for a flat padded sample) and wt
+    (32, 16)."""
+    normal = _normal(device, dt, seed)
+    return {
+        "h1": normal(batch, T2P, F2P, CI2),
+        "w2": normal(9, CI2, CO2, scale=0.1),
+        "w2i": normal(3, 3 * CI2, CO2, scale=0.1),
+        "h2arr": normal(batch, T3P, F2P, CI3),
+        "w3": normal(9, CI3, CO3, scale=0.1),
+        "xf": normal(batch, XF_ROWS, XF_LEN),
+        "wt": normal(CO, 16, scale=0.1),
     }
 
 
@@ -151,6 +187,17 @@ STAGE13_LABELS = {
     "j": "j conv2 sublane-shift 9xK32",
     "k": "k conv2 roll-shift 9xK32",
 }
+STAGE14_LABELS = {
+    "h2": "h2 conv1 chunked slice-taps",
+    "i2": "i2 conv1 HBM tap-patches",
+    "j2": "j2 conv2 chunked 9xK32",
+}
+STAGE15_LABELS = {
+    "j3": "j3 conv2 chunk16 9xK32",
+    "j4": "j4 conv2 interleave 3xK96",
+    "j5": "j5 conv3 chunk16 9xK64",
+    "c2": "c2 conv1 flat-shift w-lhs",
+}
 
 
 def calls_per_case() -> int:
@@ -215,7 +262,33 @@ def stage13_conv_aligned(B: int, dt: torch.dtype, device: torch.device) -> dict:
         return _time_cases("13", conv_probe.CASES, arrs, STAGE13_LABELS, flops)
 
 
-STAGES = {"11": stage11_pallas_conv1, "12": stage12_conv_formulations, "13": stage13_conv_aligned}
+def stage14_conv_chunked(B: int, dt: torch.dtype, device: torch.device) -> dict:
+    """Stage 14 (``train_opt_probe.py:1220-1336``): three chunked conv
+    formulations; returns ``{case: seconds per call}``."""
+    print(f"\n== stage 14: chunked conv formulations (B={B}) ==")
+    arrs = stage14_inputs(B, dt, device)
+
+    def flops(name):  # the JAX script's FLOP counts (:1325-1328)
+        return B * T2 * 176 * CI2 * CO2 * 18 if name == "j2" else B * TV * FP * CO * 18
+
+    with torch.inference_mode():
+        return _time_cases("14", conv_probe.STAGE14_CASES, arrs, STAGE14_LABELS, flops)
+
+
+def stage15_conv2_chunks(B: int, dt: torch.dtype, device: torch.device) -> dict:
+    """Stage 15 (``train_opt_probe.py:1339-1489``): conv2 and conv3 as
+    trailing dots and conv1 as a flat-shift dot; returns ``{case: seconds
+    per call}``."""
+    print(f"\n== stage 15: conv2/conv3 chunked trailing dots (B={B}) ==")
+    arrs = stage15_inputs(B, dt, device)
+    fl = {"j3": B * T2 * 176 * CI2 * CO2 * 18, "j4": B * T2 * 176 * CI2 * CO2 * 18,  # :1425, :1439, :1474
+          "j5": B * T3 * 176 * CI3 * CO3 * 18, "c2": B * T * (F + 2) * CO * 18}
+    with torch.inference_mode():
+        return _time_cases("15", conv_probe.STAGE15_CASES, arrs, STAGE15_LABELS, fl.get)
+
+
+STAGES = {"11": stage11_pallas_conv1, "12": stage12_conv_formulations, "13": stage13_conv_aligned,
+          "14": stage14_conv_chunked, "15": stage15_conv2_chunks}
 
 
 def main(argv=None) -> dict:
@@ -229,8 +302,7 @@ def main(argv=None) -> dict:
     missing = [s for s in stages if s not in STAGES]
     if missing:
         raise SystemExit("; ".join(f"stage {s} not yet ported" for s in missing)
-                         + " (stages 14, 15 wait for kernels K10, K11; stages 1-10, 16, 17 "
-                           "for CNN2D training; see ROADMAP.md)")
+                         + " (stages 1-10, 16, 17 wait for CNN2D training; see ROADMAP.md)")
     device = resolve_device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"devices: [{name}]")

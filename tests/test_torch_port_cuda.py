@@ -12,7 +12,10 @@ conv-probe checksums each case at B=1 and B=3 with every output, the wrap
 columns included, against the plain version; for stages 11 and 12's cases
 odd T, F that is not a multiple of 8 (d's scalar staging path), batches
 that are not multiples of v3's group of 8, every output against the plain
-version). On the card, without the JAX
+version; for stages 14 and 15's cases every output at small odd sizes,
+F not a multiple of 8, h2's clamped second window, c2's partly and wholly
+clamped last chunks and chunks longer than a block, j5 at 64 -> 128
+channels, and at the stages' own widths at B=2). On the card, without the JAX
 package's conftest (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
@@ -372,3 +375,104 @@ def test_conv_pass_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
     monkeypatch.setattr(conv_probe, "FLAT_WIDTH", 10 * 15)
     with pytest.raises(ValueError, match="no output"):
         conv_probe.flat_shift_checksum(arrs["xpad_flat"], w9)
+
+
+CHUNK_CASES = {**conv_probe.STAGE14_CASES, **conv_probe.STAGE15_CASES}
+CHUNK_Y = {  # case -> f(input, weights) -> (sums, y)
+    "h2": lambda x, w: conv_probe.chunked_taps_checksum(x, w, return_y=True),
+    "i2": lambda p, w: conv_probe.tap_planes_checksum(p, w, return_y=True),
+    "j2": lambda h, w: conv_probe.conv2_checksum(h, w, "slice", return_y=True, key="conv_chunked"),
+    "j3": lambda h, w: conv_probe.conv2_checksum(h, w, "slice", return_y=True, key="conv_trailing"),
+    "j4": lambda h, w: conv_probe.conv2_dx_window_checksum(h, w, return_y=True),
+    "j5": lambda h, w: conv_probe.conv3_checksum(h, w, return_y=True),
+    "c2": lambda xf, w: conv_probe.flat_chunks_checksum(xf, w, return_y=True),
+}
+# small geometries: module constants, then the shapes of x, p9, h1, h2arr, xf
+CHUNK_GEOMS = {
+    # F = 17: h2's second window clamps to 17 - 10 = 7; every staged row is scalar (F % 8 = 1)
+    "odd": ({"CONV1_ROWS": 9, "H2_WINDOW": 8, "CONV2_ROWS": 9, "CONV2_SLICE_COLS": 13, "CONV3_ROWS": 9,
+             "CONV3_COLS": 13, "FLAT_WIDTH": 7, "CHUNK_LEN": 100, "CHUNKS": 3},
+            {"x": (3, 13, 17), "p9": (3, 9, 13, 17), "h1": (3, 13, 17, 32), "h2arr": (3, 13, 17, 64),
+             "xf": (3, 2, 290)}),   # L - Mc = 190: chunk 2's nine taps all start at 190
+    # F = 16: 16-byte staging, h2's window clamps to 6; c2's chunk 2 clamps taps 6-8 only (214-216 -> 210)
+    "even": ({"CONV1_ROWS": 12, "H2_WINDOW": 8, "CONV2_ROWS": 10, "CONV2_SLICE_COLS": 14, "CONV3_ROWS": 10,
+              "CONV3_COLS": 14, "FLAT_WIDTH": 7, "CHUNK_LEN": 100, "CHUNKS": 3},
+             {"x": (2, 16, 16), "p9": (2, 9, 16, 16), "h1": (2, 12, 16, 32), "h2arr": (2, 12, 16, 64),
+              "xf": (2, 1, 310)}),
+    # c2's chunks longer than one 2,048-output block, the last wholly clamped
+    "long": ({"FLAT_WIDTH": 182, "CHUNK_LEN": 3000, "CHUNKS": 2},
+             {"x": (1, 322, 130), "p9": (1, 9, 320, 24), "h1": (1, 162, 178, 32), "h2arr": (1, 82, 178, 64),
+              "xf": (2, 3, 5500)}),
+}
+CHUNK_WEIGHTS = {"w9": (9, 32), "w2": (9, 32, 64), "w2i": (3, 96, 64), "w3": (9, 64, 128), "wt": (32, 16)}
+
+
+def _chunk_inputs(geom, device, seed):
+    """Stage 14/15 arrays at a small geometry (N(0,1), 0.1 N(0,1) weights, bf16)."""
+    gen = torch.Generator().manual_seed(seed)
+    shapes = {**CHUNK_GEOMS[geom][1], **CHUNK_WEIGHTS}
+    return {k: (torch.randn(*s, generator=gen) * (0.1 if k in CHUNK_WEIGHTS else 1.0)).to(device, torch.bfloat16)
+            for k, s in shapes.items()}
+
+
+def _check_chunk_case(name, inp, w):
+    """Every y against the plain version, the checksum within 1e-5 sum |y|,
+    one launch under the stage's key, the sums alone equal to the sums with
+    y, bit for bit."""
+    case = CHUNK_CASES[name]
+    key = "conv_chunked" if name in conv_probe.STAGE14_CASES else "conv_trailing"
+    before = _build.launch_counts()
+    out, y = CHUNK_Y[name](inp, w)
+    want_y = case.plain(inp, w)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {**before, key: before[key] + 1}
+    assert y.shape == want_y.shape and out.shape == (inp.shape[0], 8, 128)
+    # exact bf16 products; f32 sums of 9 (conv1), 288 (conv2) or 576 (conv3) terms in another order
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-5)
+    assert torch.equal(out, out[:, :1, :1].expand_as(out))
+    dims = tuple(range(1, want_y.dim()))
+    bound = 1e-5 * want_y.double().abs().sum(dim=dims)
+    assert bool(((out[:, 0, 0].double() - want_y.double().sum(dim=dims)).abs() <= bound).all())
+    assert torch.equal(case.kernel(inp, w), out)
+
+
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+@pytest.mark.parametrize("geom", list(CHUNK_GEOMS))
+def test_conv_chunk_kernel_matches_plain(cuda, name, geom, monkeypatch):
+    for const, value in CHUNK_GEOMS[geom][0].items():
+        monkeypatch.setattr(conv_probe, const, value)
+    arrs = _chunk_inputs(geom, cuda, seed=len(geom))
+    case = CHUNK_CASES[name]
+    _check_chunk_case(name, arrs[case.inp], arrs[case.weights])
+
+
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_conv_chunk_kernel_at_stage_widths(cuda, name):
+    """The stages' own arrays and windows at B=2 (h2's window from 126, c2's
+    chunk 7 from 50,816)."""
+    from dfac_tpu_torch.scripts.train_opt_probe import stage14_inputs, stage15_inputs
+
+    inputs = stage14_inputs if name in conv_probe.STAGE14_CASES else stage15_inputs
+    arrs = inputs(2, torch.bfloat16, cuda, seed=2)
+    case = CHUNK_CASES[name]
+    _check_chunk_case(name, arrs[case.inp], arrs[case.weights])
+
+
+def test_conv_chunk_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
+    for const, value in CHUNK_GEOMS["odd"][0].items():
+        monkeypatch.setattr(conv_probe, const, value)
+    arrs = _chunk_inputs("odd", cuda, seed=0)
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.chunked_taps_checksum(arrs["x"], arrs["w9"][:, :16])
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv_probe.tap_planes_checksum(arrs["p9"].float(), arrs["w9"].float())
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the C entry refuses 2,000 output channels
+        conv_probe.tap_planes_checksum(arrs["p9"], torch.zeros(9, 2000, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="32 -> 64"):
+        conv_probe.conv2_dx_window_checksum(arrs["h1"], arrs["w2i"][..., :32])
+    with pytest.raises(ValueError, match="64 -> 128"):
+        conv_probe.conv3_checksum(arrs["h2arr"], arrs["w3"][..., :64])
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.flat_chunks_checksum(arrs["xf"], arrs["wt"][:16])
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_probe.flat_chunks_checksum(arrs["xf"][..., :99], arrs["wt"])

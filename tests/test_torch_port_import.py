@@ -58,6 +58,15 @@ conv_probe.conv1_valid_checksum(x, w.reshape(9, 8), "fma")
 conv_probe.FLAT_WIDTH = 8
 conv_probe.flat_shift_checksum(torch.zeros(1, 1, 56, dtype=torch.bfloat16), w.reshape(9, 8))
 conv_probe.conv2_dx_checksum(torch.zeros(1, 5, 6, 4, dtype=torch.bfloat16), torch.zeros(3, 12, 2, dtype=torch.bfloat16))
+for const, value in (("CONV1_ROWS", 3), ("H2_WINDOW", 3), ("CONV2_ROWS", 3), ("CONV2_SLICE_COLS", 4),
+                     ("CONV3_ROWS", 3), ("CONV3_COLS", 4), ("CHUNK_LEN", 20), ("CHUNKS", 2)):
+    setattr(conv_probe, const, value)
+h, zeros = torch.zeros(1, 5, 6, 4, dtype=torch.bfloat16), torch.zeros(9, 4, 2, dtype=torch.bfloat16)
+arrs = {"x": x, "w9": w.reshape(9, 8), "p9": torch.zeros(1, 9, 5, 6, dtype=torch.bfloat16), "h1": h, "w2": zeros,
+        "w2i": torch.zeros(3, 12, 2, dtype=torch.bfloat16), "h2arr": h, "w3": zeros,
+        "xf": torch.zeros(1, 2, 40, dtype=torch.bfloat16), "wt": torch.zeros(8, 16, dtype=torch.bfloat16)}
+for case in {**conv_probe.STAGE14_CASES, **conv_probe.STAGE15_CASES}.values():
+    case.kernel(arrs[case.inp], arrs[case.weights])
 print(json.dumps({"mods": mods, "bad": bad, "launches": _build.launch_counts(), "scores": list(scores.shape)}))
 """
 
@@ -72,7 +81,8 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     assert report["bad"] == []
     # CPU tensors: plain versions only
     assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0,
-                                  "conv_probe": 0, "conv1_pass": 0, "conv_forms": 0}
+                                  "conv_probe": 0, "conv1_pass": 0, "conv_forms": 0, "conv_chunked": 0,
+                                  "conv_trailing": 0}
     assert report["scores"] == [2]
 
 

@@ -549,7 +549,7 @@ def test_train_opt_probe_refuses_unported_stages():
                            "--device", "cpu"], capture_output=True, text=True, cwd=str(ROOT))
     assert proc.returncode != 0
     assert "stage 4 not yet ported" in proc.stderr and proc.stdout == ""
-    assert "stages 14, 15 wait for kernels K10, K11" in proc.stderr
+    assert "stages 1-10, 16, 17 wait for CNN2D training" in proc.stderr
 
 
 def test_pool_kernel_probe_entry_point(capsys):
