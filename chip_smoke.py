@@ -59,8 +59,9 @@ line:
             7, host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            rFFT + K4 against K1, K5 against ``F.avg_pool2d``, and stage
-            11's cuDNN conv1 control
+            each K2 block beside its own bound, rFFT + K4 against K1, K5
+            against ``F.avg_pool2d``, and cuDNN controls: blocks 2 and 3's
+            conv alone, stage 11's conv1
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (for ``conv_block``, ``time_pool``,
@@ -263,8 +264,8 @@ def main() -> int:
         "frontend_kernel bf16": lib.dfac_gemm_frontend_smem(1),
         "frontend_kernel f32": lib.dfac_gemm_frontend_smem(0),
         "conv_block_cin1 1->32": lib.dfac_conv_block_smem(1, 32, 1),
-        "conv_block_mma 32->64": lib.dfac_conv_block_smem(32, 64, 1),
-        "conv_block_mma 64->128": lib.dfac_conv_block_smem(64, 128, 1),
+        "conv_block_tc 32->64": lib.dfac_conv_block_smem(32, 64, 1),
+        "conv_block_tc 64->128": lib.dfac_conv_block_smem(64, 128, 1),
         "fb_log_dct_kernel": lib.dfac_fb_log_dct_smem(),
         "conv1_checksum g": lib.dfac_conv_probe_smem(0, 256, 256, 32),
         "conv1_checksum i": lib.dfac_conv_probe_smem(2, 256, 256, 32),
@@ -285,7 +286,7 @@ def main() -> int:
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
-            k = re.search(r"(frontend_kernel|conv_block_mma|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
+            k = re.search(r"(frontend_kernel|conv_block_tc|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
                           r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
@@ -721,11 +722,23 @@ def main() -> int:
         phase("timing", f"waveform -> cepstra B={BATCH}: rFFT + K4 {fft_k4:.4f} ms, K1 {str(dt)[6:]} "
                         f"{k1_dt:.4f} ms, on {card}")
     k2_ms = k2_plain = 0.0
-    for x, w, b, pool in k2_inputs:
+    k2_parts = [  # per block: bytes in and out once, 9 * Cin * Cout multiply-adds per conv output
+        bound((x.numel() + x.shape[0] * (x.shape[1] // 2 if pool else x.shape[1]) * x.shape[2] * w.shape[-1]) * 2,
+              bf16=2 * x.shape[0] * (x.shape[1] - x.shape[1] % 2 if pool else x.shape[1]) * x.shape[2] * w.numel())
+        for x, w, b, pool in k2_inputs]
+    for i, ((x, w, b, pool), (bnd_ms, bnd_by)) in enumerate(zip(k2_inputs, k2_parts), 1):
         ms, plain_ms = in_turns(lambda: reference_conv_block(x, w, b, pool), lambda: fused_conv_block(x, w, b, pool))
         k2_ms, k2_plain = k2_ms + ms, k2_plain + plain_ms
-        phase("timing", f"K2 conv_block bf16 x{tuple(x.shape)} pool={pool}: kernel {ms:.4f} ms, "
-                        f"plain {plain_ms:.4f} ms, on {card}")
+        phase("timing", f"K2 conv_block block {i} bf16 x{tuple(x.shape)} pool={pool}: kernel {ms:.4f} ms, "
+                        f"bound {bnd_ms:.4f} ms ({bnd_by}), {bnd_ms / ms:.1%} of the bound's rate; plain "
+                        f"{plain_ms:.4f} ms, on {card}")
+        if x.shape[-1] > 1:  # the tensor-core blocks: cuDNN's conv alone as a yardstick
+            xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
+            wc = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            F.conv2d(xc, wc, padding=1)
+            control_ms = statistics.mean(cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10) for _ in range(2))
+            phase("timing", f"K2 block {i} control, cuDNN conv alone (one bf16 F.conv2d, SAME, channels-last; no "
+                            f"bias, ReLU or pool) x{tuple(x.shape)} -> {w.shape[-1]}: {control_ms:.4f} ms, on {card}")
 
     k5_ms = k5_plain = k5_lib = 0.0
     for x in k5_inputs:
@@ -758,10 +771,7 @@ def main() -> int:
     k1_bound = bound(wave.numel() * 4 + rows * cfg.n_ceps * 4,
                      bf16=2 * rows * cfg.win_length * 2 * n_bins, f32=rows * (3 * n_bins + epilogue))
     k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
-    k2_bound = bound_sum(
-        bound((x.numel() + x.shape[0] * (x.shape[1] // 2 if pool else x.shape[1]) * x.shape[2] * w.shape[-1]) * 2,
-              bf16=2 * x.shape[0] * (x.shape[1] - x.shape[1] % 2 if pool else x.shape[1]) * x.shape[2] * w.numel())
-        for x, w, b, pool in k2_inputs)
+    k2_bound = bound_sum(k2_parts)
     k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
     cp_parts = []
     for name, case in conv_probe.CASES.items():

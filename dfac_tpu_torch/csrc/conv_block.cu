@@ -13,25 +13,53 @@
 // the last conv row is dropped after the conv, so it still served as the
 // halo of the row before it.
 //
-// What bounds it on the card: at the serving shapes (B=128, W=180,
-// 1->32->64->128 channels) a block does 9 * Cin FLOP pairs per output
-// value against 2 bytes in and 2 (or 1 after the pool) bytes out; for
-// Cin = 32/64 that is ~300-600 FLOP/byte, near the H100's bf16 ridge, so
-// both the tensor cores and the ~0.5 GB of activations per block and batch
-// matter. Block 1 (Cin = 1, K = 9) is bound by its output write alone.
+// What bounds it on the card, at the serving shapes (B = 128, W = 180,
+// 1 -> 32 -> 64 -> 128 channels; 989 TFLOP/s bf16, 3.35 TB/s):
+//  * block 3 (64 -> 128, no pool): 272 GFLOP, 0.275 ms on the tensor cores,
+//    against 708 MB in and out, 0.211 ms: operations.
+//  * block 2 (32 -> 64, pool): 136 GFLOP, 0.137 ms, against 472 MB, 0.141
+//    ms: bytes and operations within 3% of each other.
+//  * block 1 (Cin = 1, K = 9): its output write alone.
 //
 // Design:
-//  * Cin = 32 / 64 in bf16 (blocks 2 and 3): implicit GEMM on the tensor
-//    cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). M = output
-//    pixels, N = Cout, K = 9 * Cin taken tap by tap. A block keeps all
-//    folded weights in shared memory for its whole life and walks over
-//    tiles of 2 conv rows x 64 columns (a grid-stride loop), so weights are
-//    read from device memory once per block, not once per tile. The two
-//    conv rows of a tile are exactly one pooled row: each warp holds the
-//    accumulators of both rows for the same pixels and channels, and the
-//    pool happens in registers, so the pre-pool tensor never reaches
-//    device memory. Shared-memory rows pad by 8 bf16, which makes every
-//    32-bit fragment load conflict-free.
+//  * Cin = 32 / 64 in bf16 (blocks 2 and 3), conv_block_tc: implicit GEMM
+//    (M = output pixels, N = Cout, K = 9 taps x Cin) on wgmma, the
+//    instruction that reaches the card's bf16 rate.
+//    - Persistent blocks (one per SM at block 3, two at block 2) hold the
+//      folded weights in shared memory for their whole life, stored once
+//      in the layout wgmma's B descriptor reads: K-major rows (tap, cout)
+//      of Cin bf16. Cin = 64 rows are 128 B and take the 128-byte swizzle
+//      (SBO 1,024 B; a k16 step moves the start address by 32 B). Cin = 32
+//      rows are 64 B and take the 64-byte swizzle (SBO 512 B) rather than
+//      the interleaved layout: one addressing rule and one fill serve both
+//      blocks, and 8 rows of one 16-byte chunk still fall on 8 distinct
+//      bank quads.
+//    - Each warpgroup walks tiles of its own, 2 conv rows x 32 columns (64
+//      pixels, wgmma's M), in a grid-stride loop, through a ring of its own
+//      halo tiles (4 x 34 pixels, rows padded by 8 bf16; two stages at
+//      block 3, three at block 2) filled by cp.async, 16 bytes a copy, SAME
+//      padding from the copy's zero fill. It issues the copies of the tile
+//      S - 1 ahead once the first tap's wgmmas are in flight, and syncs
+//      on a named barrier of its 128 threads. Warpgroup 1 starts when
+//      warpgroup 0 is half through its first tile; past that the two never
+//      wait on each other, so one's epilogue, copies and barrier overlap
+//      the other's wgmmas. At the tensor cores' peak a m64nCout k16 would
+//      read 96 (block 3) or 128 (block 2) of shared memory's 128 B a clock:
+//      2 KB of A by ldmatrix and Cout x 32 B of B.
+//    - The tap shift (dy, dx) starts each tap's A window at any pixel, off
+//      the 8-row pattern an A descriptor's swizzle is laid out on (only its
+//      base-offset field could express that; untried). So A comes from
+//      registers, by ldmatrix.x4 over the padded tile (conflict-free), and
+//      each warpgroup issues one wgmma m64nCout k16 per k16 step, the A
+//      registers double-buffered across taps (commit a tap, wait for the
+//      tap before it).
+//    - A warp's 16 M rows are 8 columns of conv row 0, then the same 8 of
+//      row 1, so a thread's two accumulator rows are both conv rows of one
+//      column and the pool happens in registers; the pre-pool tensor never
+//      reaches device memory. A thread's results are bf16 pairs of 4
+//      channel octets; a 4 x 4 transpose over its quad (two shuffles) gives
+//      each lane a whole octet, so the output leaves in 16-byte stores that
+//      fill whole sectors, 4x fewer than pair stores.
 //  * Cin = 1 (block 1, K = 9, bf16 or f32): one thread per output pixel
 //    computes all of its channels from 12 inputs held in registers and
 //    writes them as 16-byte vectors; the tensor cores would idle at K = 9.
@@ -39,141 +67,332 @@
 //    kernel on the CUDA cores, one output value per thread, same epilogue.
 //    Correct, not fast: the serving path does not take it.
 //  * SAME zero padding on both edges of H and W; W = 180 is not a multiple
-//    of the 64-column tile, so the last tile masks its columns.
+//    of the 32-column tile, so the last tile masks its columns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "mma_bf16.cuh"
-
 namespace {
 
 using bf16 = __nv_bfloat16;
-using dfac::ld32;
-using dfac::mma_bf16;
 
-constexpr int THREADS = 256;  // 8 warps: 4 column groups x 2 halves of Cout
-constexpr int TW = 64;        // output columns per tile
-constexpr int IN_ROWS = 4;    // 2 conv rows + halo
+constexpr int THREADS = 256;     // 2 warpgroups, each walking tiles of its own
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int TW = 32;           // output columns per tile: 2 conv rows x 32 = one warpgroup's 64 pixels
+constexpr int IN_ROWS = 4;       // 2 conv rows + halo
 constexpr int IN_COLS = TW + 2;
-constexpr int PAD = 8;        // bf16 per smem row: conflict-free fragment loads
+constexpr int PAD = 8;           // bf16 per tile pixel row: conflict-free ldmatrix rows
+
+template <int CIN>
+__host__ __device__ constexpr int tile_stride() { return CIN + PAD; }  // tile pixel stride (bf16)
 
 template <int CIN, int COUT>
-struct MmaCfg {
-  static constexpr int XS = CIN + PAD;  // smem pixel stride (bf16)
-  static constexpr int WS = CIN + PAD;  // smem weight row stride, rows = (tap, cout)
-  static constexpr int WN = COUT / 2;   // output channels per warp
-  static constexpr int NFRAG = WN / 8;  // n8 fragments per warp
-  static constexpr size_t W_BYTES = size_t(9) * COUT * WS * 2;
-  static constexpr size_t X_BYTES = size_t(IN_ROWS) * IN_COLS * XS * 2;
-  static constexpr size_t SMEM = W_BYTES + X_BYTES + COUT * sizeof(float);
-  static_assert(CIN % 16 == 0 && COUT % 16 == 0, "mma tiles");
-  static_assert(W_BYTES % 16 == 0 && X_BYTES % 16 == 0, "16-byte aligned sections");
+struct TcCfg {
+  // halo tiles in each warpgroup's cp.async ring: two at block 3 (one block
+  // per SM), three at block 2 (two blocks per SM), as many as fit
+  static constexpr int STAGES = COUT == 128 ? 2 : 3;
+  static constexpr int XS = tile_stride<CIN>();
+  static constexpr int ROW_B = CIN * 2;   // weight row (tap, cout): Cin bf16, 64 or 128 bytes
+  static constexpr int KSTEPS = CIN / 16;  // wgmma k16 steps per tap
+  static constexpr int NACC = COUT / 2;    // f32 accumulators per thread: 64 x Cout per warpgroup
+  static constexpr size_t W_BYTES = size_t(9) * COUT * ROW_B;
+  static constexpr size_t X_BYTES = size_t(IN_ROWS) * IN_COLS * XS * 2;  // one stage
+  static constexpr size_t ALIGN = 1024;  // the 128-byte swizzle repeats every 1024 bytes
+  static constexpr size_t SMEM = ALIGN + W_BYTES + 2 * STAGES * X_BYTES + COUT * sizeof(float);
+  static_assert(CIN == 32 || CIN == 64, "64- or 128-byte weight rows");
+  static_assert(COUT == 64 || COUT == 128, "wgmma m64n64 or m64n128");
+  static_assert(X_BYTES % 16 == 0, "16-byte aligned stages");
   static_assert(SMEM <= 232448, "227 KB of shared memory per block");
+  static_assert((9 * CIN * COUT) % (8 * THREADS) == 0, "weights in batches of 8 per thread");
 };
 
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(THREADS)
-conv_block_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out,
-               int batch, int h, int width, int pool) {
-  using C = MmaCfg<CIN, COUT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);                    // [tap][cout][cin + PAD]
-  bf16* sX = reinterpret_cast<bf16*>(smem + C::W_BYTES);       // [row][col][cin + PAD]
-  float* sBias = reinterpret_cast<float*>(smem + C::W_BYTES + C::X_BYTES);
+// Byte offset of 16-byte chunk c of weight row r. Rows of 128 bytes (Cin = 64)
+// take the 128-byte swizzle (chunk ^= r % 8), rows of 64 bytes (Cin = 32) the
+// 64-byte one (chunk ^= (r / 2) % 4), as the hardware swizzles address bits
+// 4-6 (4-5) by bits 7-9 (7-8) of a 1024-byte aligned region.
+template <int CIN>
+__device__ __forceinline__ uint32_t w_off(int r, int c) {
+  if constexpr (CIN == 64) return uint32_t(r * 128 + ((c ^ (r & 7)) << 4));
+  else return uint32_t(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+}
 
-  // folded weights, transposed to (tap, cout, cin) so B fragments are 32-bit loads
-  for (int i = threadIdx.x; i < 9 * CIN * COUT; i += THREADS) {
-    const int co = i % COUT, ci = (i / COUT) % CIN, t = i / (COUT * CIN);
-    sW[(t * COUT + co) * C::WS + ci] = w[i];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 fills zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // at most N newer groups still in flight
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// wgmma shared-memory descriptor of a K-major B operand starting at byte
+// address addr: rows of Cin bf16 swizzled as w_off lays them, 8-row groups
+// SBO = 8 rows apart; LBO is unused by the swizzled K-major layouts (1).
+template <int CIN>
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  constexpr uint64_t layout = CIN == 64 ? 1 : 2;  // 128-byte, 64-byte swizzle
+  constexpr uint64_t sbo = 8 * CIN * 2;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | ((sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses to registers that an in-flight
+// wgmma reads or writes across the fence, commit and wait above.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// D (64 x N f32; per warp and n8 the m16n8 accumulator layout) += A (64 x 16
+// bf16 in registers; per warp the m16k16 fragment) * B (16 x N bf16, K-major
+// in shared memory, by descriptor). scale-d = 1: D accumulates.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The 4 lanes q of a quad hold x_m = in[q][m], m = 0..3; lane q gets
+// out[q][m] = in[m][q] (a 4 x 4 transpose: two shuffle rounds, lane bit 0
+// then bit 1).
+__device__ __forceinline__ uint4 quad_transpose(uint32_t x0, uint32_t x1, uint32_t x2, uint32_t x3, int q) {
+  const bool q1 = q & 1, q2 = q & 2;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, q1 ? x0 : x1, 1);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, q1 ? x2 : x3, 1);
+  const uint32_t y0 = q1 ? r0 : x0, y1 = q1 ? x1 : r0, y2 = q1 ? r1 : x2, y3 = q1 ? x3 : r1;
+  r0 = __shfl_xor_sync(0xffffffffu, q2 ? y0 : y2, 2);
+  r1 = __shfl_xor_sync(0xffffffffu, q2 ? y1 : y3, 2);
+  return q2 ? make_uint4(r0, r1, y2, y3) : make_uint4(y0, y1, r0, r1);
+}
+
+// A warpgroup (lane wt of 128) issues the copies of one halo tile (IN_ROWS x
+// IN_COLS pixels, Cin each) into a stage; pixels outside the image (SAME
+// padding) are zero-filled.
+template <int CIN>
+__device__ __forceinline__ void load_tile(uint32_t stage, const bf16* __restrict__ x, int tile, int h, int width,
+                                          int row_tiles, int col_tiles, int wt) {
+  constexpr int VEC = CIN / 8;
+  const int cb = tile % col_tiles, rest = tile / col_tiles;
+  const int p = rest % row_tiles, b = rest / row_tiles;
+  const int y0 = 2 * p - 1, x0 = cb * TW - 1;
+  for (int i = wt; i < IN_ROWS * IN_COLS * VEC; i += WG_THREADS) {
+    const int v = i % VEC, pix = i / VEC;
+    const int ic = pix % IN_COLS, ir = pix / IN_COLS;
+    const int y = y0 + ir, xc = x0 + ic;
+    const bool in = y >= 0 && y < h && xc >= 0 && xc < width;
+    const bf16* src = in ? x + ((size_t(b) * h + y) * width + xc) * CIN + v * 8 : x;
+    cp_async16(stage + uint32_t((pix * tile_stride<CIN>() + v * 8) * 2), src, in ? 16 : 0);
   }
-  for (int i = threadIdx.x; i < COUT; i += THREADS) sBias[i] = bias[i];
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tq = lane & 3;
-  const int cg = warp & 3;   // 16-pixel column group of the tile
-  const int nw = warp >> 2;  // half of Cout
+// Named barriers: 1 and 2 for the 128 threads of warpgroup 0 and 1, 3 for
+// the block's one hand-over from warpgroup 0 to warpgroup 1.
+__device__ __forceinline__ void wg_barrier(int wg) {
+  if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+__device__ __forceinline__ void stagger_wait() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void stagger_release() { asm volatile("bar.arrive 3, 256;\n" ::: "memory"); }
+
+template <int CIN, int COUT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+conv_block_tc(const bf16* __restrict__ x, const bf16* __restrict__ w, const float* __restrict__ bias,
+              bf16* __restrict__ out, int batch, int h, int width, int pool) {
+  using C = TcCfg<CIN, COUT>;
+  constexpr int S = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((C::ALIGN - (smem_u32(smem_raw) & (C::ALIGN - 1))) & (C::ALIGN - 1));
+  unsigned char* sW = smem;                                         // [tap * COUT + cout][cin], swizzled
+  const uint32_t sW_u32 = smem_u32(sW);
+  float* sBias = reinterpret_cast<float*>(smem + C::W_BYTES + 2 * S * C::X_BYTES);
+
+  // Warpgroup wg walks tiles 2 * block + wg + k * (2 * grid) through a ring
+  // of its own (S x [row][col][cin + PAD]).
+  const int wg = threadIdx.x / WG_THREADS, wt = threadIdx.x % WG_THREADS;
+  const uint32_t ring = smem_u32(smem + C::W_BYTES) + wg * S * uint32_t(C::X_BYTES);
   const int h_out = pool ? h / 2 : h;
   const int row_tiles = pool ? h / 2 : (h + 1) / 2;
   const int col_tiles = (width + TW - 1) / TW;
-  const long long n_tiles = (long long)batch * row_tiles * col_tiles;
+  const int n_tiles = batch * row_tiles * col_tiles;  // < 2^31, checked at launch
+  const int first = 2 * blockIdx.x + wg, step = 2 * gridDim.x;
+  // the first S - 1 tiles' copies fly while the weights are stored; one group per tile
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) {
+    const int tile = first + k * step;
+    if (tile < n_tiles) load_tile<CIN>(ring + k * uint32_t(C::X_BYTES), x, tile, h, width, row_tiles, col_tiles, wt);
+    cp_async_commit();
+  }
 
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int cb = int(tile % col_tiles);
-    const int p = int((tile / col_tiles) % row_tiles);
-    const int b = int(tile / ((long long)col_tiles * row_tiles));
-    const int y0 = 2 * p - 1, x0 = cb * TW - 1;  // input origin of the halo'd tile
-
-    __syncthreads();  // weights are in / the previous tile's readers are done
-    constexpr int VEC = CIN / 8;
-    for (int i = threadIdx.x; i < IN_ROWS * IN_COLS * VEC; i += THREADS) {
-      const int v = i % VEC, pix = i / VEC;
-      const int ic = pix % IN_COLS, ir = pix / IN_COLS;
-      const int y = y0 + ir, xc = x0 + ic;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (y >= 0 && y < h && xc >= 0 && xc < width)
-        val = *reinterpret_cast<const uint4*>(x + ((size_t(b) * h + y) * width + xc) * CIN + v * 8);
-      *reinterpret_cast<uint4*>(sX + pix * C::XS + v * 8) = val;
+  // folded weights, once per block, 8 loads in flight per thread:
+  // w[tap][ci][co] goes to row (tap, co), element ci
+  for (int i0 = threadIdx.x; i0 < 9 * CIN * COUT; i0 += 8 * THREADS) {
+    bf16 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = w[i0 + u * THREADS];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * THREADS;
+      const int co = i % COUT, ci = (i / COUT) % CIN, t = i / (COUT * CIN);
+      *reinterpret_cast<bf16*>(sW + w_off<CIN>(t * COUT + co, ci / 8) + (ci % 8) * 2) = v[u];
     }
-    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < COUT; i += THREADS) sBias[i] = bias[i];
+  // the weights' ordinary stores, before wgmma (the async proxy) reads them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 
-    float acc[2][C::NFRAG][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < C::NFRAG; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int px0 = (warp & 3) * 8;  // this warp's 8 columns of the tile
+  // A: warp M row i is conv row i / 8 at column px0 + i % 8. ldmatrix.x4 lane l
+  // addresses row l % 8 of matrix l / 8: (rows 0-7, k 0-7), (rows 8-15, k 0-7),
+  // (rows 0-7, k 8-15), (rows 8-15, k 8-15), the m16k16 fragment's order.
+  const int lq = lane >> 3, lr = lane & 7;
+  const uint32_t a_lane = uint32_t((((lq & 1) * IN_COLS + px0 + lr) * C::XS + 8 * (lq >> 1)) * 2);
 
-#pragma unroll 1
+  // Warpgroup 1 starts once warpgroup 0 is half way through its first tile,
+  // so that the two run out of phase and one's epilogue, copies and
+  // barrier fall in the other's wgmmas, not beside them.
+  bool lead = wg == 0;  // warpgroup 0 has yet to release warpgroup 1
+  if (wg == 1) stagger_wait();
+  if (lead && first >= n_tiles) {
+    stagger_release();
+    lead = false;
+  }
+  int s = 0;  // this tile's stage
+  for (int tile = first; tile < n_tiles; tile += step, s = s + 1 == S ? 0 : s + 1) {
+    cp_async_wait<S - 2>();
+    wg_barrier(wg);  // this tile's stage is in; the warpgroup is done with the stage it read last
+    const uint32_t sX = ring + s * uint32_t(C::X_BYTES);
+
+    float acc[C::NACC];
+#pragma unroll
+    for (int i = 0; i < C::NACC; ++i) acc[i] = 0.f;
+    uint32_t a[2][C::KSTEPS][4];  // A registers of two taps: one in flight, one loading
+#pragma unroll
     for (int t = 0; t < 9; ++t) {
-      const int dy = t / 3, dx = t % 3;
+      const uint32_t a_tap = sX + a_lane + uint32_t(((t / 3) * IN_COLS + t % 3) * C::XS * 2);
 #pragma unroll
-      for (int k0 = 0; k0 < CIN; k0 += 16) {
-        uint32_t a[2][4];
+      for (int kk = 0; kk < C::KSTEPS; ++kk) ldsm_x4(a_tap + kk * 32, a[t & 1][kk]);
+      fence_regs(acc);
+      wgmma_fence();  // the A registers just written, before wgmma reads them
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const bf16* p0 = sX + ((r + dy) * IN_COLS + cg * 16 + gid + dx) * C::XS + k0 + 2 * tq;
-          const bf16* p8 = p0 + 8 * C::XS;
-          a[r][0] = ld32(p0);
-          a[r][1] = ld32(p8);
-          a[r][2] = ld32(p0 + 8);
-          a[r][3] = ld32(p8 + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < C::NFRAG; ++j) {
-          const bf16* pw = sW + (t * COUT + nw * C::WN + 8 * j + gid) * C::WS + k0 + 2 * tq;
-          const uint32_t b0 = ld32(pw), b1 = ld32(pw + 8);
-          mma_bf16(acc[0][j], a[0], b0, b1);
-          mma_bf16(acc[1][j], a[1], b0, b1);
-        }
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const uint64_t desc = b_desc<CIN>(sW_u32 + uint32_t((t * COUT) * C::ROW_B + kk * 32));
+        if constexpr (COUT == 64) wgmma_n64(acc, a[t & 1][kk], desc);
+        else wgmma_n128(acc, a[t & 1][kk], desc);
       }
+      wgmma_commit();
+      if (t == 0) {  // the ring's next copies, issued while the tensor cores work
+        const int ahead = tile + (S - 1) * step;
+        const int fill = s == 0 ? S - 1 : s - 1;  // the stage the previous tile read
+        if (ahead < n_tiles)
+          load_tile<CIN>(ring + fill * uint32_t(C::X_BYTES), x, ahead, h, width, row_tiles, col_tiles, wt);
+        cp_async_commit();
+      }
+      if (t == 4 && lead) {
+        stagger_release();
+        lead = false;
+      }
+      wgmma_wait<1>();  // the tap before is done: its A registers are free
+      if (t > 0) fence_regs(a[(t + 1) & 1]);
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
 
-    // epilogue: + bias, ReLU, pool the two rows in f32, one cast
+    // epilogue: + bias, ReLU, pool the two rows in f32, one cast. acc[4j..4j+1]
+    // is conv row 0 and acc[4j+2..4j+3] conv row 1, channels 8j + 2tq, +1. A
+    // quad then trades its bf16 pairs so that each lane stores 16 bytes: 8
+    // channels of one pixel.
+    constexpr int NJ = COUT / 8;
+    uint32_t packed[2][NJ];
 #pragma unroll
-    for (int j = 0; j < C::NFRAG; ++j) {
-      const int n = nw * C::WN + 8 * j + 2 * tq;
+    for (int j = 0; j < NJ; ++j) {
+      const int n = 8 * j + 2 * tq;
       const float b0 = sBias[n], b1 = sBias[n + 1];
+      const float u0 = fmaxf(acc[4 * j] + b0, 0.f), u1 = fmaxf(acc[4 * j + 1] + b1, 0.f);
+      const float l0 = fmaxf(acc[4 * j + 2] + b0, 0.f), l1 = fmaxf(acc[4 * j + 3] + b1, 0.f);
+      packed[0][j] = pool ? pack_bf16((u0 + l0) * 0.5f, (u1 + l1) * 0.5f) : pack_bf16(u0, u1);
+      packed[1][j] = pack_bf16(l0, l1);
+    }
+    const int cb = tile % col_tiles, rest = tile / col_tiles;
+    const int p = rest % row_tiles, b = rest / row_tiles;
+    const int col = cb * TW + px0 + gid;
+    const int rows = pool ? 1 : (2 * p + 1 < h ? 2 : 1);
+    bf16* o = out + ((size_t(b) * h_out + (pool ? p : 2 * p)) * width + col) * COUT;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int col = cb * TW + cg * 16 + gid + 8 * hh;
-        if (col >= width) continue;
-        const float u0 = fmaxf(acc[0][j][2 * hh] + b0, 0.f), u1 = fmaxf(acc[0][j][2 * hh + 1] + b1, 0.f);
-        const float l0 = fmaxf(acc[1][j][2 * hh] + b0, 0.f), l1 = fmaxf(acc[1][j][2 * hh + 1] + b1, 0.f);
-        if (pool) {
-          const __nv_bfloat162 v = __floats2bfloat162_rn((u0 + l0) * 0.5f, (u1 + l1) * 0.5f);
-          *reinterpret_cast<__nv_bfloat162*>(out + ((size_t(b) * h_out + p) * width + col) * COUT + n) = v;
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(out + ((size_t(b) * h_out + 2 * p) * width + col) * COUT + n) =
-              __floats2bfloat162_rn(u0, u1);
-          if (2 * p + 1 < h)
-            *reinterpret_cast<__nv_bfloat162*>(out + ((size_t(b) * h_out + 2 * p + 1) * width + col) * COUT + n) =
-                __floats2bfloat162_rn(l0, l1);
-        }
+    for (int r = 0; r < 2; ++r) {
+      if (r >= rows) break;
+#pragma unroll
+      for (int g = 0; g < NJ / 4; ++g) {
+        const uint4 v = quad_transpose(packed[r][4 * g], packed[r][4 * g + 1], packed[r][4 * g + 2],
+                                       packed[r][4 * g + 3], tq);
+        if (col < width) *reinterpret_cast<uint4*>(o + size_t(r) * width * COUT + 8 * (4 * g + tq)) = v;
       }
     }
   }
@@ -298,20 +517,23 @@ int sm_count() {
   return n;
 }
 
-template <int CIN, int COUT>
-cudaError_t launch_mma(const void* x, const void* w, const float* b, void* out, int batch, int h,
-                       int width, int pool, cudaStream_t s) {
-  using C = MmaCfg<CIN, COUT>;
-  auto kern = conv_block_mma<CIN, COUT>;
+template <int CIN, int COUT, int MIN_BLOCKS>
+cudaError_t launch_tc(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
+                      int pool, cudaStream_t s) {
+  using C = TcCfg<CIN, COUT>;
+  auto kern = conv_block_tc<CIN, COUT, MIN_BLOCKS>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, C::SMEM);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // persistent: as many blocks as fit at once, two warpgroups each walking tiles
   const long long row_tiles = pool ? h / 2 : (h + 1) / 2;
   const long long tiles = (long long)batch * row_tiles * ((width + TW - 1) / TW);
-  const int grid = int(tiles < (long long)per_sm * sm_count() ? tiles : (long long)per_sm * sm_count());
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long pairs = (tiles + 1) / 2;
+  const int grid = int(pairs < (long long)per_sm * sm_count() ? pairs : (long long)per_sm * sm_count());
   kern<<<grid, THREADS, C::SMEM, s>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w), b,
                                        static_cast<bf16*>(out), batch, h, width, pool);
   return cudaSuccess;
@@ -351,9 +573,9 @@ extern "C" int dfac_conv_block(const void* x, const void* w, const float* b, voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (bf16_mode && c_in == 32 && c_out == 64) {
-    err = launch_mma<32, 64>(x, w, b, out, batch, h, width, pool, s);
+    err = launch_tc<32, 64, 2>(x, w, b, out, batch, h, width, pool, s);
   } else if (bf16_mode && c_in == 64 && c_out == 128) {
-    err = launch_mma<64, 128>(x, w, b, out, batch, h, width, pool, s);
+    err = launch_tc<64, 128, 1>(x, w, b, out, batch, h, width, pool, s);
   } else if (c_in == 1 && c_out % 8 == 0) {
     err = bf16_mode ? launch_cin1<bf16>(x, w, b, out, batch, h, width, c_out, pool, s)
                     : launch_cin1<float>(x, w, b, out, batch, h, width, c_out, pool, s);
@@ -369,8 +591,8 @@ extern "C" int dfac_conv_block(const void* x, const void* w, const float* b, voi
 // Dynamic shared memory per block of the kernel dfac_conv_block picks for
 // these channel counts, in bytes (0: the direct kernel uses none).
 extern "C" int dfac_conv_block_smem(int c_in, int c_out, int bf16_mode) {
-  if (bf16_mode && c_in == 32 && c_out == 64) return int(MmaCfg<32, 64>::SMEM);
-  if (bf16_mode && c_in == 64 && c_out == 128) return int(MmaCfg<64, 128>::SMEM);
+  if (bf16_mode && c_in == 32 && c_out == 64) return int(TcCfg<32, 64>::SMEM);
+  if (bf16_mode && c_in == 64 && c_out == 128) return int(TcCfg<64, 128>::SMEM);
   if (c_in == 1 && c_out % 8 == 0) return 10 * c_out * int(sizeof(float));
   return 0;
 }

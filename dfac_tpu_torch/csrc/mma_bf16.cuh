@@ -1,6 +1,6 @@
-// bf16 tensor-core helpers shared by the port's implicit-GEMM kernels
-// (conv_block.cu, conv_probe.cu): 32-bit fragment loads and one
-// mma.sync m16n8k16 with f32 accumulators.
+// bf16 tensor-core helpers of the port's mma.sync implicit-GEMM kernels
+// (conv_probe.cu): 32-bit fragment loads and one mma.sync m16n8k16 with f32
+// accumulators.
 
 #pragma once
 

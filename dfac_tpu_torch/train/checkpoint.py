@@ -10,17 +10,23 @@ Two on-disk formats load into the port's ``state_dict``:
   ``model_state`` is kept.
 * **reference PyTorch ``.pt`` files** — wrapped dicts or raw state_dicts
   (reference ``src/training/checkpoint.py:42-71``), read with
-  ``torch.load(weights_only=True)``.
+  ``torch.load(weights_only=True)``. A wrapped dict's ``config`` and
+  ``epoch`` may hold numpy scalars, dtypes and arrays or an
+  ``argparse.Namespace`` (what a training script saves), so those globals
+  are allowed for the load (:func:`_reference_globals`); any other global
+  in the pickle is still refused.
 
 Orbax checkpoint directories are not supported yet.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import pickle
 import zipfile
 
+import numpy as np
 import torch
 
 from dfac_tpu_torch.utils.convert import state_dict_from_jax
@@ -58,6 +64,20 @@ class _ModelStateUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def _reference_globals() -> list:
+    """The globals a reference checkpoint's metadata names besides tensors:
+    numpy scalars, dtypes (and numpy 2's dtype classes) and arrays, under
+    the module names of numpy 1 and 2, and ``argparse.Namespace``."""
+    multiarray = np._core.multiarray if hasattr(np, "_core") else np.core.multiarray
+    allowed: list = [argparse.Namespace, np.dtype, np.ndarray]
+    for fn in (multiarray.scalar, multiarray._reconstruct):
+        allowed += [(fn, f"numpy.{core}.multiarray.{fn.__name__}") for core in ("core", "_core")]
+    dtypes = getattr(np, "dtypes", None)  # numpy >= 1.25
+    if dtypes is not None:
+        allowed += [getattr(dtypes, n) for n in dir(dtypes) if n.endswith("DType")]
+    return allowed
+
+
 def _extract_state_dict(ckpt) -> dict:
     """Accept wrapped ``{model_state_dict: ...}`` dicts and raw state_dicts
     (reference ``src/evaluation.py:197-200`` tolerance rule)."""
@@ -79,7 +99,9 @@ def load_model_variables(path: str, model_name: str = "cnn2d") -> dict[str, torc
             f"{path} is a directory (orbax checkpoint); orbax loading is not ported yet"
         )
     if zipfile.is_zipfile(path) or path.endswith(".pt"):
-        return _extract_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+        with torch.serialization.safe_globals(_reference_globals()):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return _extract_state_dict(ckpt)
     with open(path, "rb") as f:
         ckpt = _ModelStateUnpickler(f).load()
     variables = ckpt["model_state"] if isinstance(ckpt, dict) and "model_state" in ckpt else ckpt

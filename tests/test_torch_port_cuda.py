@@ -3,8 +3,10 @@
 Marked ``cuda``: every test needs an NVIDIA GPU with ``nvcc`` and skips
 elsewhere (the kernels have no CPU mode). ``chip_smoke.py`` checks the
 serving shapes; these check the edges (odd H with and without the pool, W
-not a multiple of the 64-column tile, tiny H and T, every kernel case of
-the conv block, f32, misaligned inputs; for the post-FFT kernel one row,
+not a multiple of a warpgroup's 32-column tile or of a warp's 8 columns,
+tiny H and T, fewer tiles than SMs, enough tiles that each tile ring
+wraps, every kernel case of the conv block, f32, misaligned inputs, a
+second call equal bit for bit; for the post-FFT kernel one row,
 rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
 and non-contiguous power; for the time pool odd T, f32, rows that are not
 16-byte vectors, misaligned, transposed and untileable inputs; for the
@@ -73,6 +75,16 @@ CONV_CASES = [
     (1, 5, 130, 1, 32, False),     # Cin = 1 kernel, unpooled
     (2, 7, 9, 1, 8, True),         # Cin = 1 kernel, odd H pooled
     (2, 9, 20, 8, 16, True),       # generic direct kernel
+    # the tensor-core kernel's tile geometry, for blocks 2 (32 -> 64, pooled)
+    # and 3 (64 -> 128, unpooled): a warpgroup's tile is 2 conv rows x 32
+    # columns, a warp's 8 of them
+    *((2, h, w, cin, cout, pool) for cin, cout, pool, h in ((32, 64, True, 6), (64, 128, False, 5))
+      for w in (31, 32, 33, 65, 180)),  # ragged warpgroup and block tiles
+    *((2, h, 70, cin, cout, True) for cin, cout in ((32, 64), (64, 128)) for h in (2, 3)),  # 1 pooled row
+    (1, 4, 20, 32, 64, True),      # fewer tiles than SMs: most blocks get none
+    (1, 4, 20, 64, 128, False),
+    (6, 160, 180, 32, 64, True),   # > 3 tiles per warpgroup at 2 blocks per SM: its 3-stage ring wraps
+    (4, 80, 180, 64, 128, False),  # > 2 tiles per warpgroup at 1 block per SM: its 2-stage ring wraps
 ]
 
 
@@ -89,6 +101,7 @@ def test_conv_block_kernel_matches_plain(cuda, b, h, w, cin, cout, pool, dtype):
     torch.cuda.synchronize()
     assert _build.launch_counts()["conv_block"] == before + 1
     assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(fused_conv_block(x, wk, bias, pool), got)  # a second call repeats bit for bit
     if dtype == torch.bfloat16:
         assert _close_bf16_last_bit(got, want)  # sums rounded to bf16 in other orders
     else:
