@@ -14,7 +14,8 @@ line:
             ptxas' registers and spills and the dynamic shared memory of
             each kernel
 3. K1       the GEMM front-end kernel against its plain version, B=128
-            waveforms of 51,520 samples, bf16 and f32
+            waveforms of 51,520 samples, bf16 and f32; a second call of each
+            mode equal to the first bit for bit
 4. K4       the post-FFT kernel against its plain version on the rFFT power
             of the same waveforms (41,088 rows), and the rFFT front-end
             with it against the plain one
@@ -59,12 +60,15 @@ line:
             7, host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            each K2 block beside its own bound, rFFT + K4 against K1, K5
-            against ``F.avg_pool2d``, and cuDNN controls: blocks 2 and 3's
-            conv alone, stage 11's conv1
+            each K1 mode and each K2 block beside its own bound, rFFT + K4
+            against K1, K5 against ``F.avg_pool2d``, and controls: cuBLAS's
+            DFT product alone in bf16 and f32 for K1, cuDNN's conv alone for
+            blocks 2 and 3, stage 11's cuDNN conv1
 
 The last three lines are the card's name and power limit, a JSON object
-with one entry per kernel (for ``conv_block``, ``time_pool``,
+with one entry per kernel (K1 twice: ``gemm_frontend`` is its bf16 mode on
+the slice, ``gemm_frontend_f32`` its f32 mode on the ``gemm`` extraction; for
+``conv_block``, ``time_pool``,
 ``conv_probe``, ``conv1_pass``, ``conv_forms``, ``conv_chunked`` and
 ``conv_trailing``, ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over the shapes or cases of one
@@ -239,7 +243,8 @@ def main() -> int:
     from dfac_tpu_torch.models.fast_infer import fold_cnn2d
     from dfac_tpu_torch.ops import _build, conv_probe
     from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores, cnn2d_head, fused_conv_block, reference_conv_block
-    from dfac_tpu_torch.ops.gemm_frontend import append_deltas, cepstra_plain, gemm_lfcc_cepstra, gemm_lfcc_features_tf
+    from dfac_tpu_torch.ops.gemm_frontend import append_deltas, cepstra_plain, frames_by_reshape, gemm_lfcc_cepstra, \
+        gemm_lfcc_features_tf, host_constants
     from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
     from dfac_tpu_torch.ops.pool import time_pool, time_pool_plain
     from dfac_tpu_torch.scripts import train_opt_probe
@@ -261,8 +266,8 @@ def main() -> int:
     lib = _build.library()
     phase("build", f"{os.path.relpath(lib_path, ROOT)} in {time.perf_counter() - t0:.1f}s")
     smem = {
-        "frontend_kernel bf16": lib.dfac_gemm_frontend_smem(1),
-        "frontend_kernel f32": lib.dfac_gemm_frontend_smem(0),
+        "frontend_bf16": lib.dfac_gemm_frontend_smem(1),
+        "frontend_f32": lib.dfac_gemm_frontend_smem(0),
         "conv_block_cin1 1->32": lib.dfac_conv_block_smem(1, 32, 1),
         "conv_block_tc 32->64": lib.dfac_conv_block_smem(32, 64, 1),
         "conv_block_tc 64->128": lib.dfac_conv_block_smem(64, 128, 1),
@@ -286,7 +291,7 @@ def main() -> int:
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
-            k = re.search(r"(frontend_kernel|conv_block_tc|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
+            k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
                           r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
@@ -316,6 +321,9 @@ def main() -> int:
                     f"(tolerance atol {K1_ATOL} + rtol {K1_RTOL})")
         if not ok:
             raise AssertionError(f"K1 {dt} disagrees with its plain version")
+        if not torch.equal(gemm_lfcc_cepstra(wave, cfg, dt), got):
+            raise AssertionError(f"K1 {dt}: a second call gives other cepstra")
+        phase("K1", f"{str(dt)[6:]}: a second call equals the first bit for bit")
         k1_err[dt] = abs_err
 
     # -- 4. K4 vs plain ---------------------------------------------------
@@ -703,12 +711,30 @@ def main() -> int:
                             f"min {min(rates):.1f}, max {max(rates):.1f}), {EXTRACT_CORPUS} utterances at "
                             f"B={EXTRACT_BATCH}, on {card}")
 
-    k1_ms, k1_plain = in_turns(lambda: cepstra_plain(wave, cfg, torch.bfloat16),
-                               lambda: gemm_lfcc_cepstra(wave, cfg, torch.bfloat16))
-    phase("timing", f"K1 gemm_frontend bf16 B={BATCH}: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, on {card}")
-    ms, plain_ms = in_turns(lambda: cepstra_plain(wave, cfg, torch.float32),
-                            lambda: gemm_lfcc_cepstra(wave, cfg, torch.float32))
-    phase("timing", f"K1 gemm_frontend f32 B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
+    # bounds from this run's shapes (bytes: inputs read once, outputs written once)
+    rows, fb_nnz = BATCH * N_FRAMES, int(np.count_nonzero(linear_filterbank(cfg)))
+    n_bins, epilogue = cfg.n_fft // 2 + 1, 2 * fb_nnz + 2 * cfg.n_filters * cfg.n_ceps  # per frame, f32
+    k1_bytes, dft_flops = wave.numel() * 4 + rows * cfg.n_ceps * 4, 2 * rows * cfg.win_length * 2 * n_bins
+    k1_bound = {torch.bfloat16: bound(k1_bytes, bf16=dft_flops, f32=rows * (3 * n_bins + epilogue)),
+                torch.float32: bound(k1_bytes, f32=dft_flops + rows * (3 * n_bins + epilogue))}
+    k1_time = {}
+    for dt in (torch.bfloat16, torch.float32):
+        k1_time[dt] = in_turns(lambda: cepstra_plain(wave, cfg, dt), lambda: gemm_lfcc_cepstra(wave, cfg, dt))
+        (ms, plain_ms), (bnd_ms, bnd_by) = k1_time[dt], k1_bound[dt]
+        phase("timing", f"K1 gemm_frontend {str(dt)[6:]} B={BATCH}: kernel {ms:.4f} ms, bound {bnd_ms:.4f} ms "
+                        f"({bnd_by}), {bnd_ms / ms:.1%} of the bound's rate; plain {plain_ms:.4f} ms, on {card}")
+    # cuBLAS's DFT product alone (frames @ [cos | sin] basis), K1's yardstick: it skips
+    # the framing, power, filterbank, log and DCT, so it is no library_ms
+    frames_f32 = frames_by_reshape(wave, cfg).reshape(rows, cfg.win_length)
+    cos_b, sin_b = host_constants(cfg)[:2]
+    basis_f32 = torch.as_tensor(np.concatenate([cos_b, sin_b], axis=1), device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        fr, bs = frames_f32.to(dt), basis_f32.to(dt)
+        fr @ bs
+        control_ms = statistics.mean(cuda_ms(lambda: fr @ bs, 10) for _ in range(2))
+        phase("timing", f"K1 control, cuBLAS DFT product alone (one {str(dt)[6:]} torch.matmul, TF32 off) "
+                        f"{tuple(fr.shape)} @ {tuple(bs.shape)}: {control_ms:.4f} ms, on {card}")
+    del frames_f32
     k4_ms, k4_plain = in_turns(lambda: fb_log_dct_plain(power, cfg), lambda: fused_fb_log_dct(power, cfg))
     phase("timing", f"K4 fb_log_dct B={BATCH} ({BATCH * N_FRAMES} rows): kernel {k4_ms:.4f} ms, "
                     f"plain {k4_plain:.4f} ms, on {card}")
@@ -765,11 +791,6 @@ def main() -> int:
     phase("timing", f"stage 11 control, cuDNN conv1 fwd (one bf16 F.conv2d, SAME, NHWC out) B={PROBE_BATCH}: "
                     f"{control_ms:.4f} ms, on {card}")
 
-    # bounds from this run's shapes (bytes: inputs read once, outputs written once)
-    rows, fb_nnz = BATCH * N_FRAMES, int(np.count_nonzero(linear_filterbank(cfg)))
-    n_bins, epilogue = cfg.n_fft // 2 + 1, 2 * fb_nnz + 2 * cfg.n_filters * cfg.n_ceps  # per frame, f32
-    k1_bound = bound(wave.numel() * 4 + rows * cfg.n_ceps * 4,
-                     bf16=2 * rows * cfg.win_length * 2 * n_bins, f32=rows * (3 * n_bins + epilogue))
     k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
     k2_bound = bound_sum(k2_parts)
     k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
@@ -806,7 +827,10 @@ def main() -> int:
 
     kernels = [
         entry("gemm_frontend", "dfac_tpu_torch/csrc/gemm_frontend.cu", "dfac_tpu/ops/pallas/gemm_frontend.py:71",
-              launches["gemm_frontend"], k1_err[torch.bfloat16], k1_ms, k1_plain, k1_bound),
+              launches["gemm_frontend"], k1_err[torch.bfloat16], *k1_time[torch.bfloat16], k1_bound[torch.bfloat16]),
+        entry("gemm_frontend_f32", "dfac_tpu_torch/csrc/gemm_frontend.cu", "dfac_tpu/ops/pallas/gemm_frontend.py:71",
+              ext_launches["gemm"]["gemm_frontend"], k1_err[torch.float32], *k1_time[torch.float32],
+              k1_bound[torch.float32]),
         entry("conv_block", "dfac_tpu_torch/csrc/conv_block.cu", "dfac_tpu/ops/pallas/conv_block.py:142",
               launches["conv_block"], k2_err, k2_ms, k2_plain, k2_bound),
         entry("fb_log_dct", "dfac_tpu_torch/csrc/lfcc_kernel.cu", "dfac_tpu/ops/pallas/lfcc_kernel.py:41",

@@ -16,8 +16,10 @@ waveform, DFT on the tensor cores in bf16 or on the CUDA cores in f32,
 filterbank/log/DCT in f32, all on chip). On a CPU tensor it runs
 :func:`cepstra_plain`. It never falls back from one to the other.
 
-Only the TPU's 128-lane padding is gone: K = 320 and 257 bins are the real
-sizes; the kernel's basis pads to 16-bin groups for the tensor-core tile.
+The TPU's 128-lane padding is gone: K = 320 is the real size, and the
+kernel computes bins 0..255 only, since bin 256 feeds no filter
+(:func:`kernel_constants` checks that and the other facts of the
+filterbank the kernel's epilogue relies on).
 """
 
 from __future__ import annotations
@@ -30,7 +32,15 @@ import torch
 from dfac_tpu_torch.features import lfcc as lfcc_mod
 from dfac_tpu_torch.ops import _build
 
-BIN_GROUP = 16  # bins per tensor-core column group (cos and sin side by side)
+KERNEL_BINS = 256  # bins the kernel computes: the filterbank reads none past 255
+MAX_BAND = 5  # bins per filter the kernel's epilogue sums, at most
+# bf16 mode: chunks of 64 bins, each N = 128 columns interleaved by 8 (cos
+# of 8 bins, then their sin), streamed as K slabs of 32 (rows of 64 bytes)
+BF16_CHUNK_BINS, BF16_INTERLEAVE, BF16_K_SLAB = 64, 8, 32
+BF16_MAX_FILTERS = 32  # filters whose last bin lies in one chunk, at most
+# f32 mode: chunks of 128 bins, [cos of the chunk's bins | their sin] per K row
+F32_CHUNK_BINS = 128
+F32_MAX_FILTERS = 64  # filters whose last bin lies in one chunk, at most
 
 
 @functools.lru_cache(maxsize=8)
@@ -52,25 +62,63 @@ def host_constants(cfg: lfcc_mod.LFCCConfig):
     return cos_b, sin_b, fb, dct
 
 
+def _bf16_stages(cos_b: np.ndarray, sin_b: np.ndarray) -> np.ndarray:
+    """(chunks, slabs, 128, 32): the ring's stage images in logical order,
+    K-major. Column n of chunk c is bin 64c + 8(n // 16) + n % 8, cos for
+    n % 16 < 8, else sin; stage (c, s) holds K rows 32s..32s+31 of those
+    columns."""
+    win = cos_b.shape[0]
+    n = np.arange(2 * BF16_CHUNK_BINS)
+    cols = []
+    for c in range(KERNEL_BINS // BF16_CHUNK_BINS):
+        bins = c * BF16_CHUNK_BINS + (n // (2 * BF16_INTERLEAVE)) * BF16_INTERLEAVE + n % BF16_INTERLEAVE
+        cols.append(np.where(n % (2 * BF16_INTERLEAVE) < BF16_INTERLEAVE, cos_b[:, bins], sin_b[:, bins]))
+    basis = np.stack(cols)  # (chunks, win, 128)
+    return basis.reshape(len(cols), win // BF16_K_SLAB, BF16_K_SLAB, -1).transpose(0, 1, 3, 2)
+
+
+def swizzle64(stages: np.ndarray) -> np.ndarray:
+    """The 64-byte swizzle of rows of 32 bf16 (64 bytes), as shared memory
+    holds them for a wgmma descriptor: 16-byte chunk q of row n lies at
+    chunk q ^ ((n // 2) % 4). Applied on the host, so that one bulk copy
+    per stage lands in that layout."""
+    n = np.arange(stages.shape[-2])[:, None]
+    q = np.arange(4)[None, :]
+    chunks = stages.reshape(*stages.shape[:-1], 4, 8)
+    out = np.empty_like(chunks)
+    out[..., n, q ^ ((n >> 1) & 3), :] = chunks
+    return out.reshape(stages.shape)
+
+
+def _f32_basis(cos_b: np.ndarray, sin_b: np.ndarray) -> np.ndarray:
+    """(win, 512): column 256c + i is the cos of bin 128c + i, column 256c +
+    128 + i its sin (c = 0, 1; i < 128)."""
+    chunks = [np.concatenate([cos_b[:, lo: lo + F32_CHUNK_BINS], sin_b[:, lo: lo + F32_CHUNK_BINS]], axis=1)
+              for lo in range(0, KERNEL_BINS, F32_CHUNK_BINS)]
+    return np.ascontiguousarray(np.concatenate(chunks, axis=1))
+
+
 @functools.lru_cache(maxsize=8)
 def kernel_constants(cfg: lfcc_mod.LFCCConfig):
-    """The kernel's layouts of the same constants (host numpy).
+    """The kernel's layouts of the same constants (host numpy):
+    ``(basis_bf16, basis_f32, fb_lo, fb_hi)``.
 
-    * basis (win, groups * 32): group g holds the cos columns of bins
-      16g..16g+15, then their sin columns; the bins past the last (256)
-      are zero columns.
+    * basis_bf16: :func:`_bf16_stages` through :func:`swizzle64`, bins 0..255;
+    * basis_f32: :func:`_f32_basis`, bins 0..255;
     * fb_lo / fb_hi (n_filters,) int32: each triangular filter's first and
       last nonzero bin (:func:`~dfac_tpu_torch.features.lfcc.filter_bands`).
-    """
+
+    Raises if the filterbank breaks what the kernel's epilogue assumes: no
+    filter reads a bin past 255, a band spans at most 5 bins, the bands'
+    last bins do not decrease, and at most 32 filters end in one 64-bin
+    chunk (bf16 mode), 64 in one 128-bin chunk (f32 mode)."""
     cos_b, sin_b, fb, _ = host_constants(cfg)
-    n_bins = cos_b.shape[1]
-    groups = -(-n_bins // BIN_GROUP)
-    basis = np.zeros((cfg.win_length, groups, 2, BIN_GROUP), np.float32)
-    for g in range(groups):
-        lo, hi = g * BIN_GROUP, min((g + 1) * BIN_GROUP, n_bins)
-        basis[:, g, 0, : hi - lo] = cos_b[:, lo:hi]
-        basis[:, g, 1, : hi - lo] = sin_b[:, lo:hi]
-    return (basis.reshape(cfg.win_length, -1), *lfcc_mod.filter_bands(fb))
+    fb_lo, fb_hi = lfcc_mod.filter_bands(fb)
+    if (fb[KERNEL_BINS:].any() or (fb_hi - fb_lo + 1).max() > MAX_BAND or (np.diff(fb_hi) < 0).any()
+            or np.bincount(fb_hi // BF16_CHUNK_BINS).max() > BF16_MAX_FILTERS
+            or np.bincount(fb_hi // F32_CHUNK_BINS).max() > F32_MAX_FILTERS):
+        raise ValueError("the filterbank does not fit the front-end kernel's epilogue")
+    return swizzle64(_bf16_stages(cos_b, sin_b)), _f32_basis(cos_b, sin_b), fb_lo, fb_hi
 
 
 def frames_by_reshape(waveform: torch.Tensor, cfg: lfcc_mod.LFCCConfig) -> torch.Tensor:
@@ -108,7 +156,9 @@ def cepstra_plain(
 
 @functools.lru_cache(maxsize=8)
 def _device_basis(cfg: lfcc_mod.LFCCConfig, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.as_tensor(kernel_constants(cfg)[0], device=device).to(dtype).contiguous()
+    basis_bf16, basis_f32, _, _ = kernel_constants(cfg)
+    basis = basis_bf16 if dtype == torch.bfloat16 else basis_f32
+    return torch.as_tensor(basis, device=device).to(dtype).contiguous()
 
 
 def _cepstra_cuda(waveform, cfg, compute_dtype):

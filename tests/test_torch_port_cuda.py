@@ -53,16 +53,26 @@ def _close_bf16_last_bit(got, want):
     return bool(((g - w).abs() <= 2.0**-7 * torch.maximum(g.abs(), w.abs()) + 1e-4).all())
 
 
-@pytest.mark.parametrize("lead,frames", [((1,), 1), ((3,), 17), ((2, 3), 64)])
+FRONTEND_CASES = [
+    ((1,), 1), ((3,), 17), ((2, 3), 64),
+    ((1,), 127), ((1,), 128), ((1,), 129),  # the bf16 kernel's 128-frame tile edges
+    ((3,), 43),     # tiles that straddle utterances
+    ((160,), 321),  # 402 bf16 tiles, 803 f32 tiles: each block walks >= 3 tiles, so the basis ring wraps
+]
+
+
+@pytest.mark.parametrize("lead,frames", FRONTEND_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_frontend_kernel_matches_plain(cuda, lead, frames, dtype):
     gen = torch.Generator().manual_seed(frames)
-    wave = torch.randn(*lead, CFG.num_samples(frames) + 37, generator=gen).to(cuda)  # ragged tail
+    # a ragged tail: rows of num_samples + 37 samples, so most rows are not 16-byte aligned
+    wave = torch.randn(*lead, CFG.num_samples(frames) + 37, generator=gen).to(cuda)
     before = _build.launch_counts()["gemm_frontend"]
     got = gemm_lfcc_cepstra(wave, CFG, dtype)
     want = cepstra_plain(wave, CFG, dtype)
     torch.cuda.synchronize()
     assert _build.launch_counts()["gemm_frontend"] == before + 1
+    assert torch.equal(gemm_lfcc_cepstra(wave, CFG, dtype), got)  # a second call repeats bit for bit
     assert got.shape == want.shape == (*lead, frames, CFG.n_ceps)
     # same operands; f32 summation order only (chip_smoke.py's K1 bound)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)

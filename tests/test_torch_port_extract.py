@@ -93,7 +93,7 @@ def test_kernels_share_banded_constants():
     cpu = torch.device("cpu")
     fb, fb_lo, fb_hi, dct = tlfcc.banded_constants(CFG_T, cpu)
     _, _, fb_h, dct_h = tgemm.host_constants(CFG_T)
-    _, lo_h, hi_h = tgemm.kernel_constants(CFG_T)
+    *_, lo_h, hi_h = tgemm.kernel_constants(CFG_T)
     assert fb.dtype == dct.dtype == torch.float32 and fb_lo.dtype == fb_hi.dtype == torch.int32
     for got, want in ((fb, fb_h), (dct, dct_h), (fb_lo, lo_h), (fb_hi, hi_h)):
         np.testing.assert_array_equal(got.numpy(), want)

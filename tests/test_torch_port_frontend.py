@@ -45,17 +45,36 @@ def test_host_constants_match_jax():
 
 
 def test_kernel_constants_layout():
-    """The kernel's interleaved basis and banded filterbank hold exactly the
-    plain constants: group g = [cos of bins 16g..16g+15 | their sin]."""
-    basis, fb_lo, fb_hi = tgemm.kernel_constants(CFG_T)
+    """The kernel's bases hold exactly the plain constants. bf16: the ring's
+    stage images [chunk][K slab][n][k], 64-byte swizzled, column n of chunk c
+    the cos (n % 16 < 8) or sin of bin 64c + 8(n // 16) + n % 8, each of bins 0..255 once;
+    f32: [cos of bins 128c..128c+127 | their sin] for c = 0, 1. The
+    filterbank reads no bin past 255, which both leave out."""
+    b16, b32, fb_lo, fb_hi = tgemm.kernel_constants(CFG_T)
     cos_b, sin_b, fb, _ = tgemm.host_constants(CFG_T)
-    assert basis.shape == (320, 17 * 32)
-    grouped = basis.reshape(320, 17, 2, 16)
-    bins = np.arange(257)
-    np.testing.assert_array_equal(grouped[:, bins // 16, 0, bins % 16], cos_b)
-    np.testing.assert_array_equal(grouped[:, bins // 16, 1, bins % 16], sin_b)
-    slots = np.arange(17 * 16)  # every bin slot, padding included
-    assert not grouped[:, slots // 16, :, slots % 16][257:].any()  # padding bins are zero
+    assert b16.shape == (4, 10, 128, 32)
+    n = np.arange(128)[:, None]
+    k = np.arange(32)[None, :]
+    # the 64-byte swizzle: element k of row n lies in 16-byte chunk (k // 8) ^ ((n // 2) % 4)
+    stages = b16[:, :, n, 8 * ((k // 8) ^ ((n >> 1) & 3)) + k % 8]
+    cols = stages.transpose(0, 2, 1, 3).reshape(4, 128, 320)  # (chunk, n, k)
+    n = np.arange(128)
+    is_cos = n % 16 < 8
+    seen = []
+    for c in range(4):
+        bins = 64 * c + 8 * (n // 16) + n % 8
+        np.testing.assert_array_equal(cols[c][is_cos].T, cos_b[:, bins[is_cos]])
+        np.testing.assert_array_equal(cols[c][~is_cos].T, sin_b[:, bins[~is_cos]])
+        seen.append(bins[is_cos])
+    np.testing.assert_array_equal(np.sort(np.concatenate(seen)), np.arange(256))
+    assert not fb[256:].any() and (fb_hi <= 255).all()  # bin 256 feeds no filter
+    assert (fb_hi - fb_lo).max() < tgemm.MAX_BAND and (np.diff(fb_hi) >= 0).all()
+    assert np.bincount(fb_hi // 64).max() <= tgemm.BF16_MAX_FILTERS
+    assert np.bincount(fb_hi // 128).max() <= tgemm.F32_MAX_FILTERS
+    assert b32.shape == (320, 512)
+    for c in range(2):
+        np.testing.assert_array_equal(b32[:, 256 * c: 256 * c + 128], cos_b[:, 128 * c: 128 * (c + 1)])
+        np.testing.assert_array_equal(b32[:, 256 * c + 128: 256 * (c + 1)], sin_b[:, 128 * c: 128 * (c + 1)])
     # banded filterbank sum == dense product (skipped terms are exact zeros)
     rows = np.arange(257)[:, None]
     band = (rows >= fb_lo[None, :]) & (rows <= fb_hi[None, :])
@@ -65,6 +84,18 @@ def test_kernel_constants_layout():
         [(power[:, fb_lo[m]: fb_hi[m] + 1] * fb[fb_lo[m]: fb_hi[m] + 1, m]).sum(1) for m in range(120)], 1
     )
     np.testing.assert_allclose(banded, power @ fb, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n_filters", [200, 40])
+def test_kernel_constants_refuse_other_filterbanks(n_filters):
+    """The kernel's epilogue assumes the default filterbank's shape: 200
+    filters put more than 32 ends in a 64-bin chunk, 40 filters span more
+    than 5 bins each. kernel_constants refuses both rather than let the
+    kernel read past its power ring."""
+    import dataclasses
+
+    with pytest.raises(ValueError, match="does not fit"):
+        tgemm.kernel_constants(dataclasses.replace(CFG_T, n_filters=n_filters))
 
 
 @pytest.mark.parametrize("frames", [33, 17])
