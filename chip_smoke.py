@@ -20,13 +20,17 @@ line:
             of the same waveforms (41,088 rows), and the rFFT front-end
             with it against the plain one
 5. K2       the fused conv-block kernel against its plain version at the
-            three serving block shapes, bf16
+            three serving block shapes at B=128, bf16 (a second call equal
+            bit for bit) and f32
 6. slice    waveforms -> front-end -> three fused blocks -> scores at full
             CNN2D width (weights from a seed), against the all-plain chain
             and the f32 model; the launch counters must show 1 front-end and
             3 conv-block launches per batch
 7. CLI      ``python -m dfac_tpu_torch.cli.predict --fast --bf16`` on a
-            synthetic 512-utterance features.pkl, then the evaluate CLI
+            synthetic 512-utterance features.pkl, then the evaluate CLI; then
+            ``predict --fast``'s default f32 chain in process on the same
+            features (3 conv-block launches per batch, scores against the
+            f32 model)
 8. extract  the extraction driver on 512 utterances at B=64, once per method
             (gemm, fft-pallas, fft): one K1 launch per batch for gemm, one K4
             launch per batch for fft-pallas, none for fft; the methods
@@ -60,15 +64,17 @@ line:
             7, host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            each K1 mode and each K2 block beside its own bound, rFFT + K4
-            against K1, K5 against ``F.avg_pool2d``, and controls: cuBLAS's
-            DFT product alone in bf16 and f32 for K1, cuDNN's conv alone for
-            blocks 2 and 3, stage 11's cuDNN conv1
+            each K1 mode and each K2 block in bf16 and in f32 beside its own
+            bound, rFFT + K4 against K1, K5 against ``F.avg_pool2d``, and
+            controls: cuBLAS's DFT product alone in bf16 and f32 for K1,
+            cuDNN's conv alone for each K2 block in bf16 and in f32, a write
+            of block 1's output size (``zero_``), stage 11's cuDNN conv1
 
 The last three lines are the card's name and power limit, a JSON object
-with one entry per kernel (K1 twice: ``gemm_frontend`` is its bf16 mode on
-the slice, ``gemm_frontend_f32`` its f32 mode on the ``gemm`` extraction; for
-``conv_block``, ``time_pool``,
+with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
+``conv_block`` are their bf16 modes on the slice, ``gemm_frontend_f32`` K1's
+f32 mode on the ``gemm`` extraction, ``conv_block_f32`` K2's on ``predict
+--fast``'s f32 chain; for ``conv_block``, ``conv_block_f32``, ``time_pool``,
 ``conv_probe``, ``conv1_pass``, ``conv_forms``, ``conv_chunked`` and
 ``conv_trailing``, ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over the shapes or cases of one
@@ -114,6 +120,9 @@ K1_ATOL, K1_RTOL = 1e-3, 1e-3  # same operands; only the f32 summation order of
 # of the smallest energies
 K2_RTOL, K2_ATOL = 2.0**-7, 1e-4  # one bf16 last bit: kernel and plain round
 # f32 sums taken in different orders, which can straddle a rounding boundary
+K2_F32_TOL = 1e-4  # f32 mode, atol and rtol: summation order only (the cuda tests' f32 bound)
+F32_SCORE_ATOL = 1e-4  # f32 chain against the f32 model: BN folded and sums in other
+# orders (the CPU tests hold the chain to 1e-5 at small widths)
 SCORE_ATOL = 2e-2  # sigmoid scores of two bf16 chains, as tests/test_conv_block.py:45
 K4_ATOL, K4_RTOL = 1e-4, 1e-4  # same f32 operands and math; only the summation
 # order differs (dense cuBLAS products against the kernel's banded, in-order
@@ -235,12 +244,13 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from dfac_tpu_torch.data.pipeline import ArrayDataset
     from dfac_tpu_torch.features.lfcc import METHODS, LFCCConfig, batch_features, lfcc_features, \
         lfcc_features_batch, linear_filterbank, power_spectrum
     from dfac_tpu_torch.io.npy_store import load_npy_dataset
     from dfac_tpu_torch.io.pickle_io import load_features
     from dfac_tpu_torch.models import build_model
-    from dfac_tpu_torch.models.fast_infer import fold_cnn2d
+    from dfac_tpu_torch.models.fast_infer import fold_cnn2d, predict_scores_fast
     from dfac_tpu_torch.ops import _build, conv_probe
     from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores, cnn2d_head, fused_conv_block, reference_conv_block
     from dfac_tpu_torch.ops.gemm_frontend import append_deltas, cepstra_plain, frames_by_reshape, gemm_lfcc_cepstra, \
@@ -268,7 +278,8 @@ def main() -> int:
     smem = {
         "frontend_bf16": lib.dfac_gemm_frontend_smem(1),
         "frontend_f32": lib.dfac_gemm_frontend_smem(0),
-        "conv_block_cin1 1->32": lib.dfac_conv_block_smem(1, 32, 1),
+        "conv_block_cin1_tc 1->32": lib.dfac_conv_block_smem(1, 32, 1),
+        "conv_block_cin1 1->32 f32": lib.dfac_conv_block_smem(1, 32, 0),
         "conv_block_tc 32->64": lib.dfac_conv_block_smem(32, 64, 1),
         "conv_block_tc 64->128": lib.dfac_conv_block_smem(64, 128, 1),
         "fb_log_dct_kernel": lib.dfac_fb_log_dct_smem(),
@@ -291,8 +302,9 @@ def main() -> int:
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
-            k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_direct|conv_block_cin1|fb_log_dct_kernel|"
-                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
+            k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_direct|conv_block_cin1_tc|"
+                          r"conv_block_cin1|fb_log_dct_kernel|time_pool_kernel|conv1_checksum|conv2_checksum|"
+                          r"sum_sq_checksum|conv1_mma|conv1_emit)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
         m = re.search(r"Used (\d+) registers", line)
@@ -366,8 +378,24 @@ def main() -> int:
                     f"(tolerance one bf16 last bit: rtol 2^-7 + atol {K2_ATOL})")
         if not ok:
             raise AssertionError(f"K2 {xs} disagrees with its plain version")
+        if not torch.equal(fused_conv_block(x, w, b, pool), got):
+            raise AssertionError(f"K2 {xs}: a second call gives another result")
         k2_err = max(k2_err, abs_err)
         k2_inputs.append((x, w, b, pool))
+    phase("K2", "bf16: a second call of each block equals the first bit for bit")
+    k2_f32_inputs, k2_f32_err = [(x.float(), w, b, pool) for x, w, b, pool in k2_inputs], 0.0
+    for x, w, b, pool in k2_f32_inputs:
+        got = fused_conv_block(x, w, b, pool)
+        want = reference_conv_block(x, w, b, pool)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == torch.float32, (got.shape, want.shape))
+        abs_err, rel_err = max_errors(got, want)
+        phase("K2", f"f32 x{tuple(x.shape)} -> {tuple(got.shape)} pool={pool}: max abs {abs_err:.3e}, max rel "
+                    f"{rel_err:.3e} (tolerance atol {K2_F32_TOL} + rtol {K2_F32_TOL})")
+        if not bool(((got - want).abs() <= K2_F32_TOL + K2_F32_TOL * want.abs()).all()):
+            raise AssertionError(f"K2 f32 {tuple(x.shape)} disagrees with its plain version")
+        k2_f32_err = max(k2_f32_err, abs_err)
+    del got, want
 
     # -- 6. end-to-end slice ----------------------------------------------
     torch.manual_seed(SEED)
@@ -442,6 +470,25 @@ def main() -> int:
         phase("cli", f"evaluate: {' | '.join(out.strip().splitlines())}")
         if not np.isfinite(eer):
             raise AssertionError(f"EER is not finite: {eer}")
+
+    # predict --fast's default f32 chain (no --bf16), in process for the launch counts
+    ds = ArrayDataset(uttids=uttids, features=feats)
+    _build.reset_launch_counts()
+    f32_scores = predict_scores_fast(model.state_dict(), ds, dev, batch_size=BATCH, compute_dtype=torch.float32)
+    f32_launches = _build.launch_counts()
+    n_f32 = -(-CLI_UTTS // BATCH)
+    phase("cli", f"predict_scores_fast f32: launches over {n_f32} batches: {f32_launches}")
+    if f32_launches != {**dict.fromkeys(f32_launches, 0), "conv_block": 3 * n_f32}:
+        raise AssertionError(f"the f32 chain did not run through the kernels as expected: {f32_launches}")
+    with torch.inference_mode():
+        feats_tf = torch.from_numpy(feats).to(dev).transpose(1, 2)
+        f32_model = torch.cat([torch.sigmoid(model(feats_tf[s : s + BATCH].contiguous())[:, 0])
+                               for s in range(0, CLI_UTTS, BATCH)]).cpu().numpy()
+    d = np.abs(f32_scores - f32_model).max()
+    phase("cli", f"predict_scores_fast f32 {f32_scores.shape}: max |kernels - f32 model| {d:.3e} "
+                 f"(tolerance {F32_SCORE_ATOL})")
+    if not (f32_scores.shape == (CLI_UTTS,) and d <= F32_SCORE_ATOL):
+        raise AssertionError("the f32 chain's scores disagree with the f32 model")
 
     # -- 8. extraction, in process ----------------------------------------
     ext_waves = (0.1 * np.random.default_rng(SEED + 1).normal(size=(EXTRACT_UTTS, n_samples))).astype(np.float32)
@@ -747,24 +794,52 @@ def main() -> int:
                                  lambda: fused_fb_log_dct(power_spectrum(wave, cfg), cfg))
         phase("timing", f"waveform -> cepstra B={BATCH}: rFFT + K4 {fft_k4:.4f} ms, K1 {str(dt)[6:]} "
                         f"{k1_dt:.4f} ms, on {card}")
+
+    def block_bound(x, w, pool, kind):  # bytes in and out once, 9 * Cin * Cout multiply-adds per conv output
+        h_out = x.shape[1] // 2 if pool else x.shape[1]
+        out_bytes = x.shape[0] * h_out * x.shape[2] * w.shape[-1] * x.element_size()
+        conv_rows = x.shape[1] - x.shape[1] % 2 if pool else x.shape[1]
+        flops = 2 * x.shape[0] * conv_rows * x.shape[2] * w.numel()
+        return bound(x.numel() * x.element_size() + out_bytes, **{kind: flops})
+
+    def cudnn_conv_ms(x, w):  # cuDNN's conv alone (SAME, channels-last; no bias, ReLU or pool), TF32 off
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
+        wc = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        F.conv2d(xc, wc, padding=1)
+        return statistics.mean(cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10 if x.dtype == torch.bfloat16 else 2)
+                               for _ in range(2))
+
     k2_ms = k2_plain = 0.0
-    k2_parts = [  # per block: bytes in and out once, 9 * Cin * Cout multiply-adds per conv output
-        bound((x.numel() + x.shape[0] * (x.shape[1] // 2 if pool else x.shape[1]) * x.shape[2] * w.shape[-1]) * 2,
-              bf16=2 * x.shape[0] * (x.shape[1] - x.shape[1] % 2 if pool else x.shape[1]) * x.shape[2] * w.numel())
-        for x, w, b, pool in k2_inputs]
+    k2_parts = [block_bound(x, w, pool, "bf16") for x, w, b, pool in k2_inputs]
     for i, ((x, w, b, pool), (bnd_ms, bnd_by)) in enumerate(zip(k2_inputs, k2_parts), 1):
         ms, plain_ms = in_turns(lambda: reference_conv_block(x, w, b, pool), lambda: fused_conv_block(x, w, b, pool))
         k2_ms, k2_plain = k2_ms + ms, k2_plain + plain_ms
         phase("timing", f"K2 conv_block block {i} bf16 x{tuple(x.shape)} pool={pool}: kernel {ms:.4f} ms, "
                         f"bound {bnd_ms:.4f} ms ({bnd_by}), {bnd_ms / ms:.1%} of the bound's rate; plain "
                         f"{plain_ms:.4f} ms, on {card}")
-        if x.shape[-1] > 1:  # the tensor-core blocks: cuDNN's conv alone as a yardstick
-            xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
-            wc = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            F.conv2d(xc, wc, padding=1)
-            control_ms = statistics.mean(cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10) for _ in range(2))
-            phase("timing", f"K2 block {i} control, cuDNN conv alone (one bf16 F.conv2d, SAME, channels-last; no "
-                            f"bias, ReLU or pool) x{tuple(x.shape)} -> {w.shape[-1]}: {control_ms:.4f} ms, on {card}")
+        phase("timing", f"K2 block {i} control, cuDNN conv alone (one bf16 F.conv2d, SAME, channels-last; no "
+                        f"bias, ReLU or pool) x{tuple(x.shape)} -> {w.shape[-1]}: {cudnn_conv_ms(x, w):.4f} ms, "
+                        f"on {card}")
+    x1, w1 = k2_inputs[0][0], k2_inputs[0][1]
+    out1 = torch.empty(x1.shape[0], x1.shape[1] // 2, x1.shape[2], w1.shape[-1], device=dev, dtype=torch.bfloat16)
+    out1.zero_()
+    write_ms = statistics.mean(cuda_ms(out1.zero_, 10) for _ in range(2))
+    write_bytes = out1.numel() * out1.element_size()
+    phase("timing", f"K2 block 1 control, a write of its output size (out.zero_(), {write_bytes / 1e6:.1f} MB): "
+                    f"{write_ms:.4f} ms ({write_bytes / write_ms / 1e9:.3f} TB/s), on {card}")
+    del out1
+    k2_f32_ms = k2_f32_plain = 0.0
+    k2_f32_parts = [block_bound(x, w, pool, "f32") for x, w, b, pool in k2_f32_inputs]
+    for i, ((x, w, b, pool), (bnd_ms, bnd_by)) in enumerate(zip(k2_f32_inputs, k2_f32_parts), 1):
+        ms, plain_ms = in_turns(lambda: reference_conv_block(x, w, b, pool), lambda: fused_conv_block(x, w, b, pool),
+                                reps=2)
+        k2_f32_ms, k2_f32_plain = k2_f32_ms + ms, k2_f32_plain + plain_ms
+        phase("timing", f"K2 conv_block block {i} f32 x{tuple(x.shape)} pool={pool}: kernel {ms:.4f} ms, "
+                        f"bound {bnd_ms:.4f} ms ({bnd_by}), {bnd_ms / ms:.1%} of the bound's rate; plain "
+                        f"{plain_ms:.4f} ms, on {card}")
+        phase("timing", f"K2 block {i} f32 control, cuDNN conv alone (one f32 F.conv2d, TF32 off, SAME, "
+                        f"channels-last; no bias, ReLU or pool) x{tuple(x.shape)} -> {w.shape[-1]}: "
+                        f"{cudnn_conv_ms(x, w):.4f} ms, on {card}")
 
     k5_ms = k5_plain = k5_lib = 0.0
     for x in k5_inputs:
@@ -793,6 +868,7 @@ def main() -> int:
 
     k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
     k2_bound = bound_sum(k2_parts)
+    k2_f32_bound = bound_sum(k2_f32_parts)
     k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
     cp_parts = []
     for name, case in conv_probe.CASES.items():
@@ -833,6 +909,8 @@ def main() -> int:
               k1_bound[torch.float32]),
         entry("conv_block", "dfac_tpu_torch/csrc/conv_block.cu", "dfac_tpu/ops/pallas/conv_block.py:142",
               launches["conv_block"], k2_err, k2_ms, k2_plain, k2_bound),
+        entry("conv_block_f32", "dfac_tpu_torch/csrc/conv_block.cu", "dfac_tpu/ops/pallas/conv_block.py:142",
+              f32_launches["conv_block"], k2_f32_err, k2_f32_ms, k2_f32_plain, k2_f32_bound),
         entry("fb_log_dct", "dfac_tpu_torch/csrc/lfcc_kernel.cu", "dfac_tpu/ops/pallas/lfcc_kernel.py:41",
               ext_launches["fft-pallas"]["fb_log_dct"], k4_err, k4_ms, k4_plain, k4_bound),
         entry("time_pool", "dfac_tpu_torch/csrc/pool_kernel.cu", "scripts/pool_kernel_probe.py:81",

@@ -19,7 +19,11 @@
 //    against 708 MB in and out, 0.211 ms: operations.
 //  * block 2 (32 -> 64, pool): 136 GFLOP, 0.137 ms, against 472 MB, 0.141
 //    ms: bytes and operations within 3% of each other.
-//  * block 1 (Cin = 1, K = 9): its output write alone.
+//  * block 1 (1 -> 32, pool): 236 MB written and 15 MB read, 0.075 ms:
+//    bytes. Its 4.25 GFLOP would take 0.063 ms on the CUDA cores at their
+//    peak, so on the CUDA cores the arithmetic competes with the loads and
+//    stores for the schedulers' instruction slots; on the tensor cores it
+//    takes none of them.
 //
 // Design:
 //  * Cin = 32 / 64 in bf16 (blocks 2 and 3), conv_block_tc: implicit GEMM
@@ -60,9 +64,41 @@
 //      channel octets; a 4 x 4 transpose over its quad (two shuffles) gives
 //      each lane a whole octet, so the output leaves in 16-byte stores that
 //      fill whole sectors, 4x fewer than pair stores.
-//  * Cin = 1 (block 1, K = 9, bf16 or f32): one thread per output pixel
-//    computes all of its channels from 12 inputs held in registers and
-//    writes them as 16-byte vectors; the tensor cores would idle at K = 9.
+//  * Block 1 in bf16 (Cin = 1, Cout = 32, pooled), conv_block_cin1_tc: both
+//    conv rows of a pooled pixel as one mma.sync m16n8k16 product, M =
+//    pooled pixels, K = 16, N = 64, so that the CUDA cores only load, pool
+//    and store, and the kernel can run at the speed of its output write.
+//    - Pooled pixel (b, ho, col) needs conv rows 2ho and 2ho + 1, which
+//      read only the 4 x 3 input window of rows 2ho - 1 .. 2ho + 2 and
+//      columns col - 1 .. col + 1 (zero outside the image). A row is the
+//      window: k = 4 * row + col (k % 4 == 3 is zero), so each A register
+//      holds two horizontal neighbours or one value and a zero. B columns
+//      0-31 are conv row 2ho's channels, 32-63 conv row 2ho + 1's, whose
+//      taps sit one window row lower; within a conv row, column 8j + m
+//      carries channel 8 (m / 2) + 2j + m % 2, so the accumulators of lane
+//      q are channels 8q .. 8q + 7 of its pixel. The map is
+//      ops/conv_block.py's CIN1_TC_K and CIN1_TC_N (a CPU test computes
+//      the block through it). B and the bias are scaled by 0.5 (exact:
+//      0.5 relu(a) = relu(0.5 a)), so the pool is one add; bf16 x bf16
+//      products are exact in f32, so only the summation order differs from
+//      the plain version.
+//    - Each warp walks tiles of 16 consecutive pooled pixels of the flat
+//      output (b, ho, col), four at a time (their loads in flight
+//      together), in a grid-stride loop: the output is one array in that
+//      order, so a tile is 1 KB of it wherever it falls, and no column tile
+//      is ragged. B (16 registers) and the bias stay in registers for the
+//      kernel's life; the accumulators start at the bias (mma's C operand).
+//      n-tiles j and j + 4 hold the same channel pair of the same pixel for
+//      the two conv rows, so the pool needs no shuffle, and each lane
+//      stores 8 channels of a pixel in one 16-byte store (a warp's store:
+//      512 contiguous bytes) without a transpose.
+//    - The input (15 MB at the serving shape) stays in L2; a lane loads its
+//      6 window values with 16-bit loads (rows of odd W leave no alignment
+//      for wider ones). The flat index is decoded by multiply and shift.
+//  * Cin = 1 otherwise (f32, unpooled, other Cout), conv_block_cin1: one
+//    thread per output pixel computes all of its channels from 12 inputs
+//    held in registers on the CUDA cores and writes them as 16-byte
+//    vectors.
 //  * Everything else (f32 blocks 2-3, other channel counts): a direct
 //    kernel on the CUDA cores, one output value per thread, same epilogue.
 //    Correct, not fast: the serving path does not take it.
@@ -72,9 +108,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -354,9 +392,9 @@ conv_block_direct(const T* __restrict__ x, const T* __restrict__ w, const float*
   }
 }
 
-// Cin = 1 (block 1, K = 9): one thread per output pixel computes all its
-// channels, 8 at a time, from 12 input values held in registers, and writes
-// them as 16-byte vectors. Bound by that output write.
+// Cin = 1 (K = 9) outside block 1's bf16 shape: one thread per output pixel
+// computes all its channels, 8 at a time, from 12 input values held in
+// registers, and writes them as 16-byte vectors.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv_block_cin1(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
@@ -421,6 +459,117 @@ conv_block_cin1(const T* __restrict__ x, const T* __restrict__ w, const float* _
   }
 }
 
+// n / d for 0 <= n < 2^31 by one multiply and shift (Granlund-Montgomery):
+// m = ceil(2^(31 + l) / d) with 2^l >= d, q = (n * m) >> (31 + l).
+struct Divisor {
+  uint32_t d, m, shift;
+};
+
+Divisor make_divisor(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  return {d, uint32_t(((1ull << (31 + l)) + d - 1) / d), 31 + l};
+}
+
+__device__ __forceinline__ uint32_t div_by(uint32_t n, const Divisor& v) {
+  return uint32_t((uint64_t(n) * v.m) >> v.shift);
+}
+
+constexpr int C1_THREADS = 256;
+constexpr int C1_COUT = 32;
+constexpr int C1_TILES = 4;  // 16-pixel tiles per warp and loop trip: their loads in flight together
+
+// Block 1 in bf16 (Cin = 1, Cout = 32, pooled) on the tensor cores: one
+// mma.sync m16n8k16 product per 16 pooled pixels and 8 output columns, K =
+// the 4 x 3 input window (k = 4 * row + col), N = 64 = two conv rows x 32
+// channels, column 8j + m of a conv row carrying channel 8 (m / 2) + 2j + m
+// % 2 (ops/conv_block.py CIN1_TC_K, CIN1_TC_N). B and the bias carry the
+// pool's 0.5. Fragment layout (PTX m16n8k16): lane (g, q) = (lane / 4,
+// lane % 4) holds A rows g and g + 8 at k = 2q, 2q + 1 and 2q + 8, 2q + 9, B
+// column g at the same k, and accumulators of rows g, g + 8 at columns 2q,
+// 2q + 1.
+__global__ void __launch_bounds__(C1_THREADS, 2)
+conv_block_cin1_tc(const bf16* __restrict__ x, const bf16* __restrict__ w, const float* __restrict__ bias,
+                   bf16* __restrict__ out, int h, int width, int pixels, Divisor div_w, Divisor div_ho) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  // B: this lane's column g of n-tile j is conv row j / 4, channel 8 (g / 2)
+  // + 2 (j % 4) + g % 2; its k pair of register e is window row q / 2 + 2e,
+  // columns 2 (q % 2) and + 1 (column 3 is zero). Conv row r's tap dy sits at
+  // window row dy + r.
+  uint32_t bw[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int conv_row = j >> 2, ch = 8 * (g >> 1) + 2 * (j & 3) + (g & 1);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int dy = (q >> 1) + 2 * e - conv_row, dx = 2 * (q & 1);
+      const bool tap = dy >= 0 && dy < 3;
+      const float lo = tap ? 0.5f * __bfloat162float(w[(dy * 3 + dx) * C1_COUT + ch]) : 0.f;
+      const float hi = tap && dx == 0 ? 0.5f * __bfloat162float(w[(dy * 3 + 1) * C1_COUT + ch]) : 0.f;
+      bw[j][e] = pack_bf16(lo, hi);  // exact: half a bf16 is a bf16
+    }
+  }
+  float bs[4][2];  // 0.5 * bias of this lane's columns of n-tile jj: channels 8q + 2jj, + 1
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    bs[jj][0] = 0.5f * bias[8 * q + 2 * jj];
+    bs[jj][1] = 0.5f * bias[8 * q + 2 * jj + 1];
+  }
+
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const int h_out = h / 2;
+  // this lane's first window value: column col - 1 (even q, with col beside
+  // it) or col + 1 (odd q, with the zero column beside it)
+  const int dcol = (q & 1) ? 1 : -1;
+  const bool pair = !(q & 1);
+  const int tiles = (pixels + 15) / 16;
+  const int step = gridDim.x * (C1_THREADS / 32) * C1_TILES;
+  for (int t0 = (blockIdx.x * (C1_THREADS / 32) + (threadIdx.x >> 5)) * C1_TILES; t0 < tiles; t0 += step) {
+    uint32_t a[C1_TILES][4];  // tile t0 + u: A rows g (pixel 16 (t0 + u) + g) and g + 8
+#pragma unroll
+    for (int u = 0; u < C1_TILES; ++u) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * (t0 + u) + g + 8 * half;
+        const uint32_t r = div_by(uint32_t(p), div_w);
+        const int col = p - int(r) * width;
+        const uint32_t b = div_by(r, div_ho);
+        const int ho = int(r) - int(b) * h_out;
+        const int y0 = 2 * ho - 1 + (q >> 1);  // window row q / 2; the second register's is y0 + 2
+        const bool in = p < pixels;
+        const bool c_ok = in && ((q & 1) ? col + 1 < width : col > 0);
+        const bool y0_ok = y0 >= 0, y1_ok = y0 + 2 < h;
+        const unsigned short* row = xs + (ptrdiff_t(b) * h + y0) * width + col;
+        const unsigned short v00 = c_ok && y0_ok ? __ldg(row + dcol) : 0;
+        const unsigned short v01 = pair && in && y0_ok ? __ldg(row) : 0;
+        const unsigned short v10 = c_ok && y1_ok ? __ldg(row + 2 * width + dcol) : 0;
+        const unsigned short v11 = pair && in && y1_ok ? __ldg(row + 2 * width) : 0;
+        a[u][half] = uint32_t(v00) | (uint32_t(v01) << 16);
+        a[u][2 + half] = uint32_t(v10) | (uint32_t(v11) << 16);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < C1_TILES; ++u) {
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_bf16_bias(acc[j], a[u], bw[j][0], bw[j][1], bs[j & 3][0], bs[j & 3][1]);
+      // pool: acc[jj] (conv row 2ho) + acc[jj + 4] (conv row 2ho + 1), after
+      // the ReLU; accumulator rows g and g + 8 are the two pixels, and n-tile
+      // jj's columns are channels 8q + 2jj, + 1
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          v[jj] = pack_bf16(fmaxf(acc[jj][2 * half], 0.f) + fmaxf(acc[jj + 4][2 * half], 0.f),
+                            fmaxf(acc[jj][2 * half + 1], 0.f) + fmaxf(acc[jj + 4][2 * half + 1], 0.f));
+        const int p = 16 * (t0 + u) + g + 8 * half;
+        if (p < pixels) *reinterpret_cast<uint4*>(out + size_t(p) * C1_COUT + 8 * q) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
 int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -463,6 +612,24 @@ void launch_direct(const void* x, const void* w, const float* b, void* out, int 
       c_out, pool);
 }
 
+cudaError_t launch_cin1_tc(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
+                          cudaStream_t s) {
+  const long long pixels = (long long)batch * (h / 2) * width;
+  if (pixels > 0x7fffffffLL - 16 * C1_TILES) return cudaErrorInvalidValue;  // pixel indices stay in int
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_block_cin1_tc, C1_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // persistent: as many blocks as fit at once, each warp walking C1_TILES 16-pixel tiles a trip
+  constexpr int per_block = 16 * C1_TILES * (C1_THREADS / 32);
+  const long long blocks = (pixels + per_block - 1) / per_block;
+  const long long cap = (long long)per_sm * sm_count();
+  conv_block_cin1_tc<<<int(blocks < cap ? blocks : cap), C1_THREADS, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), b, static_cast<bf16*>(out), h, width, int(pixels),
+      make_divisor(uint32_t(width)), make_divisor(uint32_t(h / 2)));
+  return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t launch_cin1(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
                         int c_out, int pool, cudaStream_t s) {
@@ -490,6 +657,8 @@ extern "C" int dfac_conv_block(const void* x, const void* w, const float* b, voi
     err = launch_tc<32, 64, 2>(x, w, b, out, batch, h, width, pool, s);
   } else if (bf16_mode && c_in == 64 && c_out == 128) {
     err = launch_tc<64, 128, 1>(x, w, b, out, batch, h, width, pool, s);
+  } else if (bf16_mode && c_in == 1 && c_out == C1_COUT && pool) {
+    err = launch_cin1_tc(x, w, b, out, batch, h, width, s);
   } else if (c_in == 1 && c_out % 8 == 0) {
     err = bf16_mode ? launch_cin1<bf16>(x, w, b, out, batch, h, width, c_out, pool, s)
                     : launch_cin1<float>(x, w, b, out, batch, h, width, c_out, pool, s);
@@ -503,10 +672,12 @@ extern "C" int dfac_conv_block(const void* x, const void* w, const float* b, voi
 }
 
 // Dynamic shared memory per block of the kernel dfac_conv_block picks for
-// these channel counts, in bytes (0: the direct kernel uses none).
+// these channel counts, in bytes (0: the direct kernel and, for Cin = 1,
+// Cout = 32 in bf16, block 1's pooled kernel use none).
 extern "C" int dfac_conv_block_smem(int c_in, int c_out, int bf16_mode) {
   if (bf16_mode && c_in == 32 && c_out == 64) return int(TcCfg<32, 64>::SMEM);
   if (bf16_mode && c_in == 64 && c_out == 128) return int(TcCfg<64, 128>::SMEM);
+  if (bf16_mode && c_in == 1 && c_out == C1_COUT) return 0;  // pooled (block 1): registers only
   if (c_in == 1 && c_out % 8 == 0) return 10 * c_out * int(sizeof(float));
   return 0;
 }

@@ -15,6 +15,11 @@ with a carried halo); they compute the same function, so one CUDA kernel
 
 On a CUDA tensor :func:`fused_conv_block` launches that kernel; on a CPU
 tensor it runs :func:`reference_conv_block`. It never falls back.
+
+Block 1 in bf16 (C_in = 1, C_out = 32, pooled) runs on the tensor cores as
+one product per pooled pixel: A (pixels x 16) holds the pixel's 4 x 3
+input window, B (16 x 64) both conv rows' weights; the kernel builds B in
+registers by the map below (``conv_block_cin1_tc`` in the CUDA source).
 """
 
 from __future__ import annotations
@@ -23,6 +28,19 @@ import torch
 import torch.nn.functional as F
 
 from dfac_tpu_torch.ops import _build
+
+# Block 1's K = 16, N = 64 product. k -> (window row, window column) of the
+# input window rows 2ho - 1 .. 2ho + 2, columns col - 1 .. col + 1 of pooled
+# pixel (b, ho, col), or None for a zero column of A: k = 4 * row + column.
+CIN1_TC_K = tuple(None if k % 4 == 3 else (k // 4, k % 4) for k in range(16))
+# n -> (conv row 2ho + r: r, channel): conv row r's tap dy reads window row
+# dy + r. Within a conv row, column 8j + m carries channel 8 (m // 2) + 2j +
+# m % 2, so that a thread's accumulators (columns 8j + 2q, + 1 of n-tiles j =
+# 0..3 in mma.sync's m16n8 layout) are channels 8q .. 8q + 7 of its pixel.
+CIN1_TC_N = tuple((n // 32, 8 * (n % 8 // 2) + 2 * (n % 32 // 8) + n % 2) for n in range(64))
+# B and the bias are scaled by the pool's 0.5, so the pool is relu + relu:
+# exact, as 0.5 * relu(a) == relu(0.5 * a) in binary floating point
+CIN1_TC_SCALE = 0.5
 
 
 def reference_conv_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = True):

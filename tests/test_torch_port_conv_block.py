@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from dfac_tpu.ops.pallas import conv_block as jcb
@@ -44,6 +45,45 @@ def test_conv_block_matches_pallas_v2_and_xla(h, w, cin, cout, pool):
     # (the bound tests/test_conv_block.py holds the Pallas kernels to)
     np.testing.assert_allclose(got, v2, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _cin1_tc_block(x, wk, b):
+    """Block 1 (C_in = 1, C_out = 32, pooled) through the tensor-core
+    kernel's product, in f32: A (pooled pixels x 16) by ``CIN1_TC_K``, B (16
+    x 64) by ``CIN1_TC_K`` and ``CIN1_TC_N``, B and the bias scaled by
+    ``CIN1_TC_SCALE``, then per channel relu(conv row 0) + relu(conv row 1)."""
+    batch, h, width, _ = x.shape
+    h_out = h // 2
+    xp = F.pad(x[..., 0], (1, 1, 1, 1))  # window row i of pooled row ho is padded row 2ho + i
+    a = torch.zeros(batch, h_out, width, 16)
+    bm = torch.zeros(16, 64)
+    for k, rc in enumerate(tcb.CIN1_TC_K):
+        if rc is None:
+            continue
+        row, col = rc
+        a[..., k] = xp[:, row : row + 2 * h_out : 2, col : col + width]
+        for n, (conv_row, ch) in enumerate(tcb.CIN1_TC_N):
+            if 0 <= row - conv_row < 3:  # conv row r's tap dy reads window row dy + r
+                bm[k, n] = tcb.CIN1_TC_SCALE * wk[row - conv_row, col, 0, ch]
+    bias = tcb.CIN1_TC_SCALE * b[[ch for _, ch in tcb.CIN1_TC_N]]
+    y = torch.relu(a @ bm + bias)
+    out = torch.zeros(batch, h_out, width, 32)
+    for n, (_, ch) in enumerate(tcb.CIN1_TC_N):  # the pool: each channel's column of both conv rows
+        out[..., ch] += y[..., n]
+    return out
+
+
+@pytest.mark.parametrize("h,w", [(2, 5), (3, 1), (8, 24), (33, 65), (40, 180)])  # even and odd H; W 1 to 180
+def test_cin1_tensor_core_map_matches_pallas_v2_and_plain(h, w):
+    x, wk, b = _inputs(h, w, 1, 32, seed=h + w)
+    got = _cin1_tc_block(torch.from_numpy(x), torch.from_numpy(wk), torch.from_numpy(b)).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        v2 = np.asarray(jcb.fused_conv_block_v2(jnp.asarray(x), jnp.asarray(wk), jnp.asarray(b), pool=True))
+    plain = tcb.reference_conv_block(torch.from_numpy(x), torch.from_numpy(wk), torch.from_numpy(b), True).numpy()
+    assert got.shape == v2.shape == plain.shape == (2, h // 2, w, 32)
+    # f32 throughout; the products are exact, the summation order differs
+    np.testing.assert_allclose(got, v2, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got, plain, atol=1e-4, rtol=1e-4)
 
 
 def test_conv_block_matches_pallas_v1():

@@ -5,8 +5,9 @@ elsewhere (the kernels have no CPU mode). ``chip_smoke.py`` checks the
 serving shapes; these check the edges (odd H with and without the pool, W
 not a multiple of a warpgroup's 32-column tile or of a warp's 8 columns,
 tiny H and T, fewer tiles than SMs, enough tiles that each tile ring
-wraps, every kernel case of the conv block, f32, misaligned inputs, a
-second call equal bit for bit; for the post-FFT kernel one row,
+wraps, every kernel case of the conv block, block 1's 16-pixel tiles
+across rows and utterances, f32, misaligned inputs, a second call equal
+bit for bit; for the post-FFT kernel one row,
 rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
 and non-contiguous power; for the time pool odd T, f32, rows that are not
 16-byte vectors, misaligned, transposed and untileable inputs; for the
@@ -95,6 +96,13 @@ CONV_CASES = [
     (1, 4, 20, 64, 128, False),
     (6, 160, 180, 32, 64, True),   # > 3 tiles per warpgroup at 2 blocks per SM: its 3-stage ring wraps
     (4, 80, 180, 64, 128, False),  # > 2 tiles per warpgroup at 1 block per SM: its 2-stage ring wraps
+    # block 1's tensor-core kernel (bf16, Cin = 1, Cout = 32, pooled; in f32
+    # these take the Cin = 1 kernel): each warp walks tiles of 16 pixels of
+    # the flat (b, ho, col) output
+    *((2, h, w, 1, 32, True) for w in (1, 63, 64, 65, 180) for h in (2, 3)),  # W ragged or whole; 1 pooled row
+    (3, 9, 7, 1, 32, True),        # tiles straddle rows (W = 7) and utterances (28 pixels each)
+    (5, 4, 3, 1, 32, True),        # 6 pixels per utterance: a tile spans three; the last tile is partial
+    (48, 161, 180, 1, 32, True),   # ~5 trips of 4 tiles per warp at 2 blocks per SM: the loop walks several
 ]
 
 
@@ -126,6 +134,17 @@ def test_conv_block_misaligned_input(cuda):
     bias = torch.zeros(64, device=cuda)
     got = fused_conv_block(x, wk, bias, True)
     torch.testing.assert_close(got, fused_conv_block(x.clone(), wk, bias, True), atol=0, rtol=0)
+
+
+def test_conv_block_cin1_misaligned_input(cuda):
+    gen = torch.Generator().manual_seed(2)
+    flat = torch.randn(1 + 2 * 7 * 65, generator=gen).to(cuda, torch.bfloat16)
+    x = flat[1:].view(2, 7, 65, 1)  # data pointer 2 bytes past an aligned one
+    wk = torch.randn(3, 3, 1, 32, generator=gen).to(cuda) * 0.4
+    bias = torch.randn(32, generator=gen).to(cuda) * 0.1
+    got = fused_conv_block(x, wk, bias, True)
+    torch.testing.assert_close(got, fused_conv_block(x.clone(), wk, bias, True), atol=0, rtol=0)
+    assert _close_bf16_last_bit(got, reference_conv_block(x, wk, bias, True))
 
 
 def test_conv_block_rejects_bad_shapes(cuda):
