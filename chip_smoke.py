@@ -60,15 +60,18 @@ line:
             ``train_opt_probe`` K9, K7, K8, K10 and K11, each once per case
             call), K5 for the pool probe (twice per batch of its ``pallas``
             variant), and nothing else
-14. timing  slice utt/s over 8,192 on-device utterances at B=128 (median of
-            7, host clock ending in a synchronize), extraction utt/s per
+14. timing  slice utt/s over 8,192 on-device utterances at B=128 and
+            ``predict --fast``'s f32 chain over 2,048 on-device feature
+            tensors at B=128 (``dfac_tpu_torch.chain_rates``: median of 7,
+            host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
             each K1 mode and each K2 block in bf16 and in f32 beside its own
             bound, rFFT + K4 against K1, K5 against ``F.avg_pool2d``, and
             controls: cuBLAS's DFT product alone in bf16 and f32 for K1,
             cuDNN's conv alone for each K2 block in bf16 and in f32, a write
-            of block 1's output size (``zero_``), stage 11's cuDNN conv1
+            of block 1's output size in each (``zero_``), stage 11's cuDNN
+            conv1
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -105,6 +108,7 @@ SEED = 0
 BATCH = 128
 N_FRAMES = 321
 CORPUS = 8192
+F32_CORPUS = 2048  # feature tensors per timed run of predict --fast's f32 chain
 CLI_UTTS = 512
 EXTRACT_BATCH = 64  # the extraction CLI's default
 EXTRACT_UTTS = 512
@@ -249,7 +253,7 @@ def main() -> int:
         lfcc_features_batch, linear_filterbank, power_spectrum
     from dfac_tpu_torch.io.npy_store import load_npy_dataset
     from dfac_tpu_torch.io.pickle_io import load_features
-    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch import chain_rates
     from dfac_tpu_torch.models.fast_infer import fold_cnn2d, predict_scores_fast
     from dfac_tpu_torch.ops import _build, conv_probe
     from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores, cnn2d_head, fused_conv_block, reference_conv_block
@@ -279,9 +283,11 @@ def main() -> int:
         "frontend_bf16": lib.dfac_gemm_frontend_smem(1),
         "frontend_f32": lib.dfac_gemm_frontend_smem(0),
         "conv_block_cin1_tc 1->32": lib.dfac_conv_block_smem(1, 32, 1),
-        "conv_block_cin1 1->32 f32": lib.dfac_conv_block_smem(1, 32, 0),
+        "conv_block_cin1_f32 1->32": lib.dfac_conv_block_smem(1, 32, 0),
         "conv_block_tc 32->64": lib.dfac_conv_block_smem(32, 64, 1),
         "conv_block_tc 64->128": lib.dfac_conv_block_smem(64, 128, 1),
+        "conv_block_f32 32->64": lib.dfac_conv_block_smem(32, 64, 0),
+        "conv_block_f32 64->128": lib.dfac_conv_block_smem(64, 128, 0),
         "fb_log_dct_kernel": lib.dfac_fb_log_dct_smem(),
         "conv1_checksum g": lib.dfac_conv_probe_smem(0, 256, 256, 32),
         "conv1_checksum i": lib.dfac_conv_probe_smem(2, 256, 256, 32),
@@ -302,9 +308,9 @@ def main() -> int:
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
-            k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_direct|conv_block_cin1_tc|"
-                          r"conv_block_cin1|fb_log_dct_kernel|time_pool_kernel|conv1_checksum|conv2_checksum|"
-                          r"sum_sq_checksum|conv1_mma|conv1_emit)"
+            k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_f32|conv_block_direct|"
+                          r"conv_block_cin1_tc|conv_block_cin1_f32|conv_block_cin1|fb_log_dct_kernel|"
+                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
         m = re.search(r"Used (\d+) registers", line)
@@ -398,15 +404,7 @@ def main() -> int:
     del got, want
 
     # -- 6. end-to-end slice ----------------------------------------------
-    torch.manual_seed(SEED)
-    model = build_model("cnn2d", in_features=cfg.feature_dim, base_channels=32).to(dev).eval()
-    with torch.no_grad():  # non-trivial BN statistics, so the folding is exercised
-        for mod in model.modules():
-            if isinstance(mod, torch.nn.BatchNorm2d):
-                mod.running_mean.uniform_(-0.2, 0.2, generator=gen)
-                mod.running_var.uniform_(0.5, 2.0, generator=gen)
-                mod.weight.uniform_(0.5, 1.5, generator=gen)
-                mod.bias.uniform_(-0.1, 0.1, generator=gen)
+    model = chain_rates.random_cnn2d(cfg, dev, gen)  # non-trivial BN statistics, so the folding is exercised
     folded = fold_cnn2d(model.state_dict())
     n_batches = 2
     waves = torch.randn(n_batches, BATCH, n_samples, device=dev, generator=gen)
@@ -719,22 +717,16 @@ def main() -> int:
 
     # -- 14. timing --------------------------------------------------------
     corpus = torch.randn(CORPUS // BATCH, BATCH, n_samples, device=dev, generator=gen)
-
-    def score_corpus():
-        with torch.inference_mode():
-            out = [cnn2d_fused_scores(folded, gemm_lfcc_features_tf(wv, cfg, torch.bfloat16)) for wv in corpus]
-        torch.cuda.synchronize()
-        return out
-
-    score_corpus()  # warm-up
-    rates = []
-    for _ in range(7):
-        t0 = time.perf_counter()
-        score_corpus()
-        rates.append(CORPUS / (time.perf_counter() - t0))
-    utt_s = statistics.median(rates)
-    phase("timing", f"slice {utt_s:.1f} utt/s (median of 7; min {min(rates):.1f}, max {max(rates):.1f}), "
-                    f"{CORPUS} utterances of {n_samples} samples at B={BATCH}, bf16, on {card}")
+    rates = chain_rates.rates(chain_rates.slice_runner(folded, corpus, cfg), CORPUS)
+    phase("timing", chain_rates.summary("slice", rates)
+          + f", {CORPUS} utterances of {n_samples} samples at B={BATCH}, bf16, on {card}")
+    del corpus
+    feats32 = torch.randn(F32_CORPUS // BATCH, BATCH, N_FRAMES, cfg.feature_dim, device=dev, generator=gen)
+    rates = chain_rates.rates(chain_rates.f32_runner(folded, feats32), F32_CORPUS)
+    phase("timing", chain_rates.summary("predict f32 chain", rates)
+          + f", {F32_CORPUS} feature tensors ({N_FRAMES} x {cfg.feature_dim}) at B={BATCH}, three K2 blocks in f32, "
+            f"on {card}")
+    del feats32
 
     ext_dev = 0.1 * torch.randn(EXTRACT_CORPUS // EXTRACT_BATCH, EXTRACT_BATCH, n_samples, device=dev, generator=gen)
     ext_host = ext_dev.reshape(-1, n_samples).cpu().numpy()
@@ -748,15 +740,9 @@ def main() -> int:
     for method in METHODS:
         for label, run in (("on device", lambda: extract_on_device(method)),
                            ("host round trip", lambda: lfcc_features_batch(ext_host, cfg, EXTRACT_BATCH, method, dev))):
-            run()  # warm-up
-            rates = []
-            for _ in range(7):
-                t0 = time.perf_counter()
-                run()
-                rates.append(EXTRACT_CORPUS / (time.perf_counter() - t0))
-            phase("timing", f"extract {method}, {label}: {statistics.median(rates):.1f} utt/s (median of 7; "
-                            f"min {min(rates):.1f}, max {max(rates):.1f}), {EXTRACT_CORPUS} utterances at "
-                            f"B={EXTRACT_BATCH}, on {card}")
+            rates = chain_rates.rates(run, EXTRACT_CORPUS)
+            phase("timing", chain_rates.summary(f"extract {method}, {label}:", rates)
+                  + f", {EXTRACT_CORPUS} utterances at B={EXTRACT_BATCH}, on {card}")
 
     # bounds from this run's shapes (bytes: inputs read once, outputs written once)
     rows, fb_nnz = BATCH * N_FRAMES, int(np.count_nonzero(linear_filterbank(cfg)))
@@ -827,12 +813,18 @@ def main() -> int:
     write_bytes = out1.numel() * out1.element_size()
     phase("timing", f"K2 block 1 control, a write of its output size (out.zero_(), {write_bytes / 1e6:.1f} MB): "
                     f"{write_ms:.4f} ms ({write_bytes / write_ms / 1e9:.3f} TB/s), on {card}")
+    out1 = torch.empty(out1.shape, device=dev, dtype=torch.float32)
+    out1.zero_()
+    write_ms = statistics.mean(cuda_ms(out1.zero_, 10) for _ in range(2))
+    write_bytes = out1.numel() * out1.element_size()
+    phase("timing", f"K2 block 1 f32 control, a write of its output size (out.zero_(), {write_bytes / 1e6:.1f} MB): "
+                    f"{write_ms:.4f} ms ({write_bytes / write_ms / 1e9:.3f} TB/s), on {card}")
     del out1
     k2_f32_ms = k2_f32_plain = 0.0
     k2_f32_parts = [block_bound(x, w, pool, "f32") for x, w, b, pool in k2_f32_inputs]
     for i, ((x, w, b, pool), (bnd_ms, bnd_by)) in enumerate(zip(k2_f32_inputs, k2_f32_parts), 1):
         ms, plain_ms = in_turns(lambda: reference_conv_block(x, w, b, pool), lambda: fused_conv_block(x, w, b, pool),
-                                reps=2)
+                                reps=10 if x.shape[-1] == 1 else 2)  # block 1: enough launches to hide the host
         k2_f32_ms, k2_f32_plain = k2_f32_ms + ms, k2_f32_plain + plain_ms
         phase("timing", f"K2 conv_block block {i} f32 x{tuple(x.shape)} pool={pool}: kernel {ms:.4f} ms, "
                         f"bound {bnd_ms:.4f} ms ({bnd_by}), {bnd_ms / ms:.1%} of the bound's rate; plain "

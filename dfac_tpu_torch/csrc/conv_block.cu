@@ -95,16 +95,31 @@
 //    - The input (15 MB at the serving shape) stays in L2; a lane loads its
 //      6 window values with 16-bit loads (rows of odd W leave no alignment
 //      for wider ones). The flat index is decoded by multiply and shift.
-//  * Cin = 1 otherwise (f32, unpooled, other Cout), conv_block_cin1: one
-//    thread per output pixel computes all of its channels from 12 inputs
-//    held in registers on the CUDA cores and writes them as 16-byte
-//    vectors.
-//  * Everything else (f32 blocks 2-3, other channel counts): a direct
-//    kernel on the CUDA cores, one output value per thread, same epilogue.
-//    Correct, not fast: the serving path does not take it.
+//  * f32 mode (predict --fast's default), exact f32 products (FFMA) on the
+//    CUDA cores, no TF32. Bound by operations at 67 TFLOP/s: blocks 2 / 3
+//    136 / 272 GFLOP, 2.03 / 4.06 ms, against 0.28 / 0.42 ms of bytes;
+//    block 1 by its 472 MB write, 0.15 ms (its 4.25 GFLOP take 0.06 ms).
+//    - Blocks 2 and 3 (Cin = 32 / 64), conv_block_f32: a register-tiled
+//      implicit GEMM, 2 conv rows x 9 columns x 4 channels per thread, the
+//      three dx taps sharing one loaded row window, halo tiles of channel
+//      quads by one tensor copy (TMA), the weights streamed by bulk copies
+//      (below).
+//    - Block 1 (Cin = 1, Cout = 32, pooled), conv_block_cin1_f32: a lane
+//      computes 4 channels of two adjacent pooled pixels from their shared
+//      4 x 4 window, so a warp's store covers whole 128-byte pixels.
+//  * Cin = 1 otherwise (unpooled, other Cout), conv_block_cin1: one thread
+//    per output pixel computes all of its channels from 12 inputs held in
+//    registers on the CUDA cores and writes them as 16-byte vectors.
+//  * Other channel counts: a direct kernel on the CUDA cores, one output
+//    value per thread, same epilogue; correct, not fast, and on no path of
+//    the model. 32-bit indices: a launch covers fewer than 2^31 outputs, so
+//    a larger batch takes several launches (one utterance's outputs must
+//    stay below 2^31).
 //  * SAME zero padding on both edges of H and W; W = 180 is not a multiple
-//    of the 32-column tile, so the last tile masks its columns.
+//    of the bf16 kernel's 32-column tile, so its last tile masks its
+//    columns; it is 5 of the f32 kernel's 36-column tiles.
 
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled: the encoder is fetched at run time, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -363,14 +378,15 @@ __global__ void __launch_bounds__(THREADS)
 conv_block_direct(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
                   T* __restrict__ out, int batch, int h, int width, int c_in, int c_out, int pool) {
   const int h_out = pool ? h / 2 : h;
-  const size_t total = size_t(batch) * h_out * width * c_out;
-  for (size_t i = size_t(blockIdx.x) * THREADS + threadIdx.x; i < total; i += size_t(gridDim.x) * THREADS) {
-    const int co = int(i % c_out);
-    size_t r = i / c_out;
-    const int col = int(r % width);
+  const long long total = (long long)batch * h_out * width * c_out;  // < 2^31: the launch splits the batch
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total; i += (long long)gridDim.x * THREADS) {
+    // 32-bit index arithmetic: a 64-bit division is a call
+    const int co = int(i) % c_out;
+    int r = int(i) / c_out;
+    const int col = r % width;
     r /= width;
-    const int ho = int(r % h_out);
-    const int b = int(r / h_out);
+    const int ho = r % h_out;
+    const int b = r / h_out;
     const int rows = pool ? 2 : 1, y0 = pool ? 2 * ho : ho;
     float res = 0.f;
     for (int rr = 0; rr < rows; ++rr) {
@@ -383,6 +399,7 @@ conv_block_direct(const T* __restrict__ x, const T* __restrict__ w, const float*
           if (xc < 0 || xc >= width) continue;
           const T* xp = x + ((size_t(b) * h + y) * width + xc) * c_in;
           const T* wp = w + size_t(dy * 3 + dx) * c_in * c_out + co;
+#pragma unroll 2  // ptxas spills the loop state of the bf16 instance at the default unroll (and at 4, or 1)
           for (int ci = 0; ci < c_in; ++ci) acc = fmaf(to_f32(xp[ci]), to_f32(wp[size_t(ci) * c_out]), acc);
         }
       }
@@ -570,6 +587,277 @@ conv_block_cin1_tc(const bf16* __restrict__ x, const bf16* __restrict__ w, const
   }
 }
 
+// ---- f32 mode, blocks 2 and 3 --------------------------------------------------
+//
+// conv_block_f32<Cin, Cout>: an implicit GEMM (M = conv output pixels, N =
+// Cout, K = 9 taps x Cin) with exact f32 products (FFMA) on the CUDA cores.
+// Layout and geometry: ops/conv_block.py's F32_* constants and f32_tile_geometry
+// (a CPU test walks them).
+namespace f32t {
+constexpr int THREADS = 256;
+constexpr int COLS = 9;        // conv output columns per thread
+constexpr int CH = 4;          // output channels per thread (one 16-byte vector)
+constexpr int XG = 4;          // column groups per tile (a warp's lanes / 8)
+constexpr int TW = XG * COLS;  // 36 columns per tile: W = 180 is 5 whole tiles
+constexpr int QP = TW + 2;     // 16-byte slots per halo row of one channel quad
+constexpr int KC = 32;         // input channels per weight slab
+constexpr int WSTAGES = 2;     // weight slabs in the ring
+}  // namespace f32t
+
+template <int CIN, int COUT>
+struct F32Cfg {
+  static constexpr int CG = COUT / f32t::CH;                  // channel groups: 16 or 32
+  static constexpr int RP = f32t::THREADS / (CG * f32t::XG);  // conv row pairs per tile: 4 or 2
+  static constexpr int IN_ROWS = 2 * RP + 2;                  // halo rows
+  static constexpr int NQ = CIN / 4;                          // channel quads
+  static constexpr int NCH = CIN / f32t::KC;                  // Cin chunks
+  static constexpr int NSLAB = 3 * NCH;                       // weight slabs (dy, chunk) per tile
+  static constexpr int SLAB = 3 * f32t::KC * COUT;            // floats: [dx][ci][cout]
+  static constexpr int XSTAGE = IN_ROWS * NQ * f32t::QP * 4;  // floats: [row][quad][column][4]
+  static constexpr size_t BAR_OFF = size_t(2 * XSTAGE + f32t::WSTAGES * SLAB) * sizeof(float);
+  static constexpr size_t SMEM = BAR_OFF + 8 * (f32t::WSTAGES + 2);  // + full mbarriers: weight stages, halo stages
+  static_assert(RP >= 1 && CG * f32t::XG * RP == f32t::THREADS, "one 2 x 9 x 4 register tile per thread");
+  static_assert(CG % 8 == 0 && f32t::XG * 8 == 32, "a warp: 4 column groups x 8 channel groups");
+  static_assert(CIN % f32t::KC == 0 && f32t::KC % 4 == 0, "whole channel quads per slab");
+  static_assert(SMEM <= 232448, "227 KB of shared memory per block");
+};
+
+// Blocks 2 and 3 in f32. Each thread holds 2 conv rows x 9 columns x 4
+// channels (72 accumulators). Per (dy, channel quad, conv row) it loads its
+// 11-pixel input row (columns c - 1 .. c + 9, 4 channels each: 11 LDS.128)
+// and per channel three 4-channel weight vectors (one per dx), then runs
+// 4 x 3 x 36 FFMA: 23 loads per 432 FFMA, since the three dx taps reuse one
+// row window. The halo tile holds channel quads ([row][quad][column][4
+// channels]), so a warp's 4 column groups (9 columns apart) read 4 distinct
+// bank quads; one tensor copy (TMA) per tile fills it straight from NHWC,
+// x seen as (4 channels, column, quad, row, utterance), its zero fill the
+// SAME padding. A warp is 4 column groups x 8 channel groups: its weight
+// loads read 128 contiguous bytes. 36-column tiles divide the serving
+// width, W = 180, so no column is computed in vain there. The weights
+// stream through a 2-slab ring of bulk copies, slab (dy, ci chunk) =
+// [dx][32 ci][Cout], the whole tensor once per tile (from L2; at block 3 it
+// is 295 KB, more than a block may hold); the block barrier of each step
+// frees the slab read the step before, and at a tile's first step the
+// halo stage of the tile before, into which the next tile's halo goes.
+// Thread 0 issues every copy; full mbarriers say when each has landed.
+// Persistent blocks, one per SM, walk tiles of 2 * RP conv rows x 36
+// columns x Cout in a grid-stride loop. Each output sums its 9 * Cin
+// products in a fixed order (slab, ci, dx), so a second call repeats bit
+// for bit. Measured on an H100 (PERF.md, section 6): 64-column tiles (6.7% of
+// the columns in vain at W = 180), a channel-planar halo filled by 4-byte
+// cp.async, a halo by 16-byte cp.async, and producer warps spinning on
+// mbarriers were each slower.
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(f32t::THREADS, 1)
+conv_block_f32(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ w, const float* __restrict__ bias,
+               float* __restrict__ out, int batch, int h, int width, int pool) {
+  using namespace f32t;
+  using C = F32Cfg<CIN, COUT>;
+  extern __shared__ __align__(128) float smf[];
+  float* sX = smf;                   // 2 halo stages
+  float* sW = smf + 2 * C::XSTAGE;   // WSTAGES weight slabs
+  const uint32_t sX_u32 = smem_u32(sX), sW_u32 = smem_u32(sW);
+  const uint32_t full = smem_u32(reinterpret_cast<unsigned char*>(smf) + C::BAR_OFF);  // + 8 * stage
+  const uint32_t hfull = full + 8 * WSTAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warp -> (channel block of 8 groups, row pair); lane -> (column group, channel group)
+  const int chg = (warp % (C::CG / 8)) * 8 + (lane & 7);
+  const int rp = warp / (C::CG / 8);
+  const int colg = lane >> 3;
+
+  const int h_out = pool ? h / 2 : h;
+  const int pairs = pool ? h / 2 : (h + 1) / 2;
+  const int row_tiles = (pairs + C::RP - 1) / C::RP;
+  const int col_tiles = (width + f32t::TW - 1) / f32t::TW;
+  const int n_tiles = batch * row_tiles * col_tiles;  // < 2^31, checked at launch
+  const int my_tiles = int(blockIdx.x) < n_tiles ? (n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) + 1 : 0;
+  const int steps = my_tiles * C::NSLAB;
+
+  // the halo of tile `tile` into stage `st`: one tensor copy (thread 0),
+  // zeros where it reaches past the image
+  auto load_halo = [&](int st, int tile) {
+    const int ct = tile % col_tiles, r2 = tile / col_tiles;
+    const int rt = r2 % row_tiles, b = r2 / row_tiles;
+    const int y0 = 2 * C::RP * rt - 1, x0 = ct * f32t::TW - 1;
+    mbar_arrive_expect_tx(hfull + 8 * st, C::XSTAGE * 4);
+    tma_load_5d(sX_u32 + uint32_t(st * C::XSTAGE * 4), &xmap, 0, x0, 0, y0, b, hfull + 8 * st);
+  };
+  // weight slab of ring step g, (dy, chunk) = divmod(g % NSLAB, NCH): three
+  // bulk copies of [32 ci][Cout], one per dx (thread 0)
+  auto load_slab = [&](int g) {
+    const int s = g % C::NSLAB, dy = s / C::NCH, chunk = s % C::NCH, st = g % WSTAGES;
+    constexpr uint32_t DX_BYTES = KC * COUT * 4;
+    mbar_arrive_expect_tx(full + 8 * st, 3 * DX_BYTES);
+    for (int dx = 0; dx < 3; ++dx)
+      bulk_g2s(sW_u32 + uint32_t(st * C::SLAB * 4) + dx * DX_BYTES,
+               w + (size_t(dy * 3 + dx) * CIN + chunk * KC) * COUT, DX_BYTES, full + 8 * st);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < WSTAGES + 2; ++i) mbar_init(full + 8 * i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int k = 0; k < WSTAGES - 1 && k < steps; ++k) load_slab(k);
+    if (my_tiles > 0) load_halo(0, blockIdx.x);
+  }
+  const float4 bv = *reinterpret_cast<const float4*>(bias + 4 * chg);
+
+  int g = 0;  // ring step
+  for (int k = 0; k < my_tiles; ++k) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    float acc[2][COLS][CH];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+#pragma unroll
+        for (int e = 0; e < CH; ++e) acc[r][c][e] = 0.f;
+
+    for (int s = 0; s < C::NSLAB; ++s, ++g) {
+      if (s == 0) mbar_wait(hfull + 8 * (k & 1), uint32_t((k >> 1) & 1));  // tile k's halo is in
+      // every thread is done with step g - 1's slab (and at s = 0 with tile k - 1's halo stage)
+      __syncthreads();
+      if (tid == 0 && g + WSTAGES - 1 < steps) load_slab(g + WSTAGES - 1);
+      if (tid == 0 && s == 0 && k + 1 < my_tiles) load_halo((k + 1) & 1, tile + gridDim.x);  // a tile ahead
+      const int st = g % WSTAGES;
+      mbar_wait(full + 8 * st, uint32_t((g / WSTAGES) & 1));  // step g's slab is in
+      const int dy = s / C::NCH, chunk = s % C::NCH;
+      // halo row 2 rp + r + dy holds conv row 2 rp + r's tap dy; column j = 9 colg + c + dx
+      const float4* xs = reinterpret_cast<const float4*>(sX + (k & 1) * C::XSTAGE) +
+                         ((2 * rp + dy) * C::NQ + chunk * (KC / 4)) * QP + COLS * colg;
+      const float* ws = sW + st * C::SLAB + CH * chg;
+#pragma unroll
+      for (int qq = 0; qq < KC / 4; ++qq) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float4 xv[COLS + 2];
+#pragma unroll
+          for (int t = 0; t < COLS + 2; ++t) xv[t] = xs[(r * C::NQ + qq) * QP + t];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float wv[3][CH];
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const float4 t = *reinterpret_cast<const float4*>(ws + (dx * KC + 4 * qq + u) * COUT);
+              wv[dx][0] = t.x, wv[dx][1] = t.y, wv[dx][2] = t.z, wv[dx][3] = t.w;
+            }
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int c = 0; c < COLS; ++c) {
+                const float4 v = xv[c + dx];
+                const float xu = u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+#pragma unroll
+                for (int e = 0; e < CH; ++e) acc[r][c][e] = fmaf(xu, wv[dx][e], acc[r][c][e]);
+              }
+          }
+        }
+      }
+    }
+
+    // epilogue: + bias, ReLU, [pool the two rows], 16-byte stores (a warp's
+    // store: 4 runs of 128 contiguous bytes)
+    const int ct = tile % col_tiles, r2 = tile / col_tiles;
+    const int rt = r2 % row_tiles, b = r2 / row_tiles;
+    const int pair = rt * C::RP + rp, col0 = ct * f32t::TW + COLS * colg;
+    const float bb[CH] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int orow = pool ? pair : 2 * pair + r;
+      if ((pool && (r > 0 || pair >= h_out)) || (!pool && orow >= h)) continue;
+      float* o = out + ((size_t(b) * h_out + orow) * width + col0) * COUT + CH * chg;
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        float v[CH];
+#pragma unroll
+        for (int e = 0; e < CH; ++e) {
+          const float u = fmaxf(acc[0][c][e] + bb[e], 0.f), l = fmaxf(acc[1][c][e] + bb[e], 0.f);
+          v[e] = pool ? (u + l) * 0.5f : (r ? l : u);
+        }
+        if (col0 + c < width) *reinterpret_cast<float4*>(o + size_t(c) * COUT) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+// ---- f32 mode, block 1 (Cin = 1, Cout = 32, pooled) ---------------------------
+constexpr int C1F_THREADS = 256;
+constexpr int C1F_GROUPS = 4;  // 4-unit groups per warp and loop trip: their loads in flight together
+
+// A unit is two horizontally adjacent pooled pixels (b, ho, 2 cp) and (b,
+// ho, 2 cp + 1) (the second masked past the row's end); lane l computes
+// channels 4 (l % 8) .. + 3 of unit 4 gi + l / 8, from the units' shared 4 x
+// 4 input window (rows 2ho - 1 .. 2ho + 2, columns 2cp - 1 .. 2cp + 2; the 8
+// lanes of a unit load the same 16 values, from L1), so a warp's two
+// 16-byte stores per group each cover 4 whole 128-byte pixels. A lane's 36
+// weights and 4 biases stay in registers; the sums start at the bias and
+// take the taps in the plain version's order, 2 x 2 x 9 x 4 FFMA a unit.
+__global__ void __launch_bounds__(C1F_THREADS)
+conv_block_cin1_f32(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                    float* __restrict__ out, int h, int width, int units, Divisor div_pw, Divisor div_ho) {
+  const int lane = threadIdx.x & 31, q = lane & 7, ul = lane >> 3;
+  float wr[9][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const float4 v = *reinterpret_cast<const float4*>(w + t * C1_COUT + 4 * q);
+    wr[t][0] = v.x, wr[t][1] = v.y, wr[t][2] = v.z, wr[t][3] = v.w;
+  }
+  const float4 bq = *reinterpret_cast<const float4*>(bias + 4 * q);
+  const float bb[4] = {bq.x, bq.y, bq.z, bq.w};
+  const int h_out = h / 2, pw = int(div_pw.d);
+  const int groups = (units + 3) / 4;
+  const int step = gridDim.x * (C1F_THREADS / 32) * C1F_GROUPS;
+  for (int g0 = (blockIdx.x * (C1F_THREADS / 32) + (threadIdx.x >> 5)) * C1F_GROUPS; g0 < groups; g0 += step) {
+    float win[C1F_GROUPS][4][4];
+    int pix[C1F_GROUPS], col[C1F_GROUPS];
+#pragma unroll
+    for (int u = 0; u < C1F_GROUPS; ++u) {
+      const int unit = 4 * (g0 + u) + ul;
+      const uint32_t r = div_by(uint32_t(unit), div_pw);  // (b, ho)
+      col[u] = 2 * (unit - int(r) * pw);
+      const uint32_t b = div_by(r, div_ho);
+      const int ho = int(r) - int(b) * h_out;
+      pix[u] = unit < units ? int(r) * width + col[u] : -1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = 2 * ho - 1 + i;
+        const float* row = x + (ptrdiff_t(b) * h + y) * width + col[u];
+        const bool y_ok = pix[u] >= 0 && y >= 0 && y < h;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int xc = col[u] - 1 + j;
+          win[u][i][j] = y_ok && xc >= 0 && xc < width ? __ldg(row + j - 1) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < C1F_GROUPS; ++u) {
+      float v[2][4];  // [pixel][channel]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int px = 0; px < 2; ++px) {
+          float a0 = bb[e], a1 = bb[e];  // conv rows 2ho, 2ho + 1
+#pragma unroll
+          for (int t = 0; t < 9; ++t) {
+            a0 = fmaf(win[u][t / 3][t % 3 + px], wr[t][e], a0);
+            a1 = fmaf(win[u][t / 3 + 1][t % 3 + px], wr[t][e], a1);
+          }
+          v[px][e] = (fmaxf(a0, 0.f) + fmaxf(a1, 0.f)) * 0.5f;
+        }
+      }
+      if (pix[u] >= 0) {
+        float* o = out + size_t(pix[u]) * C1_COUT + 4 * q;
+        *reinterpret_cast<float4*>(o) = make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+        if (col[u] + 1 < width)
+          *reinterpret_cast<float4*>(o + C1_COUT) = make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
+      }
+    }
+  }
+}
+
 int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -603,13 +891,21 @@ cudaError_t launch_tc(const void* x, const void* w, const float* b, void* out, i
 }
 
 template <typename T>
-void launch_direct(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
-                   int c_in, int c_out, int pool, cudaStream_t s) {
-  const size_t total = size_t(batch) * (pool ? h / 2 : h) * width * c_out;
-  const size_t want = (total + THREADS - 1) / THREADS, cap = size_t(sm_count()) * 32;
-  conv_block_direct<T><<<int(want < cap ? want : cap), THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), b, static_cast<T*>(out), batch, h, width, c_in,
-      c_out, pool);
+cudaError_t launch_direct(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
+                          int c_in, int c_out, int pool, cudaStream_t s) {
+  const int h_out = pool ? h / 2 : h;
+  const long long per_utt = (long long)h_out * width * c_out;
+  if (per_utt > 0x7fffffffLL) return cudaErrorInvalidValue;  // output indices stay in int
+  // one launch per run of utterances whose outputs number < 2^31
+  const int run = int(0x7fffffffLL / per_utt < batch ? 0x7fffffffLL / per_utt : batch);
+  for (int b0 = 0; b0 < batch; b0 += run) {
+    const int nb = batch - b0 < run ? batch - b0 : run;
+    const long long want = (nb * per_utt + THREADS - 1) / THREADS, cap = (long long)sm_count() * 32;
+    conv_block_direct<T><<<int(want < cap ? want : cap), THREADS, 0, s>>>(
+        static_cast<const T*>(x) + size_t(b0) * h * width * c_in, static_cast<const T*>(w), b,
+        static_cast<T*>(out) + size_t(b0) * per_utt, nb, h, width, c_in, c_out, pool);
+  }
+  return cudaSuccess;
 }
 
 cudaError_t launch_cin1_tc(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
@@ -627,6 +923,60 @@ cudaError_t launch_cin1_tc(const void* x, const void* w, const float* b, void* o
   conv_block_cin1_tc<<<int(blocks < cap ? blocks : cap), C1_THREADS, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), b, static_cast<bf16*>(out), h, width, int(pixels),
       make_divisor(uint32_t(width)), make_divisor(uint32_t(h / 2)));
+  return cudaSuccess;
+}
+
+template <int CIN, int COUT>
+cudaError_t launch_f32(const void* x, const void* w, const float* b, void* out, int batch, int h, int width, int pool,
+                       cudaStream_t s) {
+  using C = F32Cfg<CIN, COUT>;
+  auto kern = conv_block_f32<CIN, COUT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const long long pairs = pool ? h / 2 : (h + 1) / 2;
+  const long long tiles = (long long)batch * ((pairs + C::RP - 1) / C::RP) * ((width + f32t::TW - 1) / f32t::TW);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // persistent: one block per SM (its shared memory allows no second)
+  const int grid = int(tiles < sm_count() ? tiles : sm_count());
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return err != cudaSuccess ? err : cudaErrorNotSupported;
+  }
+  // x as (4 channels, column, quad, row, utterance), so that a box of (4, 38
+  // columns, every quad, the halo rows, 1) lands as [row][quad][column][4];
+  // the quad's stride (16 B) is below the column's, which a tensor map takes.
+  // Its parts outside x are zero-filled: the SAME padding.
+  CUtensorMap map;
+  const cuuint64_t dims[5] = {4, cuuint64_t(width), CIN / 4, cuuint64_t(h), cuuint64_t(batch)};
+  const cuuint64_t strides[4] = {CIN * 4, 16, cuuint64_t(width) * CIN * 4, cuuint64_t(h) * width * CIN * 4};
+  const cuuint32_t box[5] = {4, f32t::QP, CIN / 4, C::IN_ROWS, 1}, unit[5] = {1, 1, 1, 1, 1};
+  CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(x), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  kern<<<grid, f32t::THREADS, C::SMEM, s>>>(map, static_cast<const float*>(w), b, static_cast<float*>(out), batch, h,
+                                            width, pool);
+  return cudaSuccess;
+}
+
+cudaError_t launch_cin1_f32(const void* x, const void* w, const float* b, void* out, int batch, int h, int width,
+                            cudaStream_t s) {
+  const long long units = (long long)batch * (h / 2) * ((width + 1) / 2);
+  if ((long long)batch * (h / 2) * width > 0x7fffffffLL || units > 0x7fffffffLL - 4 * C1F_GROUPS)
+    return cudaErrorInvalidValue;  // pixel and unit indices stay in int
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_block_cin1_f32, C1F_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // persistent: as many blocks as fit at once, each warp walking C1F_GROUPS 4-unit groups a trip
+  constexpr int per_block = 4 * C1F_GROUPS * (C1F_THREADS / 32);
+  const long long blocks = (units + per_block - 1) / per_block;
+  const long long cap = (long long)per_sm * sm_count();
+  conv_block_cin1_f32<<<int(blocks < cap ? blocks : cap), C1F_THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), b, static_cast<float*>(out), h, width,
+      int(units), make_divisor(uint32_t((width + 1) / 2)), make_divisor(uint32_t(h / 2)));
   return cudaSuccess;
 }
 
@@ -659,13 +1009,19 @@ extern "C" int dfac_conv_block(const void* x, const void* w, const float* b, voi
     err = launch_tc<64, 128, 1>(x, w, b, out, batch, h, width, pool, s);
   } else if (bf16_mode && c_in == 1 && c_out == C1_COUT && pool) {
     err = launch_cin1_tc(x, w, b, out, batch, h, width, s);
+  } else if (!bf16_mode && c_in == 32 && c_out == 64) {
+    err = launch_f32<32, 64>(x, w, b, out, batch, h, width, pool, s);
+  } else if (!bf16_mode && c_in == 64 && c_out == 128) {
+    err = launch_f32<64, 128>(x, w, b, out, batch, h, width, pool, s);
+  } else if (!bf16_mode && c_in == 1 && c_out == C1_COUT && pool) {
+    err = launch_cin1_f32(x, w, b, out, batch, h, width, s);
   } else if (c_in == 1 && c_out % 8 == 0) {
     err = bf16_mode ? launch_cin1<bf16>(x, w, b, out, batch, h, width, c_out, pool, s)
                     : launch_cin1<float>(x, w, b, out, batch, h, width, c_out, pool, s);
   } else if (bf16_mode) {
-    launch_direct<bf16>(x, w, b, out, batch, h, width, c_in, c_out, pool, s);
+    err = launch_direct<bf16>(x, w, b, out, batch, h, width, c_in, c_out, pool, s);
   } else {
-    launch_direct<float>(x, w, b, out, batch, h, width, c_in, c_out, pool, s);
+    err = launch_direct<float>(x, w, b, out, batch, h, width, c_in, c_out, pool, s);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -673,11 +1029,13 @@ extern "C" int dfac_conv_block(const void* x, const void* w, const float* b, voi
 
 // Dynamic shared memory per block of the kernel dfac_conv_block picks for
 // these channel counts, in bytes (0: the direct kernel and, for Cin = 1,
-// Cout = 32 in bf16, block 1's pooled kernel use none).
+// Cout = 32, block 1's pooled kernels use none).
 extern "C" int dfac_conv_block_smem(int c_in, int c_out, int bf16_mode) {
   if (bf16_mode && c_in == 32 && c_out == 64) return int(TcCfg<32, 64>::SMEM);
   if (bf16_mode && c_in == 64 && c_out == 128) return int(TcCfg<64, 128>::SMEM);
-  if (bf16_mode && c_in == 1 && c_out == C1_COUT) return 0;  // pooled (block 1): registers only
+  if (!bf16_mode && c_in == 32 && c_out == 64) return int(F32Cfg<32, 64>::SMEM);
+  if (!bf16_mode && c_in == 64 && c_out == 128) return int(F32Cfg<64, 128>::SMEM);
+  if (c_in == 1 && c_out == C1_COUT) return 0;  // pooled (block 1): registers only
   if (c_in == 1 && c_out % 8 == 0) return 10 * c_out * int(sizeof(float));
   return 0;
 }

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) helpers shared by the port's wgmma kernels (conv_block.cu,
-// gemm_frontend.cu): shared-memory addresses, cp.async, bulk copies,
-// ldmatrix, mbarriers and wgmma m64nNk16 with A from registers and f32
-// accumulators.
+// Hopper (sm_90a) helpers shared by the port's kernels (conv_block.cu,
+// gemm_frontend.cu): shared-memory addresses, cp.async, bulk and tensor
+// copies, ldmatrix, mbarriers and wgmma m64nNk16 with A from registers and
+// f32 accumulators.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -53,6 +54,16 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
                "l"(src), "r"(bytes), "r"(bar)
                : "memory");
+}
+// One tensor copy (TMA) of a 5-D box global -> shared at box coordinates
+// c0..c4 of the tensor map (zeros where the box leaves the tensor); it
+// counts its bytes on bar as they land.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, "
+      "%6}], [%7];\n" ::"r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
 }
 // Wait until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {

@@ -20,6 +20,11 @@ Block 1 in bf16 (C_in = 1, C_out = 32, pooled) runs on the tensor cores as
 one product per pooled pixel: A (pixels x 16) holds the pixel's 4 x 3
 input window, B (16 x 64) both conv rows' weights; the kernel builds B in
 registers by the map below (``conv_block_cin1_tc`` in the CUDA source).
+
+Blocks 2 and 3 in f32 (C_in, C_out = 32, 64 or 64, 128; ``conv_block_f32``)
+run as an implicit GEMM with exact f32 products on the CUDA cores, each
+thread holding a register tile of 2 conv rows x 9 columns x 4 channels;
+:func:`f32_tile_geometry` describes its tiles and threads.
 """
 
 from __future__ import annotations
@@ -41,6 +46,34 @@ CIN1_TC_N = tuple((n // 32, 8 * (n % 8 // 2) + 2 * (n % 32 // 8) + n % 2) for n 
 # B and the bias are scaled by the pool's 0.5, so the pool is relu + relu:
 # exact, as 0.5 * relu(a) == relu(0.5 * a) in binary floating point
 CIN1_TC_SCALE = 0.5
+
+# f32 blocks 2 and 3 (conv_block_f32): 256 threads per block, each holding
+# 2 conv rows x F32_COLS columns x F32_CH channels; a tile is 2 * row_pairs
+# conv rows x F32_TW columns x C_out, its halo (2 * row_pairs + 2) x (F32_TW
+# + 2) pixels starting at conv row -1 and column -1 of the tile.
+F32_THREADS, F32_COLS, F32_CH, F32_TW = 256, 9, 4, 36
+
+
+def f32_tile_geometry(h: int, width: int, c_out: int, pool: bool) -> dict:
+    """The f32 kernel's tiling, as its index arithmetic computes it: the
+    tile counts, the row pairs per tile and, per thread (index =
+    threadIdx.x), its channel group ``chg`` (channels 4 chg ..), column group
+    ``colg`` (tile columns 9 colg ..) and row pair ``rp`` (tile conv rows
+    2 rp, + 1)."""
+    groups = c_out // F32_CH
+    row_pairs = F32_THREADS // (groups * (F32_TW // F32_COLS))
+    pairs = h // 2 if pool else (h + 1) // 2
+    tid = torch.arange(F32_THREADS)
+    lane, warp = tid % 32, tid // 32
+    return {
+        "row_pairs": row_pairs,
+        "row_tiles": -(-pairs // row_pairs),
+        "col_tiles": -(-width // F32_TW),
+        "halo_rows": 2 * row_pairs + 2,
+        "chg": (warp % (groups // 8)) * 8 + lane % 8,
+        "colg": lane // 8,
+        "rp": warp // (groups // 8),
+    }
 
 
 def reference_conv_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = True):
@@ -76,6 +109,7 @@ def _conv_block_cuda(x, w, b, pool):
         x = x.clone()
     w = w.to(x.dtype).contiguous()
     b = b.float().contiguous()
+    w, b = (t.clone() if t.data_ptr() % 16 else t for t in (w, b))  # and weights and biases too
     h_out = h // 2 if pool else h
     out = torch.empty((batch, h_out, width, c_out), device=x.device, dtype=x.dtype)
     if out.numel() == 0:

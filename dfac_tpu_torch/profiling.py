@@ -11,6 +11,8 @@ take the most device time. The paths, at the corpus geometry (16 kHz,
 
 * ``slice``: waveform -> K1 bf16 -> delta/delta-delta -> three K2 blocks
   -> scores, CNN2D at full width with random weights, B=128;
+* ``predict f32``: on-device features -> three K2 blocks in f32 -> scores,
+  the chain ``predict --fast`` runs by default, same weights, B=128;
 * ``extract <method>``: batches of on-device waveforms through
   :func:`~dfac_tpu_torch.features.lfcc.batch_features`, B=64;
 * ``extract <method>, host round trip``: the CLI's driver
@@ -87,7 +89,8 @@ def profile_path(label: str, fn, n_batches: int, device: torch.device) -> dict:
 
 
 def main(argv=None) -> list[dict]:
-    p = argparse.ArgumentParser(description="Profile the port's serving slice, extraction and pool-probe paths.")
+    p = argparse.ArgumentParser(description="Profile the port's serving slice, f32 predict chain, extraction and "
+                                            "pool-probe paths.")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
     args = p.parse_args(argv)
     from dfac_tpu_torch.device import resolve_device
@@ -117,6 +120,16 @@ def main(argv=None) -> list[dict]:
                 cnn2d_fused_scores(folded, gemm_lfcc_features_tf(wv, cfg, torch.bfloat16))
 
     out = [profile_path(f"slice B={SLICE_BATCH}", run_slice, BATCHES, dev)]
+    del waves
+    feats = torch.randn(BATCHES, SLICE_BATCH, FRAMES, cfg.feature_dim, device=dev, generator=gen)
+
+    def run_f32():
+        with torch.inference_mode():
+            for f in feats:
+                cnn2d_fused_scores(folded, f, compute_dtype=torch.float32)
+
+    out.append(profile_path(f"predict f32 B={SLICE_BATCH}", run_f32, BATCHES, dev))
+    del feats
     ext = 0.1 * torch.randn(BATCHES, EXTRACT_BATCH, n_samples, device=dev, generator=gen)
     ext_host = ext.reshape(-1, n_samples).cpu().numpy()
     for method in METHODS:

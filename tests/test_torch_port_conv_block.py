@@ -22,6 +22,8 @@ CASES = [
     (32, 24, 8, 16, False),
     (40, 20, 1, 8, True),    # single input channel (block 1)
     (96, 24, 8, 16, True),   # several Pallas tiles
+    (6, 20, 32, 64, True),   # block 2's channel counts (the f32 kernel's 32 -> 64)
+    (5, 20, 64, 128, False), # block 3's (64 -> 128), odd H unpooled
 ]
 
 
@@ -113,3 +115,62 @@ def test_conv_block_rejects_other_devices():
     x, wk, b = _inputs(8, 8, 2, 4)
     with pytest.raises(ValueError):
         tcb.fused_conv_block(torch.from_numpy(x).to("meta"), torch.from_numpy(wk), torch.from_numpy(b))
+
+
+def _f32_block_through_tiles(x, wk, b, pool):
+    """Blocks 2 and 3 in f32 through the f32 kernel's tiling
+    (``f32_tile_geometry``): each tile's halo is cut from the zero-padded
+    input, each thread's 2 x 9 x 4 register tile reads its taps from that
+    halo, and its epilogue writes its outputs. Returns the output and how
+    many times each output value was written."""
+    batch, h, width, cin = x.shape
+    c_out = wk.shape[-1]
+    g = tcb.f32_tile_geometry(h, width, c_out, pool)
+    rp_n, halo_rows, tw = g["row_pairs"], g["halo_rows"], tcb.F32_TW
+    h_out = h // 2 if pool else h
+    # padded so that every halo window of every tile is a slice: conv row -1 and column -1 first
+    rows_pad = g["row_tiles"] * 2 * rp_n + 2
+    xp = torch.zeros(batch, rows_pad, g["col_tiles"] * tw + 2, cin)
+    xp[:, 1 : h + 1, 1 : width + 1] = x
+    out = torch.zeros(batch, h_out, width, c_out)
+    writes = torch.zeros(batch, h_out, width, c_out, dtype=torch.int64)
+    r_idx = 2 * g["rp"][:, None, None] + torch.arange(2)[None, :, None]  # (thread, r, 1): tile conv row
+    c_idx = tcb.F32_COLS * g["colg"][:, None] + torch.arange(tcb.F32_COLS)[None, :]  # (thread, c): tile column
+    ch = tcb.F32_CH * g["chg"][:, None] + torch.arange(tcb.F32_CH)[None, :]  # (thread, e)
+    for bi in range(batch):
+        for rt in range(g["row_tiles"]):
+            for ct in range(g["col_tiles"]):
+                halo = xp[bi, 2 * rp_n * rt : 2 * rp_n * rt + halo_rows, ct * tw : ct * tw + tw + 2]
+                acc = torch.zeros(tcb.F32_THREADS, 2, tcb.F32_COLS, tcb.F32_CH)
+                for dy in range(3):
+                    for dx in range(3):
+                        hr, hc = r_idx + dy, c_idx[:, None, :] + dx
+                        assert int(hr.max()) < halo_rows and int(hc.max()) < tw + 2 and int(hc.min()) >= 0
+                        taps = halo[hr.expand(-1, -1, tcb.F32_COLS), hc.expand(-1, 2, -1)]  # (thread, r, c, cin)
+                        acc += torch.einsum("trci,tie->trce", taps, wk[dy, dx][:, ch].permute(1, 0, 2))
+                y = torch.relu(acc + b[ch][:, None, None, :])
+                pair = rt * rp_n + g["rp"]
+                cols = ct * tw + c_idx
+                for t in range(tcb.F32_THREADS):
+                    for r in range(2):
+                        orow = int(pair[t]) if pool else 2 * int(pair[t]) + r
+                        if (pool and (r or orow >= h_out)) or (not pool and orow >= h):
+                            continue
+                        keep = cols[t] < width
+                        val = (y[t, 0] + y[t, 1]) * 0.5 if pool else y[t, r]
+                        out[bi, orow, cols[t][keep][:, None], ch[t][None, :]] = val[keep]
+                        writes[bi, orow, cols[t][keep][:, None], ch[t][None, :]] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("width", [1, 60, 61, 180])  # one column, ragged and whole 36-column tiles, serving W
+@pytest.mark.parametrize("h", [4, 5])
+@pytest.mark.parametrize("cin,cout,pool", [(32, 64, True), (64, 128, False)])
+def test_f32_tiles_write_each_output_once_and_read_inside_the_halo(width, h, cin, cout, pool):
+    x, wk, b = _inputs(h, width, cin, cout, seed=width + h)
+    xt, wt, bt = torch.from_numpy(x[:1]), torch.from_numpy(wk), torch.from_numpy(b)
+    got, writes = _f32_block_through_tiles(xt, wt, bt, pool)
+    assert (writes == 1).all()
+    plain = tcb.reference_conv_block(xt, wt, bt, pool)
+    # f32 throughout; the summation order differs
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)

@@ -6,7 +6,8 @@ serving shapes; these check the edges (odd H with and without the pool, W
 not a multiple of a warpgroup's 32-column tile or of a warp's 8 columns,
 tiny H and T, fewer tiles than SMs, enough tiles that each tile ring
 wraps, every kernel case of the conv block, block 1's 16-pixel tiles
-across rows and utterances, f32, misaligned inputs, a second call equal
+across rows and utterances, the f32 kernel's 36-column and row tiles
+ragged and whole, f32, misaligned inputs, a second call equal
 bit for bit; for the post-FFT kernel one row,
 rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
 and non-contiguous power; for the time pool odd T, f32, rows that are not
@@ -30,6 +31,7 @@ import torch
 
 from dfac_tpu_torch.features.lfcc import LFCCConfig
 from dfac_tpu_torch.ops import _build
+from dfac_tpu_torch.ops import conv_block as tcb
 from dfac_tpu_torch.ops import conv_probe
 from dfac_tpu_torch.ops.conv_block import fused_conv_block, reference_conv_block
 from dfac_tpu_torch.ops.gemm_frontend import cepstra_plain, gemm_lfcc_cepstra
@@ -97,8 +99,8 @@ CONV_CASES = [
     (6, 160, 180, 32, 64, True),   # > 3 tiles per warpgroup at 2 blocks per SM: its 3-stage ring wraps
     (4, 80, 180, 64, 128, False),  # > 2 tiles per warpgroup at 1 block per SM: its 2-stage ring wraps
     # block 1's tensor-core kernel (bf16, Cin = 1, Cout = 32, pooled; in f32
-    # these take the Cin = 1 kernel): each warp walks tiles of 16 pixels of
-    # the flat (b, ho, col) output
+    # conv_block_cin1_f32, units of two adjacent pixels of a row): each warp
+    # walks tiles of 16 pixels of the flat (b, ho, col) output
     *((2, h, w, 1, 32, True) for w in (1, 63, 64, 65, 180) for h in (2, 3)),  # W ragged or whole; 1 pooled row
     (3, 9, 7, 1, 32, True),        # tiles straddle rows (W = 7) and utterances (28 pixels each)
     (5, 4, 3, 1, 32, True),        # 6 pixels per utterance: a tile spans three; the last tile is partial
@@ -106,8 +108,28 @@ CONV_CASES = [
 ]
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout,pool", CONV_CASES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+# the f32 kernel of blocks 2 and 3 (conv_block_f32): a tile is 2 * RP conv
+# rows x 36 columns (RP = 4 row pairs at 32 -> 64, 2 at 64 -> 128); Cout is
+# not split across blocks. Block 1 in f32 (conv_block_cin1_f32) works on
+# units of two adjacent pixels of a row.
+F32_CASES = [
+    # ragged and whole column tiles; 5 pooled rows: a ragged row tile
+    *((2, 10, w, 32, 64, True) for w in (35, 36, 37, 72)),
+    # the same at block 3; odd H: 3 row pairs, the last row masked
+    *((2, 5, w, 64, 128, False) for w in (35, 36, 37, 72)),
+    (2, 2, 40, 32, 64, True), (2, 3, 40, 32, 64, True),      # one pooled row
+    (2, 1, 40, 64, 128, False),                              # one conv row
+    (1, 8, 36, 32, 64, True), (1, 4, 36, 64, 128, False),    # one tile: fewer tiles than SMs
+    (16, 160, 180, 32, 64, True),   # 1,600 tiles, ~12 per block: the halo stages and the weight ring wrap
+    (16, 80, 180, 64, 128, False),
+    (2, 5, 1, 1, 32, True), (2, 4, 2, 1, 32, True), (3, 6, 5, 1, 32, True),  # block 1: a unit's second pixel masked
+]
+
+
+@pytest.mark.parametrize(
+    "b,h,w,cin,cout,pool,dtype",
+    [(*c, dt) for dt in (torch.bfloat16, torch.float32) for c in CONV_CASES] + [(*c, torch.float32) for c in F32_CASES],
+)
 def test_conv_block_kernel_matches_plain(cuda, b, h, w, cin, cout, pool, dtype):
     gen = torch.Generator().manual_seed(h * w + cin)
     x = torch.randn(b, h, w, cin, generator=gen).to(cuda, dtype)
@@ -126,14 +148,18 @@ def test_conv_block_kernel_matches_plain(cuda, b, h, w, cin, cout, pool, dtype):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)  # f32 order only
 
 
-def test_conv_block_misaligned_input(cuda):
-    gen = torch.Generator().manual_seed(1)
-    flat = torch.randn(1 + 2 * 6 * 70 * 32, generator=gen).to(cuda, torch.bfloat16)
-    x = flat[1:].view(2, 6, 70, 32)  # data pointer 2 bytes past an aligned one
-    wk = torch.randn(3, 3, 32, 64, generator=gen).to(cuda) * 0.1
-    bias = torch.zeros(64, device=cuda)
-    got = fused_conv_block(x, wk, bias, True)
-    torch.testing.assert_close(got, fused_conv_block(x.clone(), wk, bias, True), atol=0, rtol=0)
+@pytest.mark.parametrize("cin,cout,pool,dtype", [(32, 64, True, torch.bfloat16), (32, 64, True, torch.float32),
+                                                  (64, 128, False, torch.float32), (1, 32, True, torch.float32)])
+def test_conv_block_misaligned_input(cuda, cin, cout, pool, dtype):
+    gen = torch.Generator().manual_seed(cin)
+    flat = torch.randn(1 + 2 * 6 * 70 * cin, generator=gen).to(cuda, dtype)
+    x = flat[1:].view(2, 6, 70, cin)  # data pointer one element past an aligned one
+    wk = torch.randn(3, 3, cin, cout, generator=gen).to(cuda) * 0.1
+    bias = (torch.randn(cout, generator=gen) * 0.1).to(cuda)
+    got = fused_conv_block(x, wk, bias, pool)
+    torch.testing.assert_close(got, fused_conv_block(x.clone(), wk, bias, pool), atol=0, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, reference_conv_block(x, wk, bias, pool), atol=1e-4, rtol=1e-4)
 
 
 def test_conv_block_cin1_misaligned_input(cuda):
@@ -145,6 +171,30 @@ def test_conv_block_cin1_misaligned_input(cuda):
     got = fused_conv_block(x, wk, bias, True)
     torch.testing.assert_close(got, fused_conv_block(x.clone(), wk, bias, True), atol=0, rtol=0)
     assert _close_bf16_last_bit(got, reference_conv_block(x, wk, bias, True))
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128)])
+def test_f32_shared_memory_matches_tile_geometry(cuda, cin, cout):
+    # the kernel's tiling constants against the host's copy of them: two
+    # halo stages of (halo rows, Cin, 36 + 2 columns) f32, two weight slabs
+    # of (3 dx, 32 ci, Cout) f32, four 8-byte mbarriers
+    g = tcb.f32_tile_geometry(2, tcb.F32_TW, cout, True)
+    want = 4 * (2 * g["halo_rows"] * cin * (tcb.F32_TW + 2) + 2 * 3 * 32 * cout) + 8 * 4
+    assert _build.library().dfac_conv_block_smem(cin, cout, 0) == want
+
+
+def test_conv_block_direct_splits_batches_past_2_31_outputs(cuda):
+    # 2 -> 8 channels take the direct kernel, whose indices are 32-bit: 2^16
+    # outputs per utterance, so 2^15 + 3 utterances need two launches
+    batch, h, width = 2**15 + 3, 64, 256
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(batch, h, width, 2, device=cuda, generator=gen).to(torch.bfloat16)
+    wk = torch.randn(3, 3, 2, 8, device=cuda, generator=gen) * 0.3
+    bias = torch.randn(8, device=cuda, generator=gen) * 0.1
+    got = fused_conv_block(x, wk, bias, True)
+    assert got.numel() > 2**31
+    for b in (0, 2**15 - 2, 2**15 - 1, batch - 1):  # each side of the split, and the last utterance
+        assert _close_bf16_last_bit(got[b : b + 1], reference_conv_block(x[b : b + 1], wk, bias, True))
 
 
 def test_conv_block_rejects_bad_shapes(cuda):
