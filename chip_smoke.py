@@ -11,8 +11,9 @@ line:
 
 1. device   torch / CUDA / nvcc versions, the card's name and power limit
 2. build    every kernel from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
-            ptxas' registers and spills and the dynamic shared memory of
-            each kernel
+            ptxas' registers and spills (the conv2/conv3 probe kernel's
+            always, others' where there are any) and the dynamic shared
+            memory of each kernel
 3. K1       the GEMM front-end kernel against its plain version, B=128
             waveforms of 51,520 samples, bf16 and f32; a second call of each
             mode equal to the first bit for bit
@@ -44,13 +45,15 @@ line:
             in f32 and on rows that are not 16-byte vectors
 11. conv-probe  the conv-probe checksum kernel, cases g, h, i, j, k, against
             their plain versions at stage 13's shapes at B=512, bf16, one
-            launch per call, a second call equal bit for bit
+            launch per call, a second call equal bit for bit; for j and k
+            (the conv2/conv3 kernel) also every output y
 12. conv-pass  stages 11, 12, 14 and 15's kernels (K7: v0-v4, K8: a, c, d,
             f, K10: h2, i2, j2, K11: j3, j4, j5, c2) against their plain
             versions at the stages' shapes at B=512, bf16: the checksums
             within 1e-5 of sum |y|, v4's emitted tensor within one bf16 last
             bit; one launch per call under the stage's counter, a second
-            call equal bit for bit
+            call equal bit for bit; for f, j2-j5 (the conv2/conv3 kernel)
+            also every output y within atol 1e-4 + rtol 1e-5
 13. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
             --stages 11,12,13,14,15`` and ``pool_kernel_probe`` as ``python
             -m`` at their defaults: exit 0, their result lines, logits of
@@ -66,12 +69,13 @@ line:
             host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            each K1 mode and each K2 block in bf16 and in f32 beside its own
-            bound, rFFT + K4 against K1, K5 against ``F.avg_pool2d``, and
-            controls: cuBLAS's DFT product alone in bf16 and f32 for K1,
-            cuDNN's conv alone for each K2 block in bf16 and in f32, a write
-            of block 1's output size in each (``zero_``), stage 11's cuDNN
-            conv1
+            each K1 mode, each K2 block in bf16 and in f32 and each probe
+            case beside its own bound, rFFT + K4 against K1, K5 against
+            ``F.avg_pool2d``, and controls: cuBLAS's DFT product alone in
+            bf16 and f32 for K1, cuDNN's conv alone for each K2 block in
+            bf16 and in f32, a write of block 1's output size in each
+            (``zero_``), stage 11's cuDNN conv1, cuDNN's bf16 VALID conv at
+            j's and j5's shapes (it writes y: it computes more)
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -138,6 +142,8 @@ METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package
 CHECKSUM_RTOL = 1e-5  # conv-probe checksums: bf16 x bf16 products are exact in
 # f32, so kernel and plain differ only by f32 summation order; bound relative
 # to the sample's sum |y|
+CONV2_Y_ATOL, CONV2_Y_RTOL = 1e-4, 1e-5  # every y of the conv2/conv3 cases: exact products, f32
+# sums of 288 or 576 terms in another order (the cuda tests' bound)
 # K7, K8, K10, K11 -> their train_opt_probe stage
 PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12", "conv_chunked": "14", "conv_trailing": "15"}
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
@@ -304,7 +310,7 @@ def main() -> int:
         "conv1_mma c2": lib.dfac_conv_chunk_smem(4, 182, 65536, 32),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
-    name = None
+    name, spills = None, "0"
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
@@ -312,13 +318,14 @@ def main() -> int:
                           r"conv_block_cin1_tc|conv_block_cin1_f32|conv_block_cin1|fb_log_dct_kernel|"
                           r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
-            name = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            phase("build", f"ptxas {name}: {m.group(1)} registers")
+            name, spills = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""), "0"
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name and m.group(1) != "0":
-            phase("build", f"ptxas {name}: {m.group(1)} bytes spill stores")
+        if m:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:  # spills shown where there are any, and always for the conv2/conv3 probe kernel
+            shown = f", {spills} bytes spill stores" if spills != "0" or name.startswith("conv2_checksum") else ""
+            phase("build", f"ptxas {name}: {m.group(1)} registers{shown}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = LFCCConfig()
@@ -595,6 +602,30 @@ def main() -> int:
                     f"elements): bit-identical")
 
     # -- 11. conv-probe checksums vs plain ----------------------------------
+    conv2_y = {  # the conv2/conv3 kernel's cases, each returning its sums and every output y
+        "j": lambda a, w: conv_probe.conv2_checksum(a, w, "slice", return_y=True),
+        "k": lambda a, w: conv_probe.conv2_checksum(a, w, "roll", return_y=True),
+        "f": lambda a, w: conv_probe.conv2_dx_checksum(a, w, return_y=True),
+        "j2": lambda a, w: conv_probe.conv2_checksum(a, w, "slice", return_y=True, key="conv_chunked"),
+        "j3": lambda a, w: conv_probe.conv2_checksum(a, w, "slice", return_y=True, key="conv_trailing"),
+        "j4": lambda a, w: conv_probe.conv2_dx_window_checksum(a, w, return_y=True),
+        "j5": lambda a, w: conv_probe.conv3_checksum(a, w, return_y=True),
+    }
+
+    def check_conv2_y(label, name, a, wt, sums, want_y):
+        """The conv2/conv3 kernel's every output against the plain version's,
+        and its sums with y equal to its sums alone, bit for bit."""
+        got_sums, got_y = conv2_y[name](a, wt)
+        torch.cuda.synchronize()
+        require(torch.equal(got_sums, sums), f"{name}: the sums with y differ from the sums alone")
+        require(got_y.shape == want_y.shape, (got_y.shape, want_y.shape))
+        d = (got_y - want_y).abs()
+        ok = bool((d <= CONV2_Y_ATOL + CONV2_Y_RTOL * want_y.abs()).all())
+        phase(label, f"{name} y {tuple(got_y.shape)}: max |kernel - plain| {d.max().item():.3e} (tolerance atol "
+                     f"{CONV2_Y_ATOL} + rtol {CONV2_Y_RTOL})")
+        if not ok:
+            raise AssertionError(f"case {name}: y disagrees with its plain version")
+
     probe_arrs = train_opt_probe.stage13_inputs(PROBE_BATCH, torch.bfloat16, dev, SEED)
     cp_err = 0.0
     for name, case in conv_probe.CASES.items():
@@ -607,6 +638,8 @@ def main() -> int:
         want = conv_probe.checksum(y)
         abs_sum = y.abs().sum(dim=(1, 2, 3), dtype=torch.float64)
         y_shape = tuple(y.shape)
+        if name in conv2_y:
+            check_conv2_y("conv-probe", name, a, wt, got, y)
         del y
         require(got.shape == want.shape == (PROBE_BATCH, 8, 128) and torch.isfinite(got).all(), got.shape)
         require(torch.equal(got, got[:, :1, :1].expand_as(got)), f"{name}: checksum block not uniform")
@@ -653,6 +686,8 @@ def main() -> int:
             phase("conv-pass", f"{name} x{tuple(a.shape)} -> y {tuple(want.shape)} -> {tuple(got.shape)}: max "
                                f"|kernel - plain| {err:.3e}, max over results of |kernel - plain| / sum|y| "
                                f"{(d / abs_sum).max().item():.3e} (tolerance {CHECKSUM_RTOL})")
+            if name in conv2_y:
+                check_conv2_y("conv-pass", name, a, wt, got, want)
         del want
         if not ok:
             raise AssertionError(f"{key} case {name} disagrees with its plain version")
@@ -840,28 +875,8 @@ def main() -> int:
         k5_ms, k5_plain, k5_lib = k5_ms + ms, k5_plain + plain_ms, k5_lib + lib_ms
         phase("timing", f"K5 time_pool bf16 {tuple(x.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel "
                         f"{ms2:.4f} ms, F.avg_pool2d (channels-last view) {lib_ms:.4f} ms, on {card}")
-    cp_ms = cp_plain = 0.0
-    for name, case in conv_probe.CASES.items():
-        a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
-        ms, plain_ms = in_turns(lambda: conv_probe.checksum(case.plain(a, wt)), lambda: case.kernel(a, wt))
-        cp_ms, cp_plain = cp_ms + ms, cp_plain + plain_ms
-        phase("timing", f"conv-probe {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
-    pass_ms, pass_plain = dict.fromkeys(PASS_KERNELS, 0.0), dict.fromkeys(PASS_KERNELS, 0.0)
-    for key, name, case, a, wt in pass_cases:
-        reduce = (lambda y: y) if name == conv_probe.EMIT_CASE else conv_probe.checksum
-        ms, plain_ms = in_turns(lambda: reduce(case.plain(a, wt)), lambda: case.kernel(a, wt))
-        pass_ms[key], pass_plain[key] = pass_ms[key] + ms, pass_plain[key] + plain_ms
-        phase("timing", f"{key} {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, on {card}")
-    x11, w11 = pass_arrs["11"]["x"], pass_arrs["11"]["w"]
-    train_opt_probe.conv1_control(x11, w11)
-    control_ms = statistics.mean(cuda_ms(lambda: train_opt_probe.conv1_control(x11, w11), 10) for _ in range(2))
-    phase("timing", f"stage 11 control, cuDNN conv1 fwd (one bf16 F.conv2d, SAME, NHWC out) B={PROBE_BATCH}: "
-                    f"{control_ms:.4f} ms, on {card}")
-
-    k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
-    k2_bound = bound_sum(k2_parts)
-    k2_f32_bound = bound_sum(k2_f32_parts)
-    k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
+    # each probe case's bound from this run's inputs (bytes: the part of the input its result depends on, read
+    # once, the weights and the result; operations at the bf16 rate whichever unit runs them)
     cp_parts = []
     for name, case in conv_probe.CASES.items():
         a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
@@ -884,9 +899,51 @@ def main() -> int:
             pass_parts[key].append(bound(a.numel() * 2 + out_bytes, f32=3 * a.numel()))
         else:  # counted at the bf16 rate whichever unit runs it
             pass_parts[key].append(bound((a.numel() + wt.numel()) * 2 + out_bytes, bf16=2 * macs))
-    for (key, name, *_), (ms, by) in zip(pass_cases, (p for parts in pass_parts.values() for p in parts)):
-        phase("timing", f"{key} {name} B={PROBE_BATCH}: bound {ms:.4f} ms ({by})")
     pass_bound = {key: bound_sum(parts) for key, parts in pass_parts.items()}
+    case_bound = dict(zip(conv_probe.CASES, cp_parts))
+    case_bound.update(zip((name for _, name, *_ in pass_cases), (p for parts in pass_parts.values() for p in parts)))
+
+    def case_line(label, name, ms, plain_ms):
+        bnd_ms, bnd_by = case_bound[name]
+        return (f"{label} {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, bound {bnd_ms:.4f} ms ({bnd_by}), "
+                f"{bnd_ms / ms:.1%} of the bound's rate; plain {plain_ms:.4f} ms, on {card}")
+
+    cp_ms = cp_plain = 0.0
+    for name, case in conv_probe.CASES.items():
+        a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
+        ms, plain_ms = in_turns(lambda: conv_probe.checksum(case.plain(a, wt)), lambda: case.kernel(a, wt))
+        cp_ms, cp_plain = cp_ms + ms, cp_plain + plain_ms
+        phase("timing", case_line("conv-probe", name, ms, plain_ms))
+    pass_ms, pass_plain = dict.fromkeys(PASS_KERNELS, 0.0), dict.fromkeys(PASS_KERNELS, 0.0)
+    for key, name, case, a, wt in pass_cases:
+        reduce = (lambda y: y) if name == conv_probe.EMIT_CASE else conv_probe.checksum
+        ms, plain_ms = in_turns(lambda: reduce(case.plain(a, wt)), lambda: case.kernel(a, wt))
+        pass_ms[key], pass_plain[key] = pass_ms[key] + ms, pass_plain[key] + plain_ms
+        phase("timing", case_line(key, name, ms, plain_ms))
+    x11, w11 = pass_arrs["11"]["x"], pass_arrs["11"]["w"]
+    train_opt_probe.conv1_control(x11, w11)
+    control_ms = statistics.mean(cuda_ms(lambda: train_opt_probe.conv1_control(x11, w11), 10) for _ in range(2))
+    phase("timing", f"stage 11 control, cuDNN conv1 fwd (one bf16 F.conv2d, SAME, NHWC out) B={PROBE_BATCH}: "
+                    f"{control_ms:.4f} ms, on {card}")
+    # cuDNN's VALID conv at j's and j5's shapes: a yardstick, not the same function (it writes y, the
+    # kernel only sums it), so no library_ms
+    for name, h, w, t_out, f_out in (("j", probe_arrs["h1"], probe_arrs["w2"], conv_probe.CONV2_ROWS,
+                                      conv_probe.CONV2_SLICE_COLS),
+                                     ("j5", pass_arrs["15"]["h2arr"], pass_arrs["15"]["w3"], conv_probe.CONV3_ROWS,
+                                      conv_probe.CONV3_COLS)):
+        hc = h[:, : t_out + 2, : f_out + 2].contiguous().permute(0, 3, 1, 2)  # NCHW view of NHWC: channels-last
+        wc = w.reshape(3, 3, *w.shape[1:]).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        F.conv2d(hc, wc)
+        control_ms = statistics.mean(cuda_ms(lambda: F.conv2d(hc, wc), 10) for _ in range(2))
+        phase("timing", f"{name} control, cuDNN conv alone (one bf16 F.conv2d, VALID, channels-last, TF32 off; "
+                        f"computes more: it writes y {(hc.shape[0], t_out, f_out, w.shape[-1])} in bf16, the kernel "
+                        f"only sums y) B={PROBE_BATCH}: {control_ms:.4f} ms, on {card}")
+        del hc
+
+    k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
+    k2_bound = bound_sum(k2_parts)
+    k2_f32_bound = bound_sum(k2_f32_parts)
+    k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,

@@ -165,16 +165,6 @@ struct TcCfg {
   static_assert((9 * CIN * COUT) % (8 * THREADS) == 0, "weights in batches of 8 per thread");
 };
 
-// Byte offset of 16-byte chunk c of weight row r. Rows of 128 bytes (Cin = 64)
-// take the 128-byte swizzle (chunk ^= r % 8), rows of 64 bytes (Cin = 32) the
-// 64-byte one (chunk ^= (r / 2) % 4), as the hardware swizzles address bits
-// 4-6 (4-5) by bits 7-9 (7-8) of a 1024-byte aligned region.
-template <int CIN>
-__device__ __forceinline__ uint32_t w_off(int r, int c) {
-  if constexpr (CIN == 64) return uint32_t(r * 128 + ((c ^ (r & 7)) << 4));
-  else return uint32_t(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
-}
-
 // wgmma B descriptor of the weights: rows of Cin bf16, swizzled as w_off lays them.
 template <int CIN>
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) { return b_desc_kmajor<CIN * 2>(addr); }
@@ -216,15 +206,6 @@ __device__ __forceinline__ void load_tile(uint32_t stage, const bf16* __restrict
     cp_async16(stage + uint32_t((pix * tile_stride<CIN>() + v * 8) * 2), src, in ? 16 : 0);
   }
 }
-
-// Named barriers: 1 and 2 for the 128 threads of warpgroup 0 and 1, 3 for
-// the block's one hand-over from warpgroup 0 to warpgroup 1.
-__device__ __forceinline__ void wg_barrier(int wg) {
-  if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
-  else asm volatile("bar.sync 2, 128;\n" ::: "memory");
-}
-__device__ __forceinline__ void stagger_wait() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
-__device__ __forceinline__ void stagger_release() { asm volatile("bar.arrive 3, 256;\n" ::: "memory"); }
 
 template <int CIN, int COUT, int MIN_BLOCKS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)

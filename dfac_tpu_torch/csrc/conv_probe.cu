@@ -31,19 +31,49 @@
 //    9 x N weights in shared memory as f32. A thread holds the 36 taps of
 //    4 pixels of one column in registers and forms their N outputs, 36
 //    multiply-adds per 9 broadcast weight loads.
-//  * j, k (K = 9 x 32, N = 64): implicit GEMM on the tensor cores with
-//    mma.sync m16n8k16 (mma_bf16.cuh), the tiling of conv_block.cu: a tile
-//    is 2 output rows x 64 columns, its 4 x 66 input pixels sit in shared
-//    memory (for k the 66 columns are taken mod F2p, so the wrap costs
-//    nothing inside the loop), and the weights stay in shared memory while
-//    a block walks over its sample's tiles. Each warp sums its accumulators
-//    where the epilogue of conv_block.cu would store them.
-//  * One launch, deterministic sums: each block reduces its threads in a
-//    fixed order into its slot of out[b] (a sample has at most 1024
-//    blocks) and counts itself done in done[b]; the last block of sample b
-//    to finish adds the slots in a fixed order (one warp, then a shuffle
-//    tree) and fills out[b] with the total. No float atomics, so a call
-//    repeats bit for bit.
+//  * j, k (K = 9 x 32, N = 64), and f, j2-j5 below: conv2_checksum, an
+//    implicit GEMM on wgmma (hopper.cuh), the design of conv_block.cu's
+//    conv_block_tc: M = 64 output pixels (2 conv rows x 32 columns), N =
+//    CO, K = 9 taps x CI, bf16 operands, f32 accumulators (products exact,
+//    no TF32).
+//    - Persistent blocks (at most SMs x blocks per SM, never more than one
+//      per two tiles) load the weights once each, by 16-byte loads of 8 x 8
+//      (ci, co) blocks transposed in registers, into the swizzled K-major
+//      (tap, co) rows that wgmma's B descriptor reads (64-byte swizzle at CI
+//      = 32, 128-byte at CI = 64); f's and j4's w2dx layout is read in that
+//      same fill, no re-layout op.
+//    - Each of a block's two warpgroups walks its share of the (sample,
+//      tile) pairs, a contiguous range, down each 32-column strip (a tile
+//      shares two halo rows with the one before it, still in L2), through a
+//      cp.async ring of its own 4 x 34 halo tiles (16-byte copies, zero
+//      fill past the input; for k each copy's source column is taken mod
+//      F2p, so the wrap costs nothing inside the loop). A comes by
+//      ldmatrix.x4 (a tap shift starts its window at any pixel, off the
+//      8-row pattern an A descriptor's swizzle needs), one wgmma m64nCOk16
+//      per k16 step, A double-buffered across taps; the next tile's copies
+//      are issued once the first tap's wgmmas fly.
+//    - What bounds it: the tensor cores' work and the copies, A loads,
+//      barriers and sums share the warpgroups' issue slots (taking either
+//      out leaves most of the time: PERF.md §6).
+//    - Shared with conv_block_tc through hopper.cuh: the swizzled weight
+//      rows (w_off) and the named barriers. Its own: the block shape
+//      (Conv2Cfg: no bias, more stages) and the halo copies (HaloCopies:
+//      k's wrapped source column, indices stepped per lane).
+//    - No store epilogue: each thread sums its valid accumulators (row <
+//      rows, col < cols) where conv_block_tc would store them.
+//  * One launch, deterministic sums. g, h, i: each block reduces its
+//    threads in a fixed order into its slot of out[b] (a sample has at
+//    most 1024 blocks) and counts itself done in done[b]; the last block
+//    of sample b to finish adds the slots in a fixed order (one warp, then
+//    a shuffle tree) and fills out[b] with the total. conv2_checksum does
+//    the same per tile: a tile's sum (threads, a shuffle tree, then its
+//    four warps in order) goes to slot out[b][tile of b] (a sample has at
+//    most 1024 tiles; the entries refuse more), done[b] counts tiles (one
+//    fence and count per warpgroup's run of a sample's tiles: a fence per
+//    tile stalls the warpgroup at every tile), and the warp that counts a
+//    sample's last tiles adds its slots in order. No float atomics: a call
+//    repeats bit for bit, and a sample's sum does not depend on its batch
+//    or on the grid.
 //  * Optionally (tests) every y is written to a (B, rows, cols, N) f32
 //    buffer as it is formed.
 //
@@ -131,11 +161,9 @@
 //    r0 + 7 of each of the 9 planes (9 x 8 x 256 bf16), a thread's 9 vector
 //    loads in flight together; the inner loop is i's.
 //  * j4: f's kernel (dx layout) with rows and columns given, not T - 2, F - 2.
-//  * j5: j's kernel templated on (CI, CO) = (64, 128). Its weights (9 x 128
-//    x 72 bf16, 165,888 B) and tile (38,016 B) fit one block per SM; each
-//    warp takes 16 columns x 64 channels. Splitting CO into two halves across
-//    blocks was the alternative: each input tile would be staged twice, and
-//    at 120,960 B per block it still fits only one block per SM.
+//  * j5: conv2_checksum at (CI, CO) = (64, 128), wgmma m64n128k16: its
+//    weights (147,456 B) and each warpgroup's two halo stages (19,584 B
+//    each) fit one block per SM, as conv_block_tc's block 3.
 //  * c2: conv1_mma's flat mode in chunks: a block of 2,048 outputs lies in
 //    one chunk, and its taps' offsets min(o_k, L - Mc - c Mc) are fixed for
 //    the block, so the staged window starts at tap 0's and the clamp costs
@@ -148,13 +176,14 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
+using namespace dfac;
+
 using bf16 = __nv_bfloat16;
-using dfac::ld32;
-using dfac::mma_bf16;
 
 constexpr int THREADS = 256;
 constexpr int OUT_PER_SAMPLE = 8 * 128;  // the checksum's (8, 128) block
@@ -354,140 +383,301 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
   finish_sample(block_sum(acc), out, done);
 }
 
-// ---- j, k: tensor cores ---------------------------------------------------
+// ---- j, k, f, j2-j5: conv2 / conv3 on wgmma ---------------------------------
 
-constexpr int CI2 = 32, CO2 = 64;  // conv2
+constexpr int CI2 = 32, CO2 = 64;   // conv2
 constexpr int CI3 = 64, CO3 = 128;  // conv3 (stage 15's j5)
-constexpr int TW = 64;          // output columns per tile
-constexpr int IN_ROWS = 4;      // 2 output rows + 2
+constexpr int WG_THREADS = 128;     // a warpgroup; a block holds two, each walking tiles of its own
+constexpr int TW = 32;              // output columns per tile: 2 conv rows x 32 = wgmma's M = 64
+constexpr int IN_ROWS = 4;          // 2 conv rows + 2
 constexpr int IN_COLS = TW + 2;
-constexpr int MAX_BLOCKS2 = 8;  // blocks per sample: each loads the weights once
+constexpr int XPAD = 8;             // bf16 after each halo pixel: conflict-free ldmatrix rows
 
 template <int CI, int CO>
-struct Conv2Tile {
-  static constexpr int XS = CI + 8;     // smem pixel stride (bf16): conflict-free fragment loads
-  static constexpr int WS = CI + 8;     // smem weight row stride, rows = (tap, co)
-  static constexpr int WN = CO / 2;     // output channels per warp
-  static constexpr int NFRAG = WN / 8;
-  static constexpr size_t W_BYTES = size_t(9) * CO * WS * 2;
-  static constexpr size_t SMEM = W_BYTES + size_t(IN_ROWS) * IN_COLS * XS * 2;
-  static_assert(SMEM <= 232448, "227 KB of shared memory per block");
+struct Conv2Cfg {
+  // halo tiles in each warpgroup's cp.async ring, and blocks per SM: three
+  // and two at conv2, two and one at conv3, as many as fit
+  static constexpr int STAGES = CO == CO3 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = CO == CO3 ? 1 : 2;
+  static constexpr int XS = CI + XPAD;     // halo pixel stride (bf16)
+  static constexpr int ROW_B = CI * 2;     // weight row (tap, co): CI bf16, 64 or 128 bytes
+  static constexpr int KSTEPS = CI / 16;   // wgmma k16 steps per tap
+  static constexpr int NACC = CO / 2;      // f32 accumulators per thread: 64 x CO per warpgroup
+  static constexpr size_t W_BYTES = size_t(9) * CO * ROW_B;
+  static constexpr size_t X_BYTES = size_t(IN_ROWS) * IN_COLS * XS * 2;  // one stage
+  static constexpr size_t ALIGN = 1024;  // the 128-byte swizzle repeats every 1024 bytes
+  static constexpr size_t SMEM = ALIGN + W_BYTES + 2 * STAGES * X_BYTES;
+  static_assert((CI == CI2 && CO == CO2) || (CI == CI3 && CO == CO3), "conv2 (32 -> 64) or conv3 (64 -> 128)");
+  static_assert(X_BYTES % 16 == 0, "16-byte aligned stages");
+  static_assert(SMEM * MIN_BLOCKS <= 232448, "227 KB of shared memory per SM");
 };
-constexpr size_t SMEM2 = Conv2Tile<CI2, CO2>::SMEM;  // 67,200 B: three blocks per SM
-constexpr size_t SMEM3 = Conv2Tile<CI3, CO3>::SMEM;  // 203,904 B: one block per SM
 
-// h (B, t_in, f_in, CI), w (9, CI, CO), or with DX_LAYOUT stage 12's w2dx
-// (3, 3 CI, CO), w[3 dy + dx][ci][co] = w2dx[dx][CI dy + ci][co]; y over
-// t < rows, f < cols.
-template <bool WRAP, bool DX_LAYOUT = false, int CI = CI2, int CO = CO2>
-__global__ void __launch_bounds__(THREADS)
+// Result slots of a sample: one per tile (a sample has at most OUT_PER_SAMPLE).
+int conv2_tiles(int rows, int cols) { return ((rows + 1) / 2) * ((cols + TW - 1) / TW); }
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int m) {
+  return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
+}
+
+// The weights, once per block, into K-major rows (tap, co) of CI bf16: w (9,
+// CI, CO), or with DX_LAYOUT w2dx (3, 3 CI, CO), w[3 dy + dx][ci][co] =
+// w2dx[dx][CI dy + ci][co]. A thread takes an 8 x 8 block (8 input channels
+// of 8 output channels of one tap) by eight 16-byte loads, transposes it in
+// registers and stores 8 chunks of 16 bytes.
+template <bool DX_LAYOUT, int CI, int CO>
+__device__ void fill_weights(unsigned char* sW, const bf16* __restrict__ w) {
+  constexpr int CB = CI / 8, OB = CO / 8;
+  for (int blk = threadIdx.x; blk < 9 * CB * OB; blk += THREADS) {
+    const int ob = blk % OB, cb = (blk / OB) % CB, t = blk / (OB * CB);
+    const int src_row = (DX_LAYOUT ? (t % 3) * 3 + t / 3 : t) * CI + cb * 8;  // input channel cb * 8 of tap t
+    uint4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __ldg(reinterpret_cast<const uint4*>(w + size_t(src_row + i) * CO + ob * 8));
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {  // output channel ob * 8 + c: the low (even c) or high half of word c / 2
+      const uint32_t sel = c & 1 ? 0x7632u : 0x5410u;
+      const uint4 o = make_uint4(__byte_perm(word(v[0], c / 2), word(v[1], c / 2), sel),
+                                 __byte_perm(word(v[2], c / 2), word(v[3], c / 2), sel),
+                                 __byte_perm(word(v[4], c / 2), word(v[5], c / 2), sel),
+                                 __byte_perm(word(v[6], c / 2), word(v[7], c / 2), sel));
+      *reinterpret_cast<uint4*>(sW + w_off<CI>(t * CO + ob * 8 + c, cb)) = o;
+    }
+  }
+}
+
+// The copies of a halo tile, IN_ROWS x IN_COLS pixels of CI channels, by a
+// warpgroup: copy i = wt + 128 k of lane wt is 16-byte chunk i % VEC of
+// pixel i / VEC. 128 is a multiple of VEC, so a lane's chunk is the same for
+// every k and its pixel advances by 128 / VEC: the indices are added, not
+// divided (the copies share the warps' issue slots with the tensor loop).
+template <bool WRAP, int CI>
+struct HaloCopies {
+  static constexpr int VEC = CI / 8, XS = CI + XPAD, N = IN_ROWS * IN_COLS * VEC;
+  static constexpr int PER = (N + WG_THREADS - 1) / WG_THREADS, PIX_STEP = WG_THREADS / VEC;
+  static_assert(PIX_STEP < IN_COLS, "a lane's pixel moves on by less than a halo row");
+  int wt, ic0, ir0, chunk;  // the lane, its first pixel's halo column and row, its chunk
+
+  __device__ explicit HaloCopies(int lane) : wt(lane), ic0((lane / VEC) % IN_COLS), ir0(lane / VEC / IN_COLS),
+                                             chunk(lane % VEC) {}
+
+  // Input rows y0 .. y0 + 3 and columns x0 .. x0 + 33 of sample hs (t_in x
+  // f_in pixels; WRAP: each column taken mod f_in) into `stage`; pixels
+  // outside the input are zero-filled.
+  __device__ __forceinline__ void issue(uint32_t stage, const bf16* __restrict__ hs, int y0, int x0, int t_in,
+                                        int f_in) const {
+    int ic = ic0, ir = ir0;
+    const uint32_t dst = stage + uint32_t(((ir0 * IN_COLS + ic0) * XS + chunk * 8) * 2);
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (k < PER - 1 || wt + k * WG_THREADS < N) {
+        int xc = x0 + ic;
+        if (WRAP && (xc < 0 || xc >= f_in)) {  // the roll taps, at the edge strips only: no division
+          while (xc < 0) xc += f_in;
+          while (xc >= f_in) xc -= f_in;
+        }
+        const int yy = y0 + ir;
+        const bool in = yy < t_in && xc < f_in;
+        const bf16* src = in ? hs + size_t(yy * f_in + xc) * CI + chunk * 8 : hs;
+        cp_async16(dst + uint32_t(k * PIX_STEP * XS * 2), src, in ? 16 : 0);
+      }
+      ic += PIX_STEP;
+      if (ic >= IN_COLS) ic -= IN_COLS, ++ir;
+    }
+  }
+};
+
+// Warp 0 of a warpgroup, every lane: store tile `tile`'s sum (its four
+// warps' sums, added in order) in the tile's slot of out[b]. At the end of
+// the warpgroup's run of tiles of sample b (`flush`), count the run's
+// `run` tiles done in done[b], once: the fence stalls the whole warpgroup,
+// too long to pay per tile. The warp that counts a sample's last tiles adds
+// the sample's slots in a fixed order (lane l takes slots l, l + 32, ...,
+// then a shuffle tree) and fills out[b] with the total. No float atomics:
+// the result does not depend on the grid, the batch or the order of the
+// tiles.
+__device__ void publish(const float* warp_sums, float* out, unsigned int* done, int tile, int tiles_per, int lane,
+                        int& run, bool flush) {
+  const int b = tile / tiles_per;
+  float* ob = out + size_t(b) * OUT_PER_SAMPLE;
+  if (lane == 0) ob[tile - b * tiles_per] = ((warp_sums[0] + warp_sums[1]) + warp_sums[2]) + warp_sums[3];
+  ++run;
+  if (!flush) return;
+  unsigned int last = 0;
+  if (lane == 0) {
+    __threadfence();  // the run's slots are visible before the count says so
+    last = atomicAdd(done + b, unsigned(run)) + unsigned(run) == unsigned(tiles_per);
+  }
+  run = 0;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  float sum = 0.f;
+  for (int i = lane; i < tiles_per; i += 32) sum += __ldcg(ob + i);  // from L2, past L1
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  const float4 v = make_float4(sum, sum, sum, sum);
+  for (int i = lane; i < OUT_PER_SAMPLE / 4; i += 32) reinterpret_cast<float4*>(ob)[i] = v;
+}
+
+// h (B, t_in, f_in, CI), w (9, CI, CO) or with DX_LAYOUT w2dx (3, 3 CI, CO);
+// y over t < rows, f < cols; n_tiles = B x conv2_tiles(rows, cols), in the
+// order (sample, 32-column group, row pair): a tile shares two of its four
+// halo rows with the one before it.
+template <bool WRAP, bool DX_LAYOUT, int CI, int CO>
+__global__ void __launch_bounds__(THREADS, Conv2Cfg<CI, CO>::MIN_BLOCKS)
 conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __restrict__ out,
-               float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int rows, int cols) {
-  using G = Conv2Tile<CI, CO>;
-  constexpr int XS = G::XS, WS = G::WS, WN = G::WN, NFRAG = G::NFRAG;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);               // [tap][co][ci + 8]
-  bf16* sX = reinterpret_cast<bf16*>(smem + G::W_BYTES);  // [row][col][ci + 8]
-  const int b = blockIdx.y;
+               float* __restrict__ y, unsigned int* __restrict__ done, int n_tiles, int t_in, int f_in, int rows,
+               int cols) {
+  using C = Conv2Cfg<CI, CO>;
+  constexpr int S = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float s_sums[2][2][4];  // [warpgroup][tile parity][warp]: a tile's warp sums
+  unsigned char* smem = smem_raw + ((C::ALIGN - (smem_u32(smem_raw) & (C::ALIGN - 1))) & (C::ALIGN - 1));
+  const uint32_t sW = smem_u32(smem);  // [tap * CO + co][ci], swizzled
 
-  for (int i = threadIdx.x; i < 9 * CI * CO; i += THREADS) {
-    const int co = i % CO, ci = (i / CO) % CI, t = i / (CO * CI);
-    const int src = DX_LAYOUT ? ((t % 3) * 3 * CI + (t / 3) * CI + ci) * CO + co : i;
-    sW[(t * CO + co) * WS + ci] = w[src];
+  // Warpgroup g = 2 * block + wg walks its share of the tiles, [begin, end),
+  // in order, through a ring of its own (S x [row][col][ci + XPAD]).
+  const int wg = threadIdx.x / WG_THREADS, wt = threadIdx.x % WG_THREADS;
+  const uint32_t ring = sW + uint32_t(C::W_BYTES) + wg * S * uint32_t(C::X_BYTES);
+  const int row_tiles = (rows + 1) / 2, tiles_per = row_tiles * ((cols + TW - 1) / TW);
+  const long long n_wg = 2LL * gridDim.x, g = 2LL * blockIdx.x + wg;
+  const int begin = int(n_tiles * g / n_wg), end = int(n_tiles * (g + 1) / n_wg);
+  const HaloCopies<WRAP, CI> copies(wt);
+  auto halo = [&](uint32_t stage, int tile) {  // tile's input rows 2p .. 2p + 3, columns cb TW (- 1: WRAP) ..
+    const int b = tile / tiles_per, rem = tile - b * tiles_per;
+    copies.issue(stage, h + size_t(b) * t_in * f_in * CI, 2 * (rem % row_tiles), (rem / row_tiles) * TW - WRAP,
+                 t_in, f_in);
+  };
+  // the first S - 1 tiles' copies fly while the weights are stored; one group per tile
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) {
+    if (begin + k < end) halo(ring + k * uint32_t(C::X_BYTES), begin + k);
+    cp_async_commit();
   }
+  fill_weights<DX_LAYOUT, CI, CO>(smem, w);
+  fence_proxy_async();  // the weights' ordinary stores, before wgmma (the async proxy) reads them
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;  // warp of the warpgroup
   const int gid = lane >> 2, tq = lane & 3;
-  const int cg = warp & 3;   // 16-column group of the tile
-  const int nw = warp >> 2;  // half of the output channels
-  const int row_tiles = (rows + 1) / 2, col_tiles = (cols + TW - 1) / TW;
-  const int n_tiles = row_tiles * col_tiles;
-  const bf16* hs = h + size_t(b) * t_in * f_in * CI;
-  float acc_sum = 0.f;
+  const int px0 = warp * 8;  // this warp's 8 columns of the tile
+  // A: warp M row i is conv row i / 8 at column px0 + i % 8. ldmatrix.x4 lane l
+  // addresses row l % 8 of matrix l / 8: (rows 0-7, k 0-7), (rows 8-15, k 0-7),
+  // (rows 0-7, k 8-15), (rows 8-15, k 8-15), the m16k16 fragment's order.
+  const int lq = lane >> 3, lr = lane & 7;
+  const uint32_t a_lane = uint32_t((((lq & 1) * IN_COLS + px0 + lr) * C::XS + 8 * (lq >> 1)) * 2);
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int cb = tile % col_tiles, p = tile / col_tiles;
-    const int y0 = 2 * p, x0 = cb * TW - (WRAP ? 1 : 0);
-
-    __syncthreads();  // weights are in / the previous tile's readers are done
-    constexpr int VEC = CI / 8;
-    for (int i = threadIdx.x; i < IN_ROWS * IN_COLS * VEC; i += THREADS) {
-      const int v = i % VEC, pix = i / VEC;
-      const int ic = pix % IN_COLS, ir = pix / IN_COLS;
-      const int yy = y0 + ir;
-      int xc = x0 + ic;
-      if (WRAP) xc = (xc % f_in + f_in) % f_in;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (yy < t_in && xc < f_in)
-        val = *reinterpret_cast<const uint4*>(hs + (size_t(yy) * f_in + xc) * CI + v * 8);
-      *reinterpret_cast<uint4*>(sX + pix * XS + v * 8) = val;
-    }
-    __syncthreads();
-
-    float acc[2][NFRAG][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < NFRAG; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
-
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int dy = t / 3, dx = t % 3;
-#pragma unroll
-      for (int k0 = 0; k0 < CI; k0 += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const bf16* p0 = sX + ((r + dy) * IN_COLS + cg * 16 + gid + dx) * XS + k0 + 2 * tq;
-          const bf16* p8 = p0 + 8 * XS;
-          a[r][0] = ld32(p0);
-          a[r][1] = ld32(p8);
-          a[r][2] = ld32(p0 + 8);
-          a[r][3] = ld32(p8 + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < NFRAG; ++j) {
-          const bf16* pw = sW + (t * CO + nw * WN + 8 * j + gid) * WS + k0 + 2 * tq;
-          const uint32_t b0 = ld32(pw), b1 = ld32(pw + 8);
-          mma_bf16(acc[0][j], a[0], b0, b1);
-          mma_bf16(acc[1][j], a[1], b0, b1);
-        }
-      }
-    }
-
-    // accumulator (r, j, 2 hh + e) holds y[2p + r, col, n + e]
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = y0 + r;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < NFRAG; ++j) {
-        const int n = nw * WN + 8 * j + 2 * tq;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int col = cb * TW + cg * 16 + gid + 8 * hh;
-          if (col >= cols) continue;
-          s += acc[r][j][2 * hh] + acc[r][j][2 * hh + 1];
-          if (y) {
-            float* yp = y + ((size_t(b) * rows + row) * cols + col) * CO + n;
-            yp[0] = acc[r][j][2 * hh];
-            yp[1] = acc[r][j][2 * hh + 1];
-          }
-        }
-      }
-    }
-    acc_sum += s;
+  // Warpgroup 1 starts once warpgroup 0 is half way through its first tile,
+  // so that one's epilogue, copies and barrier fall in the other's wgmmas.
+  bool lead = wg == 0;  // warpgroup 0 has yet to release warpgroup 1
+  if (wg == 1) stagger_wait();
+  if (lead && begin >= end) {
+    stagger_release();
+    lead = false;
   }
-  finish_sample(block_sum(acc_sum), out, done);
+  int s = 0, par = 0;  // this tile's stage and parity
+  int run = 0;         // warp 0: slots stored since the last count
+  for (int tile = begin; tile < end; ++tile, s = s + 1 == S ? 0 : s + 1, par ^= 1) {
+    cp_async_wait<S - 2>();
+    wg_barrier(wg);  // this tile's stage is in; the warpgroup is done with the stage it read last
+    const uint32_t sX = ring + s * uint32_t(C::X_BYTES);
+
+    float acc[C::NACC];
+#pragma unroll
+    for (int i = 0; i < C::NACC; ++i) acc[i] = 0.f;
+    uint32_t a[2][C::KSTEPS][4];  // A registers of two taps: one in flight, one loading
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const uint32_t a_tap = sX + a_lane + uint32_t(((t / 3) * IN_COLS + t % 3) * C::XS * 2);
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk) ldsm_x4(a_tap + kk * 32, a[t & 1][kk]);
+      fence_regs(acc);
+      wgmma_fence();  // the A registers just written, before wgmma reads them
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const uint64_t desc = b_desc_kmajor<C::ROW_B>(sW + uint32_t((t * CO) * C::ROW_B + kk * 32));
+        if constexpr (CO == 64) wgmma_n64(acc, a[t & 1][kk], desc);
+        else wgmma_n128(acc, a[t & 1][kk], desc);
+      }
+      wgmma_commit();
+      if (t == 0) {  // while the tensor cores work: the ring's next copies, the last tile's sum
+        if (tile + S - 1 < end) halo(ring + (s == 0 ? S - 1 : s - 1) * uint32_t(C::X_BYTES), tile + S - 1);
+        cp_async_commit();
+        if (warp == 0 && tile > begin)  // the run of a sample ends where the next tile is another's
+          publish(s_sums[wg][par ^ 1], out, done, tile - 1, tiles_per, lane, run, tile % tiles_per == 0);
+      }
+      if (t == 4 && lead) {
+        stagger_release();
+        lead = false;
+      }
+      wgmma_wait<1>();  // the tap before is done: its A registers are free
+      if (t > 0) fence_regs(a[(t + 1) & 1]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // acc[4j], acc[4j + 1]: conv row 2p at column col, channels 8j + 2tq, + 1;
+    // acc[4j + 2], acc[4j + 3]: conv row 2p + 1. The tile's valid outputs,
+    // summed in a fixed order: thread, shuffle tree, then warps 0-3 in publish.
+    const int b = tile / tiles_per, rem = tile - b * tiles_per;
+    const int cb = rem / row_tiles, p = rem - cb * row_tiles;
+    const int row = 2 * p, col = cb * TW + px0 + gid;
+    const bool ok0 = col < cols, ok1 = ok0 && row + 1 < rows;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CO / 8; ++j) {
+      if (ok0) sum += acc[4 * j] + acc[4 * j + 1];
+      if (ok1) sum += acc[4 * j + 2] + acc[4 * j + 3];
+    }
+    if (y) {
+      float* y0 = y + ((size_t(b) * rows + row) * cols + col) * CO + 2 * tq;
+      float* y1 = y0 + size_t(cols) * CO;  // conv row 2p + 1
+#pragma unroll
+      for (int j = 0; j < CO / 8; ++j) {
+        if (ok0) *reinterpret_cast<float2*>(y0 + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        if (ok1) *reinterpret_cast<float2*>(y1 + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) s_sums[wg][par][warp] = sum;
+  }
+  wg_barrier(wg);  // the last tile's warp sums are in
+  if (warp == 0 && begin < end) publish(s_sums[wg][par ^ 1], out, done, end - 1, tiles_per, lane, run, true);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// One persistent launch: as many blocks as fit at once, at most one per
+// two tiles (a block's two warpgroups walk tiles of their own).
+template <bool WRAP, bool DX_LAYOUT, int CI, int CO>
+cudaError_t launch_conv2(const bf16* h, const bf16* w, float* out, float* y, unsigned int* done, int batch,
+                         int t_in, int f_in, int rows, int cols, cudaStream_t s) {
+  using C = Conv2Cfg<CI, CO>;
+  auto kern = conv2_checksum<WRAP, DX_LAYOUT, CI, CO>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, C::SMEM);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // < 2^31: batch <= 65535 and a sample's tiles <= OUT_PER_SAMPLE, checked by the entries
+  const long long tiles = (long long)batch * conv2_tiles(rows, cols);
+  const long long pairs = (tiles + 1) / 2, cap = (long long)per_sm * sm_count();
+  kern<<<int(pairs < cap ? pairs : cap), THREADS, C::SMEM, s>>>(h, w, out, y, done, int(tiles), t_in, f_in, rows,
+                                                                cols);
+  return cudaSuccess;
 }
 
 int blocks_per_sample(int kase, int rows, int cols) {
-  if (kase <= I_PATCHES) return (rows + R1 - 1) / R1;
-  const int tiles = ((rows + 1) / 2) * ((cols + TW - 1) / TW);
-  return tiles < MAX_BLOCKS2 ? tiles : MAX_BLOCKS2;
+  return kase <= I_PATCHES ? (rows + R1 - 1) / R1 : conv2_tiles(rows, cols);
 }
 
 template <typename K>
@@ -749,7 +939,7 @@ int pass_blocks(int kase, int t_in, int f_in, int group) {
     case V0_SUMS: return (t_in * f_in + V0_CHUNK - 1) / V0_CHUNK;
     case V1_SAME_FMA: return (t_in + R1 - 1) / R1;
     case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(H_SLICE, t_in - 2, f_in - 2) : 0;
-    case F_CONV2_DX: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(J_SLICE, t_in - 2, f_in - 2) : 0;
+    case F_CONV2_DX: return t_in >= 3 && f_in >= 3 ? conv2_tiles(t_in - 2, f_in - 2) : 0;
     case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_blocks(M_SAME, t_in, group, 0, 0, 0);
     case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? conv1_mma_blocks(M_VALID, t_in, 1, t_in - 2, f_in - 2, 1) : 0;
     case C_FLAT_MMA: return t_in > 2 * f_in ? conv1_mma_blocks(M_FLAT, t_in, 1, 1, t_in - 2 * f_in, 1) : 0;
@@ -761,7 +951,7 @@ size_t pass_smem(int kase, int f_in, int n_out) {
   switch (kase) {
     case V1_SAME_FMA: return conv1_smem(SAME_PAD, f_in, f_in, n_out);
     case D_VALID_FMA: return conv1_smem(H_SLICE, f_in, f_in - 2, n_out);
-    case F_CONV2_DX: return SMEM2;
+    case F_CONV2_DX: return Conv2Cfg<CI2, CO2>::SMEM;
     case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_smem(M_SAME, f_in);
     case A_VALID_MMA: return conv1_mma_smem(M_VALID, f_in);
     case C_FLAT_MMA: return conv1_mma_smem(M_FLAT, f_in);
@@ -783,23 +973,25 @@ cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t s, Args... args)
 // (B, rows, cols, 9) for i (t_in = rows, f_in = cols), h (B, t_in, f_in, 32)
 // for j/k; w: (9, n_out) for g/h/i, (9, 32, 64) for j/k (n_out = 64); out
 // (B, 8, 128) f32; y: null, or (B, rows, cols, n_out) f32 for every output;
-// done: B zeroed counters (scratch). 16-byte aligned `in` and `out`. One
-// kernel launch on `stream`, no synchronisation; returns cudaGetLastError().
+// done: B zeroed counters (scratch). 16-byte aligned `in`, `w` and `out`.
+// One kernel launch on `stream`, no synchronisation; returns
+// cudaGetLastError().
 extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* out, float* y, void* done_,
                                int batch, int t_in, int f_in, int rows, int cols, int n_out, void* stream) {
   if (kase < 0 || kase > K_ROLL || batch <= 0 || batch > 65535 || rows <= 0 || cols <= 0 || n_out <= 0 ||
       n_out > 1024 || blocks_per_sample(kase, rows, cols) > OUT_PER_SAMPLE ||
       (kase != I_PATCHES && rows + 2 > t_in) || ((kase == H_SLICE || kase == J_SLICE) && cols + 2 > f_in) ||
-      ((kase == G_ROLL || kase == K_ROLL) && cols != f_in) || (kase >= J_SLICE && n_out != CO2) ||
+      ((kase == G_ROLL || kase == K_ROLL) && cols != f_in) ||
+      (kase >= J_SLICE && (n_out != CO2 || size_t(t_in) * f_in > (size_t(1) << 30))) ||
       (kase == I_PATCHES && (rows != t_in || cols != f_in)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* x = static_cast<const bf16*>(in);
   const bf16* wk = static_cast<const bf16*>(w);
   unsigned int* done = static_cast<unsigned int*>(done_);
-  const dim3 grid(blocks_per_sample(kase, rows, cols), batch);
   cudaError_t err = cudaSuccess;
   if (kase <= I_PATCHES) {
+    const dim3 grid(blocks_per_sample(kase, rows, cols), batch);
     const size_t smem = conv1_smem(kase, f_in, cols, n_out);
     const int vec = kase == I_PATCHES ? (cols * 9) % 8 == 0 : f_in % 8 == 0;
     if (kase == G_ROLL) {
@@ -816,13 +1008,9 @@ extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* o
         conv1_checksum<I_PATCHES><<<grid, THREADS, smem, s>>>(x, wk, out, y, done, t_in, f_in, rows, cols, n_out, vec);
     }
   } else if (kase == J_SLICE) {
-    err = set_smem(conv2_checksum<false>, SMEM2);
-    if (err == cudaSuccess)
-      conv2_checksum<false><<<grid, THREADS, SMEM2, s>>>(x, wk, out, y, done, t_in, f_in, rows, cols);
+    err = launch_conv2<false, false, CI2, CO2>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
   } else {
-    err = set_smem(conv2_checksum<true>, SMEM2);
-    if (err == cudaSuccess)
-      conv2_checksum<true><<<grid, THREADS, SMEM2, s>>>(x, wk, out, y, done, t_in, f_in, rows, cols);
+    err = launch_conv2<true, false, CI2, CO2>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -831,7 +1019,7 @@ extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* o
 // Dynamic shared memory per block of the kernel dfac_conv_probe runs for
 // this case and geometry, in bytes.
 extern "C" int dfac_conv_probe_smem(int kase, int f_in, int cols, int n_out) {
-  return kase <= I_PATCHES ? int(conv1_smem(kase, f_in, cols, n_out)) : int(SMEM2);
+  return kase <= I_PATCHES ? int(conv1_smem(kase, f_in, cols, n_out)) : int(Conv2Cfg<CI2, CO2>::SMEM);
 }
 
 // Stages 11 and 12 (K7, K8). kase: 0 v0, 1 v1, 2 v2, 3 v3, 4 v4, 5 a, 6 c,
@@ -842,8 +1030,9 @@ extern "C" int dfac_conv_probe_smem(int kase, int f_in, int cols, int n_out) {
 // (n_res, 8, 128) f32, where n_res = batch result blocks (samples; for v3
 // groups of `group` samples), or for v4 (batch, t_in / 2, f_in, n_out) bf16.
 // y: null, or every output in f32 (not for v0 and v4). done: n_res zeroed
-// counters (scratch; unused for v4). 16-byte aligned `in` and `out`. One
-// kernel launch on `stream`, no synchronisation; returns cudaGetLastError().
+// counters (scratch; unused for v4). 16-byte aligned `in`, `w` and `out`.
+// One kernel launch on `stream`, no synchronisation; returns
+// cudaGetLastError().
 extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out, float* y, void* done_, int batch,
                               int t_in, int f_in, int n_out, int group, void* stream) {
   if (kase < V0_SUMS || kase > F_CONV2_DX || batch <= 0 || batch > 65535 || t_in <= 0 || f_in <= 0 ||
@@ -877,7 +1066,7 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
                    int(f_in % 8 == 0));
       break;
     case F_CONV2_DX:
-      err = launch(conv2_checksum<false, true>, grid, smem, s, x, wk, o, y, done, t_in, f_in, t_in - 2, f_in - 2);
+      err = launch_conv2<false, true, CI2, CO2>(x, wk, o, y, done, batch, t_in, f_in, t_in - 2, f_in - 2, s);
       break;
     case V2_SAME_MMA:
     case V3_GROUP_MMA:
@@ -920,7 +1109,7 @@ int chunk_blocks(int kase, int t_in, int f_in, int rows, int cols, int win) {
                  ? conv1_mma_blocks(M_VALID, t_in, 1, rows, win, cols / win) : 0;
     case I2_PLANES: return rows <= t_in && cols == f_in ? (rows + R1 - 1) / R1 : 0;
     case J4_CONV2_DX: case J5_CONV3:
-      return rows + 2 <= t_in && cols + 2 <= f_in ? blocks_per_sample(J_SLICE, rows, cols) : 0;
+      return rows + 2 <= t_in && cols + 2 <= f_in ? conv2_tiles(rows, cols) : 0;
     case C2_FLAT_CHUNKS:
       return win > 0 && cols % win == 0 && win <= t_in ? conv1_mma_blocks(M_FLAT, t_in, 1, 1, win, cols / win) : 0;
     default: return 0;
@@ -931,8 +1120,8 @@ size_t chunk_smem(int kase, int f_in, int cols, int n_out) {
   switch (kase) {
     case H2_WINDOWS: return conv1_mma_smem(M_VALID, f_in);
     case I2_PLANES: return conv1_smem(I_PLANES, f_in, cols, n_out);
-    case J4_CONV2_DX: return SMEM2;
-    case J5_CONV3: return SMEM3;
+    case J4_CONV2_DX: return Conv2Cfg<CI2, CO2>::SMEM;
+    case J5_CONV3: return Conv2Cfg<CI3, CO3>::SMEM;
     case C2_FLAT_CHUNKS: return conv1_mma_smem(M_FLAT, f_in);
     default: return 0;
   }
@@ -949,8 +1138,8 @@ size_t chunk_smem(int kase, int f_in, int cols, int n_out) {
 //         wt (32, 16); cols = n_chunks x win outputs in chunks of win = Mc
 // n_out: 32 (h2, c2), 64 (j4), 128 (j5), any of 1..1024 (i2). out (B, 8, 128)
 // f32; y: null, or (B, rows, cols, n_out) f32 for every output (c2: (B, 1,
-// cols, 32)); done: B zeroed counters (scratch). 16-byte aligned `in` and
-// `out`. One kernel launch on `stream`, no synchronisation; returns
+// cols, 32)); done: B zeroed counters (scratch). 16-byte aligned `in`, `w`
+// and `out`. One kernel launch on `stream`, no synchronisation; returns
 // cudaGetLastError().
 extern "C" int dfac_conv_chunk(int kase, const void* in, const void* w, float* out, float* y, void* done_,
                                int batch, int t_in, int f_in, int rows, int cols, int win, int n_out,
@@ -979,10 +1168,10 @@ extern "C" int dfac_conv_chunk(int kase, const void* in, const void* w, float* o
                    int(f_in % 8 == 0));
       break;
     case J4_CONV2_DX:
-      err = launch(conv2_checksum<false, true>, grid, smem, s, x, wk, out, y, done, t_in, f_in, rows, cols);
+      err = launch_conv2<false, true, CI2, CO2>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
       break;
     case J5_CONV3:
-      err = launch(conv2_checksum<false, false, CI3, CO3>, grid, smem, s, x, wk, out, y, done, t_in, f_in, rows, cols);
+      err = launch_conv2<false, false, CI3, CO3>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
       break;
     case C2_FLAT_CHUNKS:
       err = launch(conv1_mma<M_FLAT, true>, grid, smem, s, x, wk, out, y, done, t_in, f_in, 1, 1, win, cols / win,

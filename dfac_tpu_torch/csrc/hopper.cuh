@@ -1,7 +1,8 @@
 // Hopper (sm_90a) helpers shared by the port's kernels (conv_block.cu,
-// gemm_frontend.cu): shared-memory addresses, cp.async, bulk and tensor
-// copies, ldmatrix, mbarriers and wgmma m64nNk16 with A from registers and
-// f32 accumulators.
+// conv_probe.cu, gemm_frontend.cu): shared-memory addresses, cp.async, bulk
+// and tensor copies, ldmatrix, mbarriers, wgmma m64nNk16 with A from
+// registers and f32 accumulators, and the conv kernels' swizzled weight rows
+// and named barriers.
 
 #pragma once
 
@@ -107,6 +108,30 @@ __device__ __forceinline__ uint64_t b_desc_kmajor(uint32_t addr) {
   constexpr uint64_t sbo = 8 * ROW_BYTES;
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | ((sbo >> 4) << 32) | (layout << 62);
 }
+
+// The implicit-GEMM conv kernels' weights (conv_block.cu's conv_block_tc,
+// conv_probe.cu's conv2_checksum): K-major rows (tap, cout) of CIN bf16,
+// which b_desc_kmajor<2 CIN> reads. Byte offset of 16-byte chunk c of row r:
+// rows of 128 bytes (CIN = 64) take the 128-byte swizzle (chunk ^= r % 8),
+// rows of 64 bytes (CIN = 32) the 64-byte one (chunk ^= (r / 2) % 4), as the
+// hardware swizzles address bits 4-6 (4-5) by bits 7-9 (7-8) of a 1024-byte
+// aligned region.
+template <int CIN>
+__device__ __forceinline__ uint32_t w_off(int r, int c) {
+  static_assert(CIN == 32 || CIN == 64, "64- or 128-byte weight rows");
+  if constexpr (CIN == 64) return uint32_t(r * 128 + ((c ^ (r & 7)) << 4));
+  else return uint32_t(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+}
+
+// The same kernels' named barriers (two warpgroups of 128 threads a block):
+// 1 and 2 for the threads of warpgroup 0 and 1, 3 for the block's one
+// hand-over from warpgroup 0 to warpgroup 1.
+__device__ __forceinline__ void wg_barrier(int wg) {
+  if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+__device__ __forceinline__ void stagger_wait() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void stagger_release() { asm volatile("bar.arrive 3, 256;\n" ::: "memory"); }
 
 // D (64 x N f32; per warp and n8 the m16n8 accumulator layout) += A (64 x 16
 // bf16 in registers; per warp the m16k16 fragment) * B (16 x N bf16, K-major

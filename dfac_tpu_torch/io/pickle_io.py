@@ -43,9 +43,11 @@ def load_features(
         raise ValueError(f"{path}: features.pkl must have 'uttid' and 'features' columns")
     uttids = [str(u) for u in df["uttid"].tolist()]
     mats = [_cell_to_numpy(c).astype(dtype, copy=False) for c in df["features"]]
+    if not mats:  # the reference refuses it too (IndexError on mats[0])
+        raise ValueError(f"{path}: features.pkl has no rows")
     lengths = None
-    if len({m.shape for m in mats}) <= 1:
-        feats = np.stack(mats).astype(dtype, copy=False) if mats else np.zeros((0, 0, 0), dtype)
+    if len({m.shape for m in mats}) == 1:
+        feats = np.stack(mats).astype(dtype, copy=False)
     else:
         f_dim = mats[0].shape[0]
         t_max = max(m.shape[1] for m in mats)

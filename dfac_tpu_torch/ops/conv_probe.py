@@ -135,16 +135,14 @@ def conv2_plain(h, w2, mode="slice") -> torch.Tensor:
 
 
 def _kernel_operands(inp, w):
-    """bf16, contiguous, on one device; ``inp`` 16-byte aligned (the kernels
-    stage rows with 16-byte loads)."""
+    """bf16, contiguous, on one device, 16-byte aligned (the kernels stage
+    rows and weights with 16-byte loads)."""
     if inp.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"the conv-probe kernel takes bfloat16 inputs and weights, got {inp.dtype}, {w.dtype}")
     if w.device != inp.device:
         raise ValueError("inputs and weights must lie on one device")
-    inp = inp.contiguous()
-    if inp.data_ptr() % 16:
-        inp = inp.clone()
-    return inp, w.contiguous()
+    inp, w = inp.contiguous(), w.contiguous()
+    return tuple(t.clone() if t.data_ptr() % 16 else t for t in (inp, w))
 
 
 def _launch(kind, mode, inp, w, rows, cols, n_out, return_y, key="conv_probe"):

@@ -329,13 +329,25 @@ def _probe_inputs(batch, device, seed):
     return stage13_inputs(batch, torch.bfloat16, device, seed)
 
 
-@pytest.mark.parametrize("name", list(conv_probe.CASES))
-@pytest.mark.parametrize("batch", [1, 3])
-def test_conv_probe_kernel_matches_plain(cuda, name, batch):
-    """Every output y at stage 13's shapes, the wrap columns 0 and Fp - 1
-    (roll cases) element by element, and the checksum within the bound."""
+# conv2_checksum's geometries beyond stage 13's own (160 rows, j's 176 and k's
+# 192 columns at B = 1, 3): more tiles than the persistent grid takes at once
+# (B = 133), and odd rows with column tails (9 rows; j 37, k 45 columns)
+RAGGED_CONV2 = {"CONV2_ROWS": 9, "CONV2_SLICE_COLS": 37}
+PROBE_PARAMS = ([(name, batch, None) for batch in (1, 3) for name in conv_probe.CASES]
+                + [(name, 133, geom) for name in "jk" for geom in (None, "ragged")])
+
+
+@pytest.mark.parametrize("name,batch,geom", PROBE_PARAMS)
+def test_conv_probe_kernel_matches_plain(cuda, name, batch, geom, monkeypatch):
+    """Every output y at stage 13's shapes (or the ragged conv2 geometry),
+    the wrap columns 0 and Fp - 1 (roll cases) element by element, and the
+    checksum within the bound."""
     case = conv_probe.CASES[name]
     arrs = _probe_inputs(batch, cuda, seed=batch)
+    if geom == "ragged":
+        for const, value in RAGGED_CONV2.items():
+            monkeypatch.setattr(conv_probe, const, value)
+        arrs["h1"] = arrs["h1"][:, :11, :45].contiguous()
     inp, w = case.inp, case.weights
     fn = {"g": lambda a, b: conv_probe.conv1_taps_checksum(a, b, "roll", return_y=True),
           "h": lambda a, b: conv_probe.conv1_taps_checksum(a, b, "slice", return_y=True),
@@ -359,12 +371,19 @@ def test_conv_probe_kernel_matches_plain(cuda, name, batch):
     assert torch.equal(case.kernel(arrs[inp], arrs[w]), out)
 
 
-def test_conv_probe_kernel_rejects_what_it_does_not_take(cuda):
+def test_conv_probe_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
     arrs = _probe_inputs(1, cuda, seed=0)
     with pytest.raises(TypeError, match="bfloat16"):
         conv_probe.conv1_taps_checksum(arrs["x"].float(), arrs["w9"].float())
     with pytest.raises(ValueError, match="32 -> 64"):
         conv_probe.conv2_checksum(arrs["h1"], torch.zeros(9, 32, 16, device=cuda, dtype=torch.bfloat16))
+    # 171 row pairs x 6 column tiles: more tiles than a sample's 1,024 result slots
+    monkeypatch.setattr(conv_probe, "CONV2_ROWS", 341)
+    h1 = torch.zeros(1, 343, 178, 32, device=cuda, dtype=torch.bfloat16)
+    before = _build.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_probe.conv2_checksum(h1, arrs["w2"])
+    assert _build.launch_counts() == before
 
 
 def _pass_inputs(batch, t, f, device, seed):
@@ -390,7 +409,9 @@ PASS_Y = {  # checksum case -> f(input, weights) -> (sums, y); v0 forms no y, so
     "d": lambda x, w: conv_probe.conv1_valid_checksum(x, w, "fma", return_y=True),
     "f": lambda x, w: conv_probe.conv2_dx_checksum(x, w, return_y=True),
 }
-PASS_SHAPES = [(10, 33, 21), (19, 321, 180)]  # B = 8 + 2 and 2 * 8 + 3; odd T; F % 8 = 5, 4
+# B = 8 + 2, 2 * 8 + 3 and 16 * 8 + 5; odd T; F % 8 = 5, 4, 3; f's h1 (B, T // 2 + 2, F + 2, 32): 16, 160 and
+# 11 rows, 21, 180 and 43 columns (not multiples of its 32-column tile), 1,330 tiles at B = 133
+PASS_SHAPES = [(10, 33, 21), (19, 321, 180), (133, 22, 43)]
 
 
 @pytest.mark.parametrize("name", list(PASS_Y))
@@ -464,6 +485,9 @@ def test_conv_pass_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
         conv_probe.conv1_emit(x, w[..., :12])
     with pytest.raises(ValueError, match="32 -> 64"):
         conv_probe.conv2_dx_checksum(arrs["h1"], arrs["w2dx"][..., :32])
+    # f on 300 rows x 200 columns: 150 x 7 tiles, more than a sample's 1,024 result slots
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_probe.conv2_dx_checksum(torch.zeros(1, 302, 202, 32, device=cuda, dtype=torch.bfloat16), arrs["w2dx"])
     monkeypatch.setattr(conv_probe, "FLAT_WIDTH", 10 * 15)
     with pytest.raises(ValueError, match="no output"):
         conv_probe.flat_shift_checksum(arrs["xpad_flat"], w9)
@@ -491,6 +515,11 @@ CHUNK_GEOMS = {
               "CONV3_COLS": 14, "FLAT_WIDTH": 7, "CHUNK_LEN": 100, "CHUNKS": 3},
              {"x": (2, 16, 16), "p9": (2, 9, 16, 16), "h1": (2, 12, 16, 32), "h2arr": (2, 12, 16, 64),
               "xf": (2, 1, 310)}),
+    # B = 133: more conv2/conv3 tiles than the persistent grid takes at once; odd rows, column tails
+    "many": ({"CONV1_ROWS": 9, "H2_WINDOW": 8, "CONV2_ROWS": 9, "CONV2_SLICE_COLS": 37, "CONV3_ROWS": 11,
+              "CONV3_COLS": 41, "FLAT_WIDTH": 7, "CHUNK_LEN": 100, "CHUNKS": 3},
+             {"x": (133, 13, 17), "p9": (133, 9, 13, 17), "h1": (133, 11, 40, 32), "h2arr": (133, 13, 44, 64),
+              "xf": (133, 2, 290)}),
     # c2's chunks longer than one 2,048-output block, the last wholly clamped
     "long": ({"FLAT_WIDTH": 182, "CHUNK_LEN": 3000, "CHUNKS": 2},
              {"x": (1, 322, 130), "p9": (1, 9, 320, 24), "h1": (1, 162, 178, 32), "h2arr": (1, 82, 178, 64),
@@ -568,3 +597,34 @@ def test_conv_chunk_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
         conv_probe.flat_chunks_checksum(arrs["xf"], arrs["wt"][:16])
     with pytest.raises(ValueError, match="does not fit"):
         conv_probe.flat_chunks_checksum(arrs["xf"][..., :99], arrs["wt"])
+    # j5 on 341 rows x 176 columns: 171 x 6 tiles, more than a sample's 1,024 result slots
+    monkeypatch.setattr(conv_probe, "CONV3_ROWS", 341)
+    monkeypatch.setattr(conv_probe, "CONV3_COLS", 176)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_probe.conv3_checksum(torch.zeros(1, 343, 178, 64, device=cuda, dtype=torch.bfloat16), arrs["w3"])
+
+
+CONV2_FAMILY = {  # the cases conv2_checksum serves: f(input, weights) -> (B, 8, 128), and their stage's arrays
+    "j": (conv_probe.CASES["j"], "13"), "k": (conv_probe.CASES["k"], "13"),
+    "f": (conv_probe.STAGE12_CASES["f"], "12"), "j2": (conv_probe.STAGE14_CASES["j2"], "14"),
+    "j3": (conv_probe.STAGE15_CASES["j3"], "15"), "j4": (conv_probe.STAGE15_CASES["j4"], "15"),
+    "j5": (conv_probe.STAGE15_CASES["j5"], "15"),
+}
+
+
+@pytest.mark.parametrize("name", list(CONV2_FAMILY))
+def test_conv2_checksum_repeats_and_does_not_depend_on_the_batch(cuda, name):
+    """At the stages' widths: a second call equals the first bit for bit,
+    and each sample's sums from a batched call equal, bit for bit, a call on
+    that sample alone and a call on the batch in reverse order (other tiles
+    share its blocks, other blocks take its tiles)."""
+    from dfac_tpu_torch.scripts import train_opt_probe
+
+    case, stage = CONV2_FAMILY[name]
+    arrs = getattr(train_opt_probe, f"stage{stage}_inputs")(5, torch.bfloat16, cuda, seed=5)
+    inp, w = arrs[case.inp], arrs[case.weights]
+    out = case.kernel(inp, w)
+    assert torch.equal(case.kernel(inp, w), out)
+    assert torch.equal(case.kernel(inp.flip(0), w), out.flip(0))
+    for i in range(inp.shape[0]):
+        assert torch.equal(case.kernel(inp[i : i + 1], w), out[i : i + 1])

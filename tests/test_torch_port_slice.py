@@ -3,6 +3,7 @@ scores, host EER, checkpoint loading without jax, and the predict CLI."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -128,6 +129,20 @@ def test_predict_cli_matches_jax_fast(tmp_path):
     assert list(got.columns) == ["uttid", "predictions"] and got["uttid"].tolist() == uttids
     # both f32 folded chains on the CPU
     np.testing.assert_allclose(got["predictions"], want["predictions"], atol=1e-5)
+
+
+def test_load_features_refuses_a_pickle_with_no_rows(tmp_path):
+    """Both packages refuse a features.pkl with no rows: the reference on
+    ``mats[0]`` (IndexError), the port with a ValueError naming the file."""
+    from dfac_tpu.io.pickle_io import load_features as j_load
+    from dfac_tpu_torch.io.pickle_io import load_features as t_load
+
+    fpath = tmp_path / "features.pkl"
+    pd.DataFrame({"uttid": [], "features": []}).to_pickle(fpath)
+    with pytest.raises(IndexError):
+        j_load(str(fpath))
+    with pytest.raises(ValueError, match=re.escape(f"{fpath}: features.pkl has no rows")):
+        t_load(str(fpath))
 
 
 @pytest.mark.parametrize("flag", [["--int8"], ["--ingest-int8"], ["--data-parallel", "2"], ["--multihost"], []])
