@@ -11,7 +11,7 @@ line:
 
 1. device   torch / CUDA / nvcc versions, the card's name and power limit
 2. build    every kernel from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
-            ptxas' registers and spills (the conv2/conv3 probe kernel's
+            ptxas' registers and spills (the probes' tensor-core kernels'
             always, others' where there are any) and the dynamic shared
             memory of each kernel
 3. K1       the GEMM front-end kernel against its plain version, B=128
@@ -43,17 +43,19 @@ line:
 10. K5      the standalone (2,1) time-pool kernel against its plain version
             at the pool probe's two shapes at B=512 (bit for bit), at odd T,
             in f32 and on rows that are not 16-byte vectors
-11. conv-probe  the conv-probe checksum kernel, cases g, h, i, j, k, against
+11. conv-probe  the conv-probe checksum kernels, cases g, h, i, j, k, against
             their plain versions at stage 13's shapes at B=512, bf16, one
-            launch per call, a second call equal bit for bit; for j and k
-            (the conv2/conv3 kernel) also every output y
+            launch per call, a second call equal bit for bit, and every
+            output y (g, h, i: the conv1 kernel ``conv1_tc``; j, k: the
+            conv2/conv3 kernel)
 12. conv-pass  stages 11, 12, 14 and 15's kernels (K7: v0-v4, K8: a, c, d,
             f, K10: h2, i2, j2, K11: j3, j4, j5, c2) against their plain
             versions at the stages' shapes at B=512, bf16: the checksums
             within 1e-5 of sum |y|, v4's emitted tensor within one bf16 last
             bit; one launch per call under the stage's counter, a second
-            call equal bit for bit; for f, j2-j5 (the conv2/conv3 kernel)
-            also every output y within atol 1e-4 + rtol 1e-5
+            call equal bit for bit; for the tensor-core cases (``conv1_tc``:
+            v2, v3, a, c, h2, i2, c2; the conv2/conv3 kernel: f, j2-j5) also
+            every output y within atol 1e-4 + rtol 1e-5
 13. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
             --stages 11,12,13,14,15`` and ``pool_kernel_probe`` as ``python
             -m`` at their defaults: exit 0, their result lines, logits of
@@ -142,8 +144,8 @@ METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package
 CHECKSUM_RTOL = 1e-5  # conv-probe checksums: bf16 x bf16 products are exact in
 # f32, so kernel and plain differ only by f32 summation order; bound relative
 # to the sample's sum |y|
-CONV2_Y_ATOL, CONV2_Y_RTOL = 1e-4, 1e-5  # every y of the conv2/conv3 cases: exact products, f32
-# sums of 288 or 576 terms in another order (the cuda tests' bound)
+Y_ATOL, Y_RTOL = 1e-4, 1e-5  # every y of the tensor-core cases (conv1_tc, conv2_checksum): exact
+# products, f32 sums of 9 (conv1), 288 or 576 terms in another order (the cuda tests' bound)
 # K7, K8, K10, K11 -> their train_opt_probe stage
 PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12", "conv_chunked": "14", "conv_trailing": "15"}
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
@@ -295,19 +297,21 @@ def main() -> int:
         "conv_block_f32 32->64": lib.dfac_conv_block_smem(32, 64, 0),
         "conv_block_f32 64->128": lib.dfac_conv_block_smem(64, 128, 0),
         "fb_log_dct_kernel": lib.dfac_fb_log_dct_smem(),
-        "conv1_checksum g": lib.dfac_conv_probe_smem(0, 256, 256, 32),
-        "conv1_checksum i": lib.dfac_conv_probe_smem(2, 256, 256, 32),
+        "conv1_tc g": lib.dfac_conv_probe_smem(0, 256, 256, 32),
+        "conv1_tc h": lib.dfac_conv_probe_smem(1, 256, 128, 32),
+        "conv1_tc i": lib.dfac_conv_probe_smem(2, 256, 256, 32),
         "conv2_checksum": lib.dfac_conv_probe_smem(3, 192, 176, 64),
         "conv1_checksum v1": lib.dfac_conv_pass_smem(1, 180, 32),
-        "conv1_mma v2": lib.dfac_conv_pass_smem(2, 180, 32),
-        "conv1_mma a": lib.dfac_conv_pass_smem(5, 180, 32),
-        "conv1_mma c": lib.dfac_conv_pass_smem(6, 182, 32),
+        "conv1_checksum d": lib.dfac_conv_pass_smem(7, 180, 32),
+        "conv1_tc v2, v3": lib.dfac_conv_pass_smem(2, 180, 32),
+        "conv1_tc a": lib.dfac_conv_pass_smem(5, 180, 32),
+        "conv1_tc c": lib.dfac_conv_pass_smem(6, 182, 32),
         "conv1_emit v4": lib.dfac_conv_pass_smem(4, 180, 32),
-        "conv1_mma h2": lib.dfac_conv_chunk_smem(0, 256, 256, 32),
-        "conv1_checksum i2": lib.dfac_conv_chunk_smem(1, 256, 256, 32),
+        "conv1_tc h2": lib.dfac_conv_chunk_smem(0, 256, 256, 32),
+        "conv1_tc i2": lib.dfac_conv_chunk_smem(1, 256, 256, 32),
         "conv2_checksum j4": lib.dfac_conv_chunk_smem(2, 192, 176, 64),
         "conv2_checksum j5": lib.dfac_conv_chunk_smem(3, 192, 176, 128),
-        "conv1_mma c2": lib.dfac_conv_chunk_smem(4, 182, 65536, 32),
+        "conv1_tc c2": lib.dfac_conv_chunk_smem(4, 182, 65536, 32),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
     name, spills = None, "0"
@@ -316,15 +320,16 @@ def main() -> int:
         if m:  # a kernel of ours, with its template arguments (mangled), or None
             k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_f32|conv_block_direct|"
                           r"conv_block_cin1_tc|conv_block_cin1_f32|conv_block_cin1|fb_log_dct_kernel|"
-                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_mma|conv1_emit)"
+                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_tc|conv1_emit)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name, spills = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""), "0"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spills = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:  # spills shown where there are any, and always for the conv2/conv3 probe kernel
-            shown = f", {spills} bytes spill stores" if spills != "0" or name.startswith("conv2_checksum") else ""
+        if m and name:  # spills shown where there are any, and always for the probes' tensor-core kernels
+            shown = (f", {spills} bytes spill stores"
+                     if spills != "0" or name.startswith(("conv2_checksum", "conv1_tc")) else "")
             phase("build", f"ptxas {name}: {m.group(1)} registers{shown}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -602,7 +607,17 @@ def main() -> int:
                     f"elements): bit-identical")
 
     # -- 11. conv-probe checksums vs plain ----------------------------------
-    conv2_y = {  # the conv2/conv3 kernel's cases, each returning its sums and every output y
+    y_of = {  # the tensor-core kernels' cases (conv1_tc, conv2_checksum), each returning its sums and every y
+        "g": lambda a, w: conv_probe.conv1_taps_checksum(a, w, "roll", return_y=True),
+        "h": lambda a, w: conv_probe.conv1_taps_checksum(a, w, "slice", return_y=True),
+        "i": lambda a, w: conv_probe.patches_checksum(a, w, return_y=True),
+        "v2": lambda a, w: conv_probe.conv1_same_checksum(a, w, "mma", return_y=True),
+        "v3": lambda a, w: conv_probe.conv1_group_checksum(a, w, return_y=True),
+        "a": lambda a, w: conv_probe.conv1_valid_checksum(a, w, "mma", return_y=True),
+        "c": lambda a, w: conv_probe.flat_shift_checksum(a, w, return_y=True),
+        "h2": lambda a, w: conv_probe.chunked_taps_checksum(a, w, return_y=True),
+        "i2": lambda a, w: conv_probe.tap_planes_checksum(a, w, return_y=True),
+        "c2": lambda a, w: conv_probe.flat_chunks_checksum(a, w, return_y=True),
         "j": lambda a, w: conv_probe.conv2_checksum(a, w, "slice", return_y=True),
         "k": lambda a, w: conv_probe.conv2_checksum(a, w, "roll", return_y=True),
         "f": lambda a, w: conv_probe.conv2_dx_checksum(a, w, return_y=True),
@@ -612,17 +627,18 @@ def main() -> int:
         "j5": lambda a, w: conv_probe.conv3_checksum(a, w, return_y=True),
     }
 
-    def check_conv2_y(label, name, a, wt, sums, want_y):
-        """The conv2/conv3 kernel's every output against the plain version's,
-        and its sums with y equal to its sums alone, bit for bit."""
-        got_sums, got_y = conv2_y[name](a, wt)
+    def check_y(label, name, a, wt, sums, want_y):
+        """A tensor-core case's every output against the plain version's, and
+        its sums with y equal to its sums alone, bit for bit."""
+        got_sums, got_y = y_of[name](a, wt)
         torch.cuda.synchronize()
         require(torch.equal(got_sums, sums), f"{name}: the sums with y differ from the sums alone")
         require(got_y.shape == want_y.shape, (got_y.shape, want_y.shape))
-        d = (got_y - want_y).abs()
-        ok = bool((d <= CONV2_Y_ATOL + CONV2_Y_RTOL * want_y.abs()).all())
+        d = (got_y - want_y).abs_()
+        ok = bool((d <= Y_ATOL + Y_RTOL * want_y.abs()).all())
         phase(label, f"{name} y {tuple(got_y.shape)}: max |kernel - plain| {d.max().item():.3e} (tolerance atol "
-                     f"{CONV2_Y_ATOL} + rtol {CONV2_Y_RTOL})")
+                     f"{Y_ATOL} + rtol {Y_RTOL})")
+        del got_y, d
         if not ok:
             raise AssertionError(f"case {name}: y disagrees with its plain version")
 
@@ -638,8 +654,8 @@ def main() -> int:
         want = conv_probe.checksum(y)
         abs_sum = y.abs().sum(dim=(1, 2, 3), dtype=torch.float64)
         y_shape = tuple(y.shape)
-        if name in conv2_y:
-            check_conv2_y("conv-probe", name, a, wt, got, y)
+        if name in y_of:
+            check_y("conv-probe", name, a, wt, got, y)
         del y
         require(got.shape == want.shape == (PROBE_BATCH, 8, 128) and torch.isfinite(got).all(), got.shape)
         require(torch.equal(got, got[:, :1, :1].expand_as(got)), f"{name}: checksum block not uniform")
@@ -686,8 +702,8 @@ def main() -> int:
             phase("conv-pass", f"{name} x{tuple(a.shape)} -> y {tuple(want.shape)} -> {tuple(got.shape)}: max "
                                f"|kernel - plain| {err:.3e}, max over results of |kernel - plain| / sum|y| "
                                f"{(d / abs_sum).max().item():.3e} (tolerance {CHECKSUM_RTOL})")
-            if name in conv2_y:
-                check_conv2_y("conv-pass", name, a, wt, got, want)
+            if name in y_of:
+                check_y("conv-pass", name, a, wt, got, want)
         del want
         if not ok:
             raise AssertionError(f"{key} case {name} disagrees with its plain version")

@@ -24,13 +24,8 @@
 // 0.53 and 0.58 TFLOP (~0.54 / 0.59 ms at the bf16 peak).
 //
 // Design:
-//  * g, h, i (K = 9, N = 32): too thin for the tensor cores. One block per
-//    8 output rows of a sample stages its input rows (x: 10 rows of the
-//    full padded width, so the wrap is an index mod Fp in shared memory;
-//    p: the tile's 8 x cols x 9 patches) with 16-byte loads, and keeps the
-//    9 x N weights in shared memory as f32. A thread holds the 36 taps of
-//    4 pixels of one column in registers and forms their N outputs, 36
-//    multiply-adds per 9 broadcast weight loads.
+//  * g, h, i (K = 9 padded to 16, N = 32), and v2, v3, a, c, h2, i2, c2
+//    below: conv1_tc, one tensor-core conv1 kernel (see "conv1_tc" below).
 //  * j, k (K = 9 x 32, N = 64), and f, j2-j5 below: conv2_checksum, an
 //    implicit GEMM on wgmma (hopper.cuh), the design of conv_block.cu's
 //    conv_block_tc: M = 64 output pixels (2 conv rows x 32 columns), N =
@@ -61,12 +56,12 @@
 //      k's wrapped source column, indices stepped per lane).
 //    - No store epilogue: each thread sums its valid accumulators (row <
 //      rows, col < cols) where conv_block_tc would store them.
-//  * One launch, deterministic sums. g, h, i: each block reduces its
-//    threads in a fixed order into its slot of out[b] (a sample has at
-//    most 1024 blocks) and counts itself done in done[b]; the last block
-//    of sample b to finish adds the slots in a fixed order (one warp, then
-//    a shuffle tree) and fills out[b] with the total. conv2_checksum does
-//    the same per tile: a tile's sum (threads, a shuffle tree, then its
+//  * One launch, deterministic sums. conv1_checksum (v1, d): each block
+//    reduces its threads in a fixed order into its slot of out[b] (a
+//    sample has at most 1024 blocks) and counts itself done in done[b]; the
+//    last block of sample b to finish adds the slots in a fixed order (one
+//    warp, then a shuffle tree) and fills out[b] with the total. conv1_tc
+//    does the same per band (below). conv2_checksum does it per tile: a tile's sum (threads, a shuffle tree, then its
 //    four warps in order) goes to slot out[b][tile of b] (a sample has at
 //    most 1024 tiles; the entries refuse more), done[b] counts tiles (one
 //    fence and count per warpgroup's run of a sample's tiles: a fence per
@@ -103,21 +98,15 @@
 // 0.54 TFLOP (~0.55 ms at the bf16 peak).
 //
 // Design (K7/K8):
-//  * v1 and d: the CUDA-core conv1 kernel of g/h; v1 adds a SAME mode that
-//    stages its rows zero-padded (R1 + 2 rows of F + 2 columns, the rows
-//    above and below the sample zero), so the inner loop is h's.
-//  * v2, v3, a, c: one tensor-core kernel, mma.sync m16n8k16 with K = 9
-//    padded to 16 by zero weight rows (exact). A block stages its input
-//    window in shared memory (SAME: 10 zero-padded rows; VALID: 10 rows;
-//    flat: a 2048-output chunk plus its 2W-element reach); each warp takes
-//    16 consecutive outputs of a row as the M tile, builds its A fragment
-//    from the window (thread (gid, tq) reads taps 2tq, 2tq + 1 and, for
-//    tq = 0, tap 8 of pixels gid and gid + 8), and multiplies it by the
-//    four 8-channel B fragments it keeps in registers. For v3 a block's
-//    rows run across the group's 8 samples (virtual row v is row v mod T of
-//    sample v / T), and a tap in a row of another sample reads zero. The
-//    K padding wastes 7/16 of the tensor-core work, which is not the limit:
-//    the fragment build is.
+//  * v1 and d: conv1_checksum, the CUDA-core conv1 kernel (the stages
+//    compare the TPU's VPU and MXU, so these two stay off the tensor
+//    cores). One block per 8 output rows of a sample stages its rows (v1:
+//    zero-padded, R1 + 2 rows of F + 2 columns, the rows above and below
+//    the sample zero) and keeps the 9 x N weights in shared memory as f32;
+//    a thread holds the 36 taps of 4 pixels of one column in registers and
+//    forms their N outputs, 36 multiply-adds per 9 broadcast weight loads.
+//  * v2, v3, a, c: conv1_tc (SAME: v2; v3 in groups of 8 samples, a tap in
+//    a row of another sample reading zero; VALID: a; FLAT: c).
 //  * v4: one thread per pooled pixel holds its 4 x 3 inputs in registers
 //    and forms the two conv rows of all 32 channels with f32 FMAs, then
 //    the affine, ReLU and the pool in f32 and one cast, written as 16-byte
@@ -152,32 +141,82 @@
 //
 // Design (K10/K11): every case reuses a kernel above, so the stage's
 // question -- which formulation feeds the matrix unit best -- is asked of
-// the same tensor-core (or CUDA-core) code paths:
-//  * h2: conv1_mma's VALID mode with output windows: a block stages its 10
-//    input rows at full width, and each output column maps to its window's
-//    input column (the clamp is index arithmetic; the window is found by
-//    comparisons, as a division per pixel cost h2 ~30% per tile). One launch.
-//  * i2: conv1_checksum with a tap-plane layout: a block stages rows r0 ..
-//    r0 + 7 of each of the 9 planes (9 x 8 x 256 bf16), a thread's 9 vector
-//    loads in flight together; the inner loop is i's.
+// the same tensor-core code paths:
+//  * h2, i2, c2: conv1_tc (SLICE in two windows, the second's source
+//    columns clamped when its copy rows are built; PLANES; FLAT in 8
+//    chunks, each chunk's clamped tap offsets fixed for its bands, wt (32,
+//    16) read as it is: taps 9-15 are the A tile's zero rows, so 0 x wt[co,
+//    9..15] is formed as the reference forms it). Only row 0 of each xf
+//    sample is read.
 //  * j4: f's kernel (dx layout) with rows and columns given, not T - 2, F - 2.
 //  * j5: conv2_checksum at (CI, CO) = (64, 128), wgmma m64n128k16: its
 //    weights (147,456 B) and each warpgroup's two halo stages (19,584 B
 //    each) fit one block per SM, as conv_block_tc's block 3.
-//  * c2: conv1_mma's flat mode in chunks: a block of 2,048 outputs lies in
-//    one chunk, and its taps' offsets min(o_k, L - Mc - c Mc) are fixed for
-//    the block, so the staged window starts at tap 0's and the clamp costs
-//    nothing in the loop; wt (32, 16) is already the kernel's [co][k] layout,
-//    and taps 9-15 are the A fragment's zero lanes, so 0 x wt[co, 9..15] is
-//    formed as the reference forms it. Only row 0 of each sample is read.
+//
+// conv1_tc (g, h, i, i2, v2, v3, a, c, h2, c2) replaces the Pallas dots on
+// the TPU's matrix unit: train_opt_probe.py kern_g (:1108), kern_h (:1123),
+// kern_i (:1136), kern_v2 (:869), kern_v3 (:877), kern_a (:974), kern_c
+// (:989), kern_h2 (:1248), kern_i2 (:1266), kern_c2 (:1456), and
+// pallas_err_probe.py kern_g (:44), kern_i (:60).
+//  * What bounds it on this card: at B=512 each case is 1.9e10-2.4e10 FLOP
+//    (~20-25 us at the bf16 peak) on 59-88 MB of input (~18-26 us), or for
+//    i and i2 755 MB of patches (~0.23 ms). Each output's 32 f32 y values
+//    must be formed and summed, one FADD each. Timed beside patched copies
+//    of itself (no tile loop, no build; PERF.md), the tile loop takes about
+//    half the time (a warp's ldmatrix, wgmma, wait and 16 FADDs in a row:
+//    latency, not the tensor cores), the build of the copy rows or planes
+//    about a third (i, i2: the 755 MB of copies instead).
+//  * The shape: one wgmma m64n32k16 per 64 outputs, K = 9 taps padded to
+//    16 (taps 9-15 point at a zero row), B (16 x 32) once per block in
+//    shared memory as 8 x 8 core matrices (no swizzle), scale-d = 0 so no
+//    accumulator is zeroed by hand. A tile is 64 outputs: 2-D cases (g, h,
+//    a, h2, v2, v3) 8 output rows x 8 columns, 1-D cases (i, i2, c, c2) 64
+//    consecutive outputs. The tile loop is compiled with and without y's
+//    stores (no test per tile) and unrolled twice, so the next tile's
+//    ldmatrix flies while this tile's y are summed in two add chains; at
+//    most 64 registers (4 blocks an SM).
+//  * A is built as whole tiles, not tap by tap: the A tile is read MN-major
+//    by ldmatrix.x4.trans, each lane giving one 16-byte row of 8
+//    consecutive outputs of one tap (the rows of taps 9-15 are one zero
+//    row). The 2-D cases take candidate (b) of the design: three
+//    dx-shifted copy rows per staged input row (column j of copy dx holds
+//    the input tap dx reads for output column j), so any tap of any 8
+//    outputs of a row is one aligned row, and a copy serves the three
+//    output rows that read it; the im2col tile of candidate (a) would
+//    build 9 values per output where the copies build ~3.4. The 1-D cases
+//    build 9 tap planes per band (i2's layout): their taps share no rows.
+//  * Edges, clamps, windows and the wrap are resolved while the copies and
+//    planes are built (ROLL: the column mod f_in; SLICE: h2's clamped
+//    window start; SAME: zero columns; FLAT: each chunk's clamped offsets),
+//    or once per band per lane (SAME: a tap above a sample's first row or
+//    below its last, and every row past the result's last, points at the
+//    zero row). Outputs past the edges read zero taps, so their y is 0 and
+//    the tile loop sums every y with no test.
+//  * Persistent blocks of two warpgroups walk a contiguous range of
+//    (result, band) pairs: a 2-D band is 16 output rows (two rows of
+//    tiles; 8 or 24 were slower), a 1-D band 1,024 outputs (FLAT, whose
+//    stages are small: 2,048). The band's input span (its 18 input rows,
+//    or its outputs' patches, plane segments or flat span) is copied by
+//    16-byte cp.async from the 8-element boundary at or below its start
+//    (so rows of 180 or 178 columns and 18-byte patches need no aligned
+//    source) into a ring of two raw stages, two bands ahead; the block
+//    builds the band's copy rows or planes from it, then its warpgroups
+//    take the band's tiles in turn.
+//  * Sums: a band's sum (each thread's y in tile order, a shuffle tree,
+//    the 8 warps in order) goes to its slot of out[b], a band a slot (at
+//    most 1,024 bands a result: 64-output tiles would need 1,280 slots for
+//    g and 7,223 for v3's group), counted once per run of a result's bands
+//    (publish). Every y is formed in the accumulators and summed; the
+//    checksum is not factored algebraically, and the return_y mode runs
+//    the same loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -268,62 +307,36 @@ __device__ void stage_padded(bf16* dst, const bf16* rows, int n_rows, int f_in, 
   }
 }
 
-// ---- g, h, i: CUDA cores --------------------------------------------------
+// ---- v1, d: CUDA cores ----------------------------------------------------
 
 constexpr int R1 = 8;   // output rows per block
 constexpr int PX = 4;   // pixels (rows of one column) per thread step
-constexpr int SAME_PAD = 5;  // conv1_checksum's zero-padded taps (stage 11's v1)
-constexpr int I_PLANES = 6;  // conv1_checksum's tap-leading patches (stage 14's i2)
+constexpr int SAME_PAD = 5;  // conv1_checksum's zero-padded taps (stage 11's v1); H_SLICE is d's
 
-__host__ __device__ size_t conv1_in_elems(int mode, int f_in, int cols) {
-  if (mode == I_PATCHES || mode == I_PLANES) return size_t(R1) * cols * 9;
+__host__ __device__ size_t conv1_in_elems(int mode, int f_in) {
   return size_t(R1 + 2) * (mode == SAME_PAD ? f_in + 2 : f_in);
 }
 
-size_t conv1_smem(int mode, int f_in, int cols, int n_out) {
-  return (conv1_in_elems(mode, f_in, cols) * sizeof(bf16) + 15) / 16 * 16 + size_t(9) * n_out * sizeof(float);
+size_t conv1_smem(int mode, int f_in, int n_out) {
+  return (conv1_in_elems(mode, f_in) * sizeof(bf16) + 15) / 16 * 16 + size_t(9) * n_out * sizeof(float);
 }
 
-// Stage rows r0 .. r0 + R1 - 1 of the 9 tap planes of one sample, `plane`
-// elements apart, n = R1 x cols elements each (rows past `valid` zero): a
-// thread loads its vector of all 9 planes into registers before it stores
-// any, so they are in flight together.
-__device__ void stage_planes(bf16* dst, const bf16* src, size_t plane, int n, int valid, bool vec) {
-  if (vec && valid == n) {
-    for (int i = threadIdx.x; i < n / 8; i += THREADS) {
-      uint4 v[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) v[k] = reinterpret_cast<const uint4*>(src + k * plane)[i];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) reinterpret_cast<uint4*>(dst + k * n)[i] = v[k];
-    }
-  } else {
-    for (int k = 0; k < 9; ++k) stage(dst + k * n, src + k * plane, n, valid, false);
-  }
-}
-
-// in: x (B, t_in, f_in) for g/h/SAME, p (B, rows, cols, 9) for i, p9 (B, 9,
-// t_in, f_in) for I_PLANES (cols = f_in); w (9, n_out).
+// x (B, t_in, f_in), w (9, n_out); y over t < rows, f < cols: SAME_PAD
+// (v1) zero-pads x by one on each side, H_SLICE (d) reads x[t + dy, f + dx].
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* __restrict__ out,
                float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int rows, int cols,
                int n_out, int vec) {
+  static_assert(MODE == SAME_PAD || MODE == H_SLICE, "v1 or d");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* s_in = reinterpret_cast<bf16*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + (conv1_in_elems(MODE, f_in, cols) * sizeof(bf16) + 15) / 16 * 16);
+  float* s_w = reinterpret_cast<float*>(smem + (conv1_in_elems(MODE, f_in) * sizeof(bf16) + 15) / 16 * 16);
   const int b = blockIdx.y, r0 = blockIdx.x * R1;
   const int stride = MODE == SAME_PAD ? f_in + 2 : f_in;  // of a staged x row
 
   for (int i = threadIdx.x; i < 9 * n_out; i += THREADS) s_w[i] = __bfloat162float(w[i]);
-  if (MODE == I_PATCHES) {
-    const int n = R1 * cols * 9;
-    const int valid = min(rows - r0, R1) * cols * 9;
-    stage(s_in, in + (size_t(b) * rows + r0) * cols * 9, n, valid, vec);
-  } else if (MODE == I_PLANES) {  // rows r0 .. r0 + R1 - 1 of each tap plane
-    stage_planes(s_in, in + (size_t(b) * 9 * t_in + r0) * f_in, size_t(t_in) * f_in, R1 * cols,
-                 max(0, min(t_in - r0, R1)) * cols, vec);
-  } else if (MODE == SAME_PAD) {  // rows r0 - 1 .. r0 + R1, a zero column on each side
+  if (MODE == SAME_PAD) {  // rows r0 - 1 .. r0 + R1, a zero column on each side
     stage_padded<R1>(s_in, in + size_t(b) * t_in * f_in, t_in, f_in, r0);
   } else {
     const int n = (R1 + 2) * f_in;
@@ -335,32 +348,11 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
   float acc = 0.f;
   for (int g = threadIdx.x; g < cols * (R1 / PX); g += THREADS) {
     const int c = g % cols, rr = (g / cols) * PX;  // column, first local row
-    float tap[PX][9];
-    if (MODE == I_PATCHES) {
+    float v[PX + 2][3];
 #pragma unroll
-      for (int p = 0; p < PX; ++p)
+    for (int r = 0; r < PX + 2; ++r)
 #pragma unroll
-        for (int k = 0; k < 9; ++k) tap[p][k] = __bfloat162float(s_in[((rr + p) * cols + c) * 9 + k]);
-    } else if (MODE == I_PLANES) {
-#pragma unroll
-      for (int p = 0; p < PX; ++p)
-#pragma unroll
-        for (int k = 0; k < 9; ++k) tap[p][k] = __bfloat162float(s_in[(k * R1 + rr + p) * cols + c]);
-    } else {
-      int col[3];
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        col[dx] = MODE == G_ROLL ? (c + dx - 1 + f_in) % f_in : c + dx;
-      float v[PX + 2][3];
-#pragma unroll
-      for (int r = 0; r < PX + 2; ++r)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) v[r][dx] = __bfloat162float(s_in[(rr + r) * stride + col[dx]]);
-#pragma unroll
-      for (int p = 0; p < PX; ++p)
-#pragma unroll
-        for (int k = 0; k < 9; ++k) tap[p][k] = v[p + k / 3][k % 3];
-    }
+      for (int dx = 0; dx < 3; ++dx) v[r][dx] = __bfloat162float(s_in[(rr + r) * stride + c + dx]);
     float s = 0.f;
     for (int co = 0; co < n_out; ++co) {
       float wk[9];
@@ -370,7 +362,7 @@ conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* _
       for (int p = 0; p < PX; ++p) {
         float yv = 0.f;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) yv = fmaf(tap[p][k], wk[k], yv);
+        for (int k = 0; k < 9; ++k) yv = fmaf(v[p + k / 3][k % 3], wk[k], yv);
         const int t = r0 + rr + p;
         if (t < rows) {
           s += yv;
@@ -486,36 +478,41 @@ struct HaloCopies {
   }
 };
 
-// Warp 0 of a warpgroup, every lane: store tile `tile`'s sum (its four
-// warps' sums, added in order) in the tile's slot of out[b]. At the end of
-// the warpgroup's run of tiles of sample b (`flush`), count the run's
-// `run` tiles done in done[b], once: the fence stalls the whole warpgroup,
-// too long to pay per tile. The warp that counts a sample's last tiles adds
-// the sample's slots in a fixed order (lane l takes slots l, l + 32, ...,
-// then a shuffle tree) and fills out[b] with the total. No float atomics:
-// the result does not depend on the grid, the batch or the order of the
-// tiles.
-__device__ void publish(const float* warp_sums, float* out, unsigned int* done, int tile, int tiles_per, int lane,
-                        int& run, bool flush) {
-  const int b = tile / tiles_per;
+// One warp, every lane: store the sum `value` of item `item` (a tile of
+// conv2_checksum, a band of conv1_tc) in its slot of out[b], b = item /
+// items_per. At the end of the caller's run of items of sample b (`flush`),
+// count the run's `run` items done in done[b], once: the fence stalls the
+// warp's whole warpgroup or block, too long to pay per item. The warp that
+// counts a sample's last items adds the sample's slots in a fixed order
+// (lane l takes slots l, l + 32, ..., then a shuffle tree) and fills out[b]
+// with the total. No float atomics: the result does not depend on the
+// grid, the batch or the order of the items.
+__device__ void publish(float value, float* out, unsigned int* done, int item, int items_per, int lane, int& run,
+                        bool flush) {
+  const int b = item / items_per;
   float* ob = out + size_t(b) * OUT_PER_SAMPLE;
-  if (lane == 0) ob[tile - b * tiles_per] = ((warp_sums[0] + warp_sums[1]) + warp_sums[2]) + warp_sums[3];
+  if (lane == 0) ob[item - b * items_per] = value;
   ++run;
   if (!flush) return;
   unsigned int last = 0;
   if (lane == 0) {
     __threadfence();  // the run's slots are visible before the count says so
-    last = atomicAdd(done + b, unsigned(run)) + unsigned(run) == unsigned(tiles_per);
+    last = atomicAdd(done + b, unsigned(run)) + unsigned(run) == unsigned(items_per);
   }
   run = 0;
   if (!__shfl_sync(0xffffffffu, last, 0)) return;
   __threadfence();
   float sum = 0.f;
-  for (int i = lane; i < tiles_per; i += 32) sum += __ldcg(ob + i);  // from L2, past L1
+  for (int i = lane; i < items_per; i += 32) sum += __ldcg(ob + i);  // from L2, past L1
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   const float4 v = make_float4(sum, sum, sum, sum);
   for (int i = lane; i < OUT_PER_SAMPLE / 4; i += 32) reinterpret_cast<float4*>(ob)[i] = v;
+}
+
+// A tile's sum: its four warps' sums, added in order.
+__device__ __forceinline__ float tile_sum(const float* warp_sums) {
+  return ((warp_sums[0] + warp_sums[1]) + warp_sums[2]) + warp_sums[3];
 }
 
 // h (B, t_in, f_in, CI), w (9, CI, CO) or with DX_LAYOUT w2dx (3, 3 CI, CO);
@@ -603,7 +600,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
         if (tile + S - 1 < end) halo(ring + (s == 0 ? S - 1 : s - 1) * uint32_t(C::X_BYTES), tile + S - 1);
         cp_async_commit();
         if (warp == 0 && tile > begin)  // the run of a sample ends where the next tile is another's
-          publish(s_sums[wg][par ^ 1], out, done, tile - 1, tiles_per, lane, run, tile % tiles_per == 0);
+          publish(tile_sum(s_sums[wg][par ^ 1]), out, done, tile - 1, tiles_per, lane, run, tile % tiles_per == 0);
       }
       if (t == 4 && lead) {
         stagger_release();
@@ -617,7 +614,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
 
     // acc[4j], acc[4j + 1]: conv row 2p at column col, channels 8j + 2tq, + 1;
     // acc[4j + 2], acc[4j + 3]: conv row 2p + 1. The tile's valid outputs,
-    // summed in a fixed order: thread, shuffle tree, then warps 0-3 in publish.
+    // summed in a fixed order: thread, shuffle tree, then warps 0-3 in tile_sum.
     const int b = tile / tiles_per, rem = tile - b * tiles_per;
     const int cb = rem / row_tiles, p = rem - cb * row_tiles;
     const int row = 2 * p, col = cb * TW + px0 + gid;
@@ -642,7 +639,7 @@ conv2_checksum(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __
     if (lane == 0) s_sums[wg][par][warp] = sum;
   }
   wg_barrier(wg);  // the last tile's warp sums are in
-  if (warp == 0 && begin < end) publish(s_sums[wg][par ^ 1], out, done, end - 1, tiles_per, lane, run, true);
+  if (warp == 0 && begin < end) publish(tile_sum(s_sums[wg][par ^ 1]), out, done, end - 1, tiles_per, lane, run, true);
 }
 
 int sm_count() {
@@ -676,13 +673,481 @@ cudaError_t launch_conv2(const bf16* h, const bf16* w, float* out, float* y, uns
   return cudaSuccess;
 }
 
-int blocks_per_sample(int kase, int rows, int cols) {
-  return kase <= I_PATCHES ? (rows + R1 - 1) / R1 : conv2_tiles(rows, cols);
+// ---- g, h, i, i2, v2, v3, a, c, h2, c2: conv1 on wgmma ----------------------
+
+constexpr int CO1 = 32;                      // conv1's output channels: wgmma's N
+constexpr int TC1_ROWS = 16;                 // a 2-D band: 16 output rows; its tiles 8 rows x 8 columns
+constexpr int TC1_IN = TC1_ROWS + 2;         // a 2-D band's input rows
+constexpr int TC1_B = CO1 * 16 * 2;          // B: 32 x 16 bf16 as 8 x 8 core matrices
+constexpr int TC1_ZERO = TC1_B;              // a zero row of 16 bytes: taps 9-15, masked pixels
+constexpr int TC1_TAPS = TC1_B + 128;        // then the tap store, then two raw stages
+enum Tc1Mode { TC_ROLL = 0, TC_SLICE = 1, TC_SAME = 2, TC_PATCHES = 3, TC_PLANES = 4, TC_FLAT = 5 };
+
+// A 1-D band's outputs (its tiles 64 of them; FLAT's raw stages are small,
+// so its bands are longer); a tap plane's bytes (= 16
+// mod 128: conflict-free ldmatrix); PLANES: a plane's raw segment (elements),
+// a band and two partial chunks.
+__host__ __device__ constexpr int tc1_pix(int mode) { return mode == TC_FLAT ? 2048 : 1024; }
+__host__ __device__ constexpr int tc1_plane_b(int mode) { return 2 * tc1_pix(mode) + 16; }
+__host__ __device__ constexpr int tc1_seg(int mode) { return tc1_pix(mode) + 16; }
+
+// A launch's geometry (host-computed). Outputs per result: rows x cols
+// (FLAT: rows = chunks of cols outputs each), y (n_res, rows, cols, 32).
+struct Tc1 {
+  int n_res, bands, bpc;  // results; bands (result slots) per result; FLAT: bands per chunk
+  int rows, cols;
+  int t_in, f_in;         // input rows and row width (FLAT: the flat row's length L and its width W)
+  int group;              // SAME: samples per result (v3: 8)
+  int win;                // SLICE: output columns per window (window i reads from min(i win, f_in - win - 2))
+  long long res_stride;   // input elements from one result to the next
+  long long plane;        // PLANES: elements from one tap plane to the next
+  long long in_total;     // input elements the launch may read (copies past them read zeros)
+  int rsb;                // 2-D: bytes of a staged copy row (= 16 mod 128)
+  int raw_bytes;          // bytes of one raw stage
+};
+
+__host__ __device__ constexpr bool tc1_rows(int mode) { return mode <= TC_SAME; }
+
+Tc1 tc1_geom(int mode, int n_res, int rows, int cols, int t_in, int f_in, int group, int win, long long res_stride,
+             long long plane, long long in_total) {
+  Tc1 p{};
+  p.n_res = n_res, p.rows = rows, p.cols = cols, p.t_in = t_in, p.f_in = f_in, p.group = group, p.win = win;
+  p.res_stride = res_stride, p.plane = plane, p.in_total = in_total, p.bpc = 1;
+  if (tc1_rows(mode)) {
+    p.bands = (rows + TC1_ROWS - 1) / TC1_ROWS;
+    p.rsb = (cols + 7) / 8 * 16;
+    p.rsb += (16 - p.rsb % 128 + 128) % 128;
+    p.raw_bytes = (TC1_IN * f_in + 16) * 2;
+  } else if (mode == TC_FLAT) {
+    p.bpc = (cols + tc1_pix(mode) - 1) / tc1_pix(mode);
+    p.bands = rows * p.bpc;
+    p.raw_bytes = (tc1_pix(mode) + 2 * f_in + 2 + 16) * 2;
+  } else {
+    p.bands = int(((long long)rows * cols + tc1_pix(mode) - 1) / tc1_pix(mode));
+    p.raw_bytes = mode == TC_PLANES ? 9 * tc1_seg(mode) * 2 : (9 * tc1_pix(mode) + 16) * 2;
+  }
+  p.raw_bytes = (p.raw_bytes + 15) / 16 * 16 + 32;  // raw8 reads up to 15 elements past its last
+  return p;
 }
 
-template <typename K>
-cudaError_t set_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+size_t tc1_smem(int mode, const Tc1& p) {
+  const size_t taps = tc1_rows(mode) ? size_t(TC1_IN) * 3 * p.rsb : size_t(9) * tc1_plane_b(mode);
+  return TC1_TAPS + taps + 2 * size_t(p.raw_bytes);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// D (64 x 32 f32) = A (64 x 16 bf16 in registers) * B (16 x 32, K-major by
+// descriptor): scale-d = 0, so D starts from zero (no zeroing instructions).
+__device__ __forceinline__ void wgmma_n32_fresh(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
+// B's descriptor: no swizzle, 8 x 8 core matrices of 128 bytes, the two
+// along K 128 bytes apart (LBO), the four along N 256 apart (SBO).
+__device__ __forceinline__ uint64_t tc1_b_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ uint32_t half_on(uint32_t lo, uint32_t hi) { return __funnelshift_r(lo, hi, 16); }
+
+// Raw elements e .. e + 7 of a stage: the aligned 16-byte chunks holding
+// them, shifted by e % 8. A warp's lanes read neighbouring chunks (no bank
+// conflicts) at one e % 8 (the builds step e by whole chunks across lanes),
+// so the switch does not diverge. Reads up to 15 elements past e.
+__device__ __forceinline__ uint4 raw8(const unsigned char* raw, int e) {
+  const uint4* c = reinterpret_cast<const uint4*>(raw) + (e >> 3);
+  const uint4 a = c[0];
+  if ((e & 7) == 0) return a;
+  const uint4 b = c[1];
+  switch (e & 7) {
+    case 1: return make_uint4(half_on(a.x, a.y), half_on(a.y, a.z), half_on(a.z, a.w), half_on(a.w, b.x));
+    case 2: return make_uint4(a.y, a.z, a.w, b.x);
+    case 3: return make_uint4(half_on(a.y, a.z), half_on(a.z, a.w), half_on(a.w, b.x), half_on(b.x, b.y));
+    case 4: return make_uint4(a.z, a.w, b.x, b.y);
+    case 5: return make_uint4(half_on(a.z, a.w), half_on(a.w, b.x), half_on(b.x, b.y), half_on(b.y, b.z));
+    case 6: return make_uint4(a.w, b.x, b.y, b.z);
+    default: return make_uint4(half_on(a.w, b.x), half_on(b.x, b.y), half_on(b.y, b.z), half_on(b.z, b.w));
+  }
+}
+
+__device__ __forceinline__ unsigned short raw1(const unsigned char* raw, int e) {
+  return reinterpret_cast<const unsigned short*>(raw)[e];
+}
+
+// Eight bf16 (bits) into a 16-byte row.
+__device__ __forceinline__ uint4 pack8(const unsigned short (&v)[8]) {
+  return make_uint4(v[0] | uint32_t(v[1]) << 16, v[2] | uint32_t(v[3]) << 16, v[4] | uint32_t(v[5]) << 16,
+                    v[6] | uint32_t(v[7]) << 16);
+}
+
+// 16-byte copies of input elements [g0, g1) into `dst`, from the 8-element
+// boundary at or below g0, so that every copy is aligned: element g0 lands
+// at element g0 % 8 of the stage. Elements at or past `total` read zero.
+__device__ __forceinline__ void copy_span(uint32_t dst, const bf16* __restrict__ x, long long g0, long long g1,
+                                          long long total, int lane0, int lanes) {
+  const long long a0 = g0 & ~7LL;
+  const int n = int((g1 - a0 + 7) >> 3);
+  for (int i = lane0; i < n; i += lanes) {
+    const long long e = a0 + 8LL * i, left = total - e;
+    const int bytes = left >= 8 ? 16 : left > 0 ? int(left) * 2 : 0;
+    cp_async16(dst + 16u * i, bytes ? x + e : x, bytes);
+  }
+}
+
+// A band's place: its result, its index in the result (its slot) and, for
+// FLAT, its chunk and its part of the chunk. Stepped, not divided, from one
+// band to the next.
+struct Tc1Pos {
+  int res, bi, chunk, part;
+  __device__ Tc1Pos(const Tc1& p, int band)
+      : res(band / p.bands), bi(band - res * p.bands), chunk(bi / p.bpc), part(bi - chunk * p.bpc) {}
+  __device__ void next(const Tc1& p) {
+    if (++part == p.bpc) part = 0, ++chunk;
+    if (++bi == p.bands) bi = 0, chunk = 0, ++res;
+  }
+};
+
+// FLAT: chunk c's clamped tap offsets, min(dy W + dx, L - win - c win).
+__device__ __forceinline__ int flat_lim(const Tc1& p, int chunk) { return p.t_in - p.cols - chunk * p.cols; }
+
+// The raw copies of band `band` into the stage at `dst` (all threads; one
+// cp.async group is committed by the caller). 2-D: the band's input rows,
+// contiguous in x (v3: across the group's samples); PATCHES: its pixels'
+// 9-tap records; PLANES: its pixels in each of the 9 planes; FLAT: the
+// span its taps read.
+template <int MODE>
+__device__ void tc1_stage(uint32_t dst, const bf16* __restrict__ x, const Tc1& p, const Tc1Pos& at) {
+  const int bi = at.bi;
+  const long long base = at.res * p.res_stride;
+  if constexpr (tc1_rows(MODE)) {
+    const int u0 = bi * TC1_ROWS - (MODE == TC_SAME), n_in = MODE == TC_SAME ? p.group * p.t_in : p.t_in;
+    const int lo = max(u0, 0), hi = min(u0 + TC1_IN, n_in);
+    if (hi > lo)
+      copy_span(dst, x, base + (long long)lo * p.f_in, base + (long long)hi * p.f_in, p.in_total, threadIdx.x,
+                THREADS);
+  } else if constexpr (MODE == TC_FLAT) {
+    const int chunk = at.chunk, i0 = at.part * tc1_pix(MODE), nv = min(tc1_pix(MODE), p.cols - i0);
+    const int lim = flat_lim(p, chunk);
+    const long long g = base + (long long)chunk * p.cols + i0;
+    copy_span(dst, x, g + min(0, lim), g + nv + min(2 * p.f_in + 2, lim), p.in_total, threadIdx.x, THREADS);
+  } else {
+    const int p0 = bi * tc1_pix(MODE), nv = int(min((long long)tc1_pix(MODE), (long long)p.rows * p.cols - p0));
+    if constexpr (MODE == TC_PATCHES) {
+      copy_span(dst, x, base + 9LL * p0, base + 9LL * (p0 + nv), p.in_total, threadIdx.x, THREADS);
+    } else {  // 9 segments of tc1_seg(MODE) elements; threads 28 k .. 28 k + 27 copy plane k's
+      const int k = threadIdx.x / 28;
+      if (k < 9) {
+        const long long g = base + k * p.plane + p0;
+        copy_span(dst + k * tc1_seg(MODE) * 2, x, g, g + nv, p.in_total, threadIdx.x - 28 * k, 28);
+      }
+    }
+  }
+}
+
+// The tap store of band `band` from its raw stage `raw` (all threads).
+// 2-D: for each of the band's TC1_IN input rows and dx = 0, 1, 2 a copy row
+// of the output columns' tap-dx inputs (row r at r * 3 rsb, copy dx at dx *
+// rsb): column j holds the input column tap dx reads for output column j --
+// (j + dx - 1) mod f_in (ROLL), j + dx in j's window (SLICE), j + dx - 1 or
+// zero past the edge (SAME) -- and zero for j >= cols or rows outside the
+// input. 1-D: plane k holds tap k of the band's outputs (zero past them).
+template <int MODE>
+__device__ void tc1_build(unsigned char* taps, const unsigned char* raw, const Tc1& p, const Tc1Pos& at) {
+  const int bi = at.bi;
+  const long long base = at.res * p.res_stride;
+  if constexpr (tc1_rows(MODE)) {
+    const int u0 = bi * TC1_ROWS - (MODE == TC_SAME), n_in = MODE == TC_SAME ? p.group * p.t_in : p.t_in;
+    const int lo = max(u0, 0);
+    const int lead = int((base + (long long)lo * p.f_in) & 7);  // raw element of (row lo, column 0)
+    const int gpr = (p.cols + 7) / 8;
+    for (int it = threadIdx.x; it < 3 * gpr; it += THREADS) {
+      const int dx = it / gpr, q = it - dx * gpr, j0 = 8 * q;
+      int src0, wi = 0, wstart = 0;  // the input column of output column j0; SLICE: j0's window and its start
+      bool fast;                     // 8 contiguous input columns inside the row
+      if constexpr (MODE == TC_SLICE) {
+        wi = j0 / p.win;
+        wstart = wi * p.win;
+        src0 = min(wstart, p.f_in - p.win - 2) + j0 - wstart + dx;
+        fast = j0 + 7 < p.cols && j0 + 7 < wstart + p.win;
+      } else {
+        src0 = j0 + dx - 1;
+        fast = j0 + 7 < p.cols && src0 >= 0 && src0 + 7 < p.f_in;
+      }
+      unsigned char* dst = taps + dx * p.rsb + 16 * q;
+      for (int r = 0; r < TC1_IN; ++r) {
+        const int u = u0 + r;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (u >= 0 && u < n_in) {
+          const int e0 = lead + (u - lo) * p.f_in;  // raw element of (row u, column 0)
+          if (fast) {
+            v = raw8(raw, e0 + src0);
+          } else {  // an edge chunk: each column by the case's map (-1: zero)
+            unsigned short h[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int j = j0 + e;
+              int c = -1;
+              if (j < p.cols) {
+                if constexpr (MODE == TC_ROLL) {
+                  c = j + dx - 1;
+                  c += c < 0 ? p.f_in : c >= p.f_in ? -p.f_in : 0;
+                } else if constexpr (MODE == TC_SLICE) {
+                  // a chunk spans at most two windows of 8 or more columns
+                  const int wj = p.win >= 8 ? (j < wstart + p.win ? wi : wi + 1) : j / p.win;
+                  c = min(wj * p.win, p.f_in - p.win - 2) + j - wj * p.win + dx;
+                } else {
+                  c = j + dx - 1;
+                  if (c >= p.f_in) c = -1;
+                }
+              }
+              h[e] = c >= 0 ? raw1(raw, e0 + c) : (unsigned short)0;
+            }
+            v = pack8(h);
+          }
+        }
+        *reinterpret_cast<uint4*>(dst + r * 3 * p.rsb) = v;
+      }
+    }
+  } else {
+    // the band's outputs; the raw element of output 0's tap k is ld0 + k (PATCHES), ld0 + the
+    // chunk's clamped offset of tap k (FLAT), or k segments on and (ld0 + k plane) % 8 (PLANES)
+    int nv, ld0, lim = 0, plane8 = 0;
+    if constexpr (MODE == TC_FLAT) {
+      const int chunk = at.chunk, i0 = at.part * tc1_pix(MODE);
+      lim = flat_lim(p, chunk);
+      nv = min(tc1_pix(MODE), p.cols - i0);
+      ld0 = int((base + (long long)chunk * p.cols + i0 + min(0, lim)) & 7) - min(0, lim);
+    } else {
+      const int p0 = bi * tc1_pix(MODE);
+      nv = int(min((long long)tc1_pix(MODE), (long long)p.rows * p.cols - p0));
+      ld0 = MODE == TC_PATCHES ? int((base + 9LL * p0) & 7) : int((base + p0) & 7);
+      plane8 = int(p.plane & 7);
+    }
+    for (int it = threadIdx.x; it < 9 * (tc1_pix(MODE) / 8); it += THREADS) {
+      const int k = it / (tc1_pix(MODE) / 8), q = it - k * (tc1_pix(MODE) / 8), i0 = 8 * q;
+      const int ld = MODE == TC_FLAT      ? ld0 + min((k / 3) * p.f_in + k % 3, lim)
+                     : MODE == TC_PLANES ? k * tc1_seg(MODE) + ((ld0 + k * plane8) & 7)
+                                         : ld0 + k;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (MODE != TC_PATCHES && i0 + 7 < nv) {
+        v = raw8(raw, ld + i0);
+      } else if (i0 < nv) {
+        unsigned short h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[e] = i0 + e < nv ? raw1(raw, ld + (MODE == TC_PATCHES ? 9 : 1) * (i0 + e)) : (unsigned short)0;
+        v = pack8(h);
+      }
+      *reinterpret_cast<uint4*>(taps + k * tc1_plane_b(MODE) + 16 * q) = v;
+    }
+  }
+}
+
+// x: g, h, a, h2 (ROLL, SLICE): (results, t_in, f_in); v2, v3 (SAME): the
+// results' group x t_in rows of f_in; i (PATCHES): (results, rows x cols,
+// 9); i2 (PLANES): (results, 9, t_in, f_in), cols = f_in; c, c2 (FLAT): each
+// result's flat row of L = t_in elements, res_stride apart. w: (9, 32), or
+// with W_CO_K (32, 16) read as it is (k = 9..15 meet zero taps). Persistent
+// blocks walk a contiguous range of (result, band) pairs; a band's tiles
+// are split between the block's two warpgroups, tile j to warpgroup j % 2.
+template <int MODE, bool W_CO_K = false>
+__global__ void __launch_bounds__(THREADS, 4)
+conv1_tc(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ out, float* __restrict__ y,
+         unsigned int* __restrict__ done, const Tc1 p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_warp[THREADS / 32];
+  const uint32_t s0 = smem_u32(smem), taps = s0 + TC1_TAPS;  // shared addresses
+  const int raw_off = TC1_TAPS + (tc1_rows(MODE) ? TC1_IN * 3 * p.rsb : 9 * tc1_plane_b(MODE));  // the stages' offset
+  const int n_bands = p.n_res * p.bands;
+  const int begin = int((long long)n_bands * blockIdx.x / gridDim.x);
+  const int end = int((long long)n_bands * (blockIdx.x + 1) / gridDim.x);
+
+  // the first two bands' copies fly while B is stored
+  Tc1Pos cur(p, begin), ahead(p, begin);  // this band; the band whose copies are issued next
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (begin + k < end) tc1_stage<MODE>(s0 + raw_off + k * p.raw_bytes, x, p, ahead);
+    ahead.next(p);
+    cp_async_commit();
+  }
+  for (int i = threadIdx.x; i < CO1 * 16; i += THREADS) {  // B[k][n] at core matrix (n / 8, k / 8)
+    const int n = i >> 4, k = i & 15;
+    const bf16 v = W_CO_K ? w[i] : k < 9 ? w[k * CO1 + n] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<bf16*>(smem + (n >> 3) * 256 + (k >> 3) * 128 + (n & 7) * 16 + (k & 7) * 2) = v;
+  }
+  if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(smem + TC1_ZERO)[threadIdx.x] = 0u;
+  fence_proxy_async();  // B's ordinary stores, before wgmma (the async proxy) reads them
+  const uint64_t b_desc = tc1_b_desc(s0);
+
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, wg = threadIdx.x >> 7;
+  const int gid = lane >> 2, tq = lane & 3;
+  // ldmatrix.x4.trans lane l reads row l % 8 of matrix l / 8: matrix m holds
+  // taps 8 (m / 2) .. + 7 (rows) of the 8 outputs of group 2 warp + m % 2
+  // (columns), transposed into the A fragment (rows outputs, k taps).
+  const int grp = 2 * warp + ((lane >> 3) & 1), tap = (lane >> 4) * 8 + (lane & 7);
+  const int dy = tap / 3, dx = tap - 3 * dy;
+  uint32_t a_base = s0 + TC1_ZERO, a_step = 0;  // this lane's row of tile 0, and from tile to tile
+  if (!tc1_rows(MODE) && tap < 9) a_base = taps + tap * tc1_plane_b(MODE) + 16 * grp, a_step = 128;
+
+  int run = 0;  // warp 0: slots stored since the last count
+  for (int band = begin, s = 0; band < end; ++band, s ^= 1, cur.next(p)) {
+    const int res = cur.res, bi = cur.bi;
+    const int raw = raw_off + s * p.raw_bytes;
+    cp_async_wait<1>();
+    __syncthreads();  // the band's copies are in; the last band's tiles are done with the tap store
+    tc1_build<MODE>(smem + TC1_TAPS, smem + raw, p, cur);
+    __syncthreads();  // the tap store is built; the stage is free
+    if (band + 2 < end) tc1_stage<MODE>(s0 + raw, x, p, ahead);
+    ahead.next(p);
+    cp_async_commit();
+
+    int n_tiles, t_a = 0, pix = 0, nv = 0;  // 2-D: the accumulators' first output row; 1-D: the band's outputs
+    // 2-D: the lane's row of the first tile of the band's rows 8 half .. 8 half + 7
+    auto set_half = [&](int half) {
+      const int g = 8 * half + grp, t_g = bi * TC1_ROWS + g;  // the lane's group: a band row
+      a_base = s0 + TC1_ZERO, a_step = 0;
+      bool on = tap < 9 && t_g < p.rows;
+      if (MODE == TC_SAME && on) {  // a tap above a sample's first row or below its last reads zero
+        const int t = t_g % p.t_in;
+        on = !(dy == 0 && t == 0) && !(dy == 2 && t == p.t_in - 1);
+      }
+      if (on) a_base = taps + (g + dy) * 3 * p.rsb + dx * p.rsb, a_step = 16;
+      t_a = bi * TC1_ROWS + 8 * half + 2 * warp;
+    };
+    if (tc1_rows(MODE)) {
+      n_tiles = (p.cols + 7) / 8;
+    } else {
+      if constexpr (MODE == TC_FLAT) {
+        const int i0 = cur.part * tc1_pix(MODE);
+        pix = cur.chunk * p.cols + i0, nv = min(tc1_pix(MODE), p.cols - i0);
+      } else {
+        pix = bi * tc1_pix(MODE), nv = int(min((long long)tc1_pix(MODE), (long long)p.rows * p.cols - pix));
+      }
+      n_tiles = (nv + 63) / 64;
+    }
+
+    float sum = 0.f, sum_odd = 0.f;  // the even and the odd accumulators' y: two add chains
+    // the tile loop, compiled with and without y's stores (no test per tile);
+    // unrolled twice, so that the next tile's ldmatrix is issued while this
+    // tile's y are summed
+    auto tiles = [&](auto with_y) {
+      uint32_t a_addr = a_base + wg * a_step;
+#pragma unroll 2
+      for (int j = wg; j < n_tiles; j += 2, a_addr += 2 * a_step) {
+        uint32_t a[4];
+        ldsm_x4_trans(a_addr, a);
+        float d[16];
+        wgmma_fence();  // the A registers just written, before wgmma reads them
+        wgmma_n32_fresh(d, a, b_desc);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d);
+        // d[4n], d[4n + 1]: output (2-D: row t_a, column 8j + gid; 1-D: 64j +
+        // 16 warp + gid), channels 8n + 2tq, + 1; d[4n + 2], d[4n + 3]: the
+        // next row (1-D: 8 outputs on). Outputs past the edges have zero taps,
+        // so their y is 0: every y of the tile is summed, in a fixed order.
+#pragma unroll
+        for (int i = 0; i < 16; i += 2) sum += d[i], sum_odd += d[i + 1];
+        if constexpr (decltype(with_y)::value) {
+          bool ok0, ok1;
+          float *y0, *y1;
+          if (tc1_rows(MODE)) {
+            const int col = 8 * j + gid;
+            ok0 = col < p.cols && t_a < p.rows, ok1 = col < p.cols && t_a + 1 < p.rows;
+            y0 = y + ((size_t(res) * p.rows + t_a) * p.cols + col) * CO1 + 2 * tq;
+            y1 = y0 + size_t(p.cols) * CO1;
+          } else {
+            const int i = 64 * j + 16 * warp + gid;
+            ok0 = i < nv, ok1 = i + 8 < nv;
+            y0 = y + (size_t(res) * p.rows * p.cols + pix + i) * CO1 + 2 * tq;
+            y1 = y0 + 8 * CO1;
+          }
+#pragma unroll
+          for (int n = 0; n < CO1 / 8; ++n) {
+            if (ok0) *reinterpret_cast<float2*>(y0 + 8 * n) = make_float2(d[4 * n], d[4 * n + 1]);
+            if (ok1) *reinterpret_cast<float2*>(y1 + 8 * n) = make_float2(d[4 * n + 2], d[4 * n + 3]);
+          }
+        }
+      }
+    };
+    for (int half = 0; half < (tc1_rows(MODE) ? TC1_ROWS / 8 : 1); ++half) {
+      if constexpr (tc1_rows(MODE)) set_half(half);
+      if (y) tiles(std::true_type{});
+      else tiles(std::false_type{});
+    }
+    // the band's sum: threads, a shuffle tree, then the block's 8 warps in order
+    sum += sum_odd;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) s_warp[threadIdx.x >> 5] = sum;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      float total = 0.f;
+#pragma unroll
+      for (int i = 0; i < THREADS / 32; ++i) total += s_warp[i];
+      publish(total, out, done, band, p.bands, lane, run, band + 1 == end || bi + 1 == p.bands);
+    }
+  }
+}
+
+// One persistent launch: as many blocks as fit at once, at most one per band.
+template <int MODE, bool W_CO_K = false>
+cudaError_t launch_conv1_tc(const bf16* x, const bf16* w, float* out, float* y, unsigned int* done, const Tc1& p,
+                            cudaStream_t s) {
+  auto kern = conv1_tc<MODE, W_CO_K>;
+  const size_t smem = tc1_smem(MODE, p);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // < 2^31: results <= 65535 and bands <= OUT_PER_SAMPLE, checked by the entries
+  const long long bands = (long long)p.n_res * p.bands, cap = (long long)per_sm * sm_count();
+  kern<<<int(bands < cap ? bands : cap), THREADS, smem, s>>>(x, w, out, y, done, p);
+  return cudaSuccess;
+}
+
+// The instance of conv1_tc for `mode` (FLAT: W_CO_K for c2's wt).
+cudaError_t launch_tc1(int mode, bool w_co_k, const bf16* x, const bf16* w, float* out, float* y, unsigned int* done,
+                       const Tc1& p, cudaStream_t s) {
+  switch (mode) {
+    case TC_ROLL: return launch_conv1_tc<TC_ROLL>(x, w, out, y, done, p, s);
+    case TC_SLICE: return launch_conv1_tc<TC_SLICE>(x, w, out, y, done, p, s);
+    case TC_SAME: return launch_conv1_tc<TC_SAME>(x, w, out, y, done, p, s);
+    case TC_PATCHES: return launch_conv1_tc<TC_PATCHES>(x, w, out, y, done, p, s);
+    case TC_PLANES: return launch_conv1_tc<TC_PLANES>(x, w, out, y, done, p, s);
+    default:
+      return w_co_k ? launch_conv1_tc<TC_FLAT, true>(x, w, out, y, done, p, s)
+                    : launch_conv1_tc<TC_FLAT>(x, w, out, y, done, p, s);
+  }
+}
+
+// g, h, i (dfac_conv_probe kase 0-2) on conv1_tc: ROLL, SLICE (one window
+// of all cols), PATCHES.
+int probe_tc1_mode(int kase) { return kase == G_ROLL ? TC_ROLL : kase == H_SLICE ? TC_SLICE : TC_PATCHES; }
+Tc1 probe_tc1(int kase, int batch, int t_in, int f_in, int rows, int cols) {
+  const long long per = kase == I_PATCHES ? 9LL * rows * cols : (long long)t_in * f_in;
+  return tc1_geom(probe_tc1_mode(kase), batch, rows, cols, t_in, f_in, 1, cols, per, 0, batch * per);
+}
+
+int blocks_per_sample(int kase, int rows, int cols) {
+  return kase <= I_PATCHES ? probe_tc1(kase, 1, rows + 2, cols, rows, cols).bands : conv2_tiles(rows, cols);
 }
 
 // ---- K7 / K8 (stages 11 and 12) -------------------------------------------
@@ -713,170 +1178,6 @@ sum_sq_checksum(const bf16* __restrict__ x, float* __restrict__ out, unsigned in
     }
   }
   finish_sample(block_sum(s + q), out, done);
-}
-
-// v2, v3, a, c: conv1 with N = 32 output channels on the tensor cores.
-constexpr int CO1 = 32;
-constexpr int FLAT_CHUNK = 2048;  // c: outputs per block
-enum MmaMode { M_SAME = 0, M_VALID = 1, M_FLAT = 2 };
-
-// Elements of the block's input window in shared memory (after the 16 x 32
-// weights). SAME: t_in, f_in are x's; VALID: the same; FLAT: t_in = L, f_in = W
-// (a chunk of outputs reaches 2W + 2 further).
-size_t conv1_mma_smem(int mode, int f_in) {
-  const size_t elems = mode == M_SAME    ? size_t(R1 + 2) * (f_in + 2)
-                       : mode == M_VALID ? size_t(R1 + 2) * f_in
-                                         : size_t(FLAT_CHUNK) + 2 * size_t(f_in) + 2;
-  return (size_t(CO1) * 16 + elems) * sizeof(bf16);
-}
-
-// Output blocks per result block: SAME, a sample (or v3's group of `group`
-// samples) of t_in rows; VALID, `rows` output rows; FLAT, n_win chunks of
-// `win` outputs.
-int conv1_mma_blocks(int mode, int t_in, int group, int rows, int win, int n_win) {
-  if (mode == M_SAME) return (group * t_in + R1 - 1) / R1;
-  if (mode == M_VALID) return (rows + R1 - 1) / R1;
-  return n_win * ((win + FLAT_CHUNK - 1) / FLAT_CHUNK);
-}
-
-// w: (9, 32), or with W_CO_K (32, 16) read as it is (k = 9..15 meet zero taps).
-// SAME: x (B, t_in, f_in); result block blockIdx.y covers samples
-//   blockIdx.y * group .. + group - 1 (group = 1 but for v3): (group t_in) x f_in outputs.
-// VALID: x (B, t_in, f_in); output rows t < rows and n_win windows of `win`
-//   columns; window i reads input columns from min(i win, f_in - win - 2),
-//   as jax.lax.dynamic_slice clamps the start of a (win + 2)-wide slice
-//   (stage 12's a: one window of f_in - 2; stage 14's h2: two of 128).
-// FLAT: the flat padded row of each sample (L = t_in elements, row width W =
-//   f_in) starts in_stride elements after the previous one; n_win chunks of
-//   `win` outputs; output m of chunk c reads tap k at m + min(dy W + dx, L -
-//   win - c win), the start clamped as in VALID (stage 12's c: one chunk of
-//   L - 2W; stage 15's c2: eight of 8,192).
-// y, when given, is (results, rows, cols, 32) f32.
-template <int MODE, bool W_CO_K = false>
-__global__ void __launch_bounds__(THREADS)
-conv1_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ out,
-          float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int group, int rows,
-          int win, int n_win, long long in_stride) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);  // [co][k]: taps 0-8, then zeros or wt's own k = 9..15
-  bf16* sX = sW + CO1 * 16;                  // the block's input window
-  const unsigned short* sXu = reinterpret_cast<const unsigned short*>(sX);
-  const int bo = blockIdx.y;
-
-  for (int i = threadIdx.x; i < CO1 * 16; i += THREADS) {
-    const int co = i / 16, k = i % 16;
-    sW[i] = W_CO_K ? w[i] : k < 9 ? w[k * CO1 + co] : __float2bfloat16_rn(0.f);
-  }
-
-  // the result block's outputs: n_rows x cols; this block's window starts at
-  // output row row0 and, for FLAT (one row of outputs), at column c_base, and
-  // holds c_lim columns of outputs
-  int stride, n_rows, cols, c_lim, row0 = 0, c_base = 0, flat_lim = 0;
-  __shared__ int s_edge[R1];  // SAME: bit 0, output row r is a sample's first row; bit 1, its last
-  if (MODE == M_SAME) {
-    stride = f_in + 2, n_rows = group * t_in, cols = c_lim = f_in, row0 = blockIdx.x * R1;
-    // the group's samples are contiguous: its row v is row v % T of sample v / T
-    stage_padded<R1>(sX, x + size_t(bo) * n_rows * f_in, n_rows, f_in, row0);
-    if (threadIdx.x < R1) {
-      const int t = (row0 + threadIdx.x) % t_in;
-      s_edge[threadIdx.x] = (t == 0 ? 1 : 0) | (t == t_in - 1 ? 2 : 0);
-    }
-  } else if (MODE == M_VALID) {
-    stride = f_in, n_rows = rows, cols = c_lim = n_win * win, row0 = blockIdx.x * R1;
-    const int valid = max(0, min(t_in - row0, R1 + 2)) * f_in;
-    stage(sX, x + (size_t(bo) * t_in + row0) * f_in, (R1 + 2) * f_in, valid, f_in % 8 == 0);
-  } else {
-    const int parts = (win + FLAT_CHUNK - 1) / FLAT_CHUNK, chunk = blockIdx.x / parts;
-    const int part = blockIdx.x - chunk * parts;
-    stride = f_in, n_rows = 1, cols = n_win * win;
-    c_base = chunk * win + part * FLAT_CHUNK, c_lim = min(FLAT_CHUNK, win - part * FLAT_CHUNK);
-    flat_lim = t_in - win - chunk * win;  // a tap offset past it is clamped to it
-    const int start = c_base + min(0, flat_lim);  // tap 0's window; every tap starts at or after it
-    const int n = FLAT_CHUNK + 2 * f_in + 2;
-    stage(sX, x + size_t(bo) * in_stride + start, n, min(n, t_in - start), false);
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tq = lane & 3;
-  // this thread's taps in the A fragment: k = 2tq, 2tq + 1 and (tq = 0) k = 8
-  int off[3], dyk[3];
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const int k = e < 2 ? 2 * tq + e : 8, dy = k / 3, dx = k % 3;
-    dyk[e] = dy;
-    off[e] = MODE == M_FLAT ? min(dy * stride + dx, flat_lim) - min(0, flat_lim) : dy * stride + dx;
-  }
-  uint32_t bw[CO1 / 8][2];  // B fragments: rows k, column co = 8 j + gid
-#pragma unroll
-  for (int j = 0; j < CO1 / 8; ++j) {
-    bw[j][0] = ld32(sW + (8 * j + gid) * 16 + 2 * tq);
-    bw[j][1] = ld32(sW + (8 * j + gid) * 16 + 2 * tq + 8);
-  }
-
-  const int ct = MODE == M_FLAT ? FLAT_CHUNK / 16 : (cols + 15) / 16;  // 16-output tiles per row
-  const int n_rows_blk = MODE == M_FLAT ? 1 : R1;
-  float s = 0.f;
-  // warp w takes tiles w, w + 8, ... of the block's n_rows_blk x ct tiles, row by row
-  int r = warp / ct, cb = warp % ct;
-  for (; r < n_rows_blk; cb += THREADS / 32) {
-    while (cb >= ct) cb -= ct, ++r;
-    if (r >= n_rows_blk) break;
-    const int c0 = cb * 16, row = row0 + r;
-    bool tap_ok[3] = {true, true, true};
-    if (MODE == M_SAME) {  // taps above the first / below the last row of a sample read zero
-      const int edge = s_edge[r];
-#pragma unroll
-      for (int e = 0; e < 3; ++e) tap_ok[e] = !((dyk[e] == 0 && (edge & 1)) || (dyk[e] == 2 && (edge & 2)));
-    }
-    uint32_t a[4];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {  // pixels gid and gid + 8 of the tile
-      const int c = c0 + gid + 8 * hh;
-      int in_c = c;  // the input column of tap 0
-      if (MODE == M_VALID && n_win > 1) {  // window wi = c / win, by comparisons: a division costs ~20 instructions
-        int wi = 0;
-        while (wi + 1 < n_win && c >= (wi + 1) * win) ++wi;
-        in_c = min(wi * win, f_in - win - 2) + c - wi * win;
-      }
-      const int base = r * stride + in_c;
-      uint32_t lo = 0u, hi = 0u, k8 = 0u;
-      if (row < n_rows && c < c_lim) {
-        if (tap_ok[0]) lo = sXu[base + off[0]];
-        if (tap_ok[1]) hi = sXu[base + off[1]];
-        if (tq == 0 && tap_ok[2]) k8 = sXu[base + off[2]];
-      }
-      a[hh] = lo | (hi << 16);
-      a[2 + hh] = k8;
-    }
-    float acc[CO1 / 8][4];
-#pragma unroll
-    for (int j = 0; j < CO1 / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      mma_bf16(acc[j], a, bw[j][0], bw[j][1]);
-    }
-    // accumulator (j, 2 hh + e) holds y[pixel gid + 8 hh, co 8 j + 2 tq + e]; a
-    // pixel outside the outputs has a zero A row, so its y is 0
-#pragma unroll
-    for (int j = 0; j < CO1 / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s += acc[j][e];
-    if (y) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int c = c0 + gid + 8 * hh;
-        if (row >= n_rows || c >= c_lim) continue;
-        float* yp = y + ((size_t(bo) * n_rows + row) * cols + c_base + c) * CO1 + 2 * tq;
-#pragma unroll
-        for (int j = 0; j < CO1 / 8; ++j) {
-          yp[8 * j] = acc[j][2 * hh];
-          yp[8 * j + 1] = acc[j][2 * hh + 1];
-        }
-      }
-    }
-  }
-  finish_sample(block_sum(s), out, done);
 }
 
 // v4: x (B, t_in, f_in), w (9, n_out) -> out (B, t_in / 2, f_in, n_out) bf16:
@@ -933,28 +1234,42 @@ conv1_emit(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restr
   }
 }
 
-// Blocks per result block of a K7/K8 case (0: its geometry is refused).
+// v2, v3 (SAME), a (SLICE, one window) and c (FLAT, one chunk of Np - 2W)
+// on conv1_tc; batch is the results' count.
+int pass_tc1_mode(int kase) {
+  return kase == A_VALID_MMA ? TC_SLICE : kase == C_FLAT_MMA ? TC_FLAT : TC_SAME;
+}
+Tc1 pass_tc1(int kase, int batch, int t_in, int f_in, int group) {
+  const long long per = (long long)group * t_in * f_in;  // input elements per result (c: t_in = Np, f_in = W)
+  if (kase == A_VALID_MMA)
+    return tc1_geom(TC_SLICE, batch, t_in - 2, f_in - 2, t_in, f_in, 1, f_in - 2, per, 0, batch * per);
+  if (kase == C_FLAT_MMA)
+    return tc1_geom(TC_FLAT, batch, 1, t_in - 2 * f_in, t_in, f_in, 1, 0, t_in, 0, (long long)batch * t_in);
+  return tc1_geom(TC_SAME, batch, group * t_in, f_in, t_in, f_in, group, f_in, per, 0, batch * per);
+}
+
+// Blocks (conv1_tc: bands) per result block of a K7/K8 case (0: its
+// geometry is refused).
 int pass_blocks(int kase, int t_in, int f_in, int group) {
   switch (kase) {
     case V0_SUMS: return (t_in * f_in + V0_CHUNK - 1) / V0_CHUNK;
     case V1_SAME_FMA: return (t_in + R1 - 1) / R1;
-    case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? blocks_per_sample(H_SLICE, t_in - 2, f_in - 2) : 0;
+    case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? (t_in - 2 + R1 - 1) / R1 : 0;
     case F_CONV2_DX: return t_in >= 3 && f_in >= 3 ? conv2_tiles(t_in - 2, f_in - 2) : 0;
-    case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_blocks(M_SAME, t_in, group, 0, 0, 0);
-    case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? conv1_mma_blocks(M_VALID, t_in, 1, t_in - 2, f_in - 2, 1) : 0;
-    case C_FLAT_MMA: return t_in > 2 * f_in ? conv1_mma_blocks(M_FLAT, t_in, 1, 1, t_in - 2 * f_in, 1) : 0;
+    case V2_SAME_MMA: case V3_GROUP_MMA: return pass_tc1(kase, 1, t_in, f_in, group).bands;
+    case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? pass_tc1(kase, 1, t_in, f_in, 1).bands : 0;
+    case C_FLAT_MMA: return t_in > 2 * f_in ? pass_tc1(kase, 1, t_in, f_in, 1).bands : 0;
     default: return 0;
   }
 }
 
 size_t pass_smem(int kase, int f_in, int n_out) {
   switch (kase) {
-    case V1_SAME_FMA: return conv1_smem(SAME_PAD, f_in, f_in, n_out);
-    case D_VALID_FMA: return conv1_smem(H_SLICE, f_in, f_in - 2, n_out);
+    case V1_SAME_FMA: return conv1_smem(SAME_PAD, f_in, n_out);
+    case D_VALID_FMA: return conv1_smem(H_SLICE, f_in, n_out);
     case F_CONV2_DX: return Conv2Cfg<CI2, CO2>::SMEM;
-    case V2_SAME_MMA: case V3_GROUP_MMA: return conv1_mma_smem(M_SAME, f_in);
-    case A_VALID_MMA: return conv1_mma_smem(M_VALID, f_in);
-    case C_FLAT_MMA: return conv1_mma_smem(M_FLAT, f_in);
+    case V2_SAME_MMA: case V3_GROUP_MMA: case A_VALID_MMA: case C_FLAT_MMA:  // t_in only sizes the bands
+      return tc1_smem(pass_tc1_mode(kase), pass_tc1(kase, 1, 2 * f_in + 3, f_in, 1));
     case V4_EMIT: return size_t(9) * n_out * sizeof(float);
     default: return 0;
   }
@@ -962,7 +1277,7 @@ size_t pass_smem(int kase, int f_in, int n_out) {
 
 template <typename K, typename... Args>
 cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
-  cudaError_t err = set_smem(kern, smem);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err == cudaSuccess) kern<<<grid, THREADS, smem, s>>>(args...);
   return err;
 }
@@ -971,7 +1286,7 @@ cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t s, Args... args)
 
 // kase: 0 g, 1 h, 2 i, 3 j, 4 k. in: x (B, t_in, f_in) bf16 for g/h, patches
 // (B, rows, cols, 9) for i (t_in = rows, f_in = cols), h (B, t_in, f_in, 32)
-// for j/k; w: (9, n_out) for g/h/i, (9, 32, 64) for j/k (n_out = 64); out
+// for j/k; w: (9, 32) for g/h/i (n_out = 32), (9, 32, 64) for j/k (n_out = 64); out
 // (B, 8, 128) f32; y: null, or (B, rows, cols, n_out) f32 for every output;
 // done: B zeroed counters (scratch). 16-byte aligned `in`, `w` and `out`.
 // One kernel launch on `stream`, no synchronisation; returns
@@ -981,9 +1296,9 @@ extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* o
   if (kase < 0 || kase > K_ROLL || batch <= 0 || batch > 65535 || rows <= 0 || cols <= 0 || n_out <= 0 ||
       n_out > 1024 || blocks_per_sample(kase, rows, cols) > OUT_PER_SAMPLE ||
       (kase != I_PATCHES && rows + 2 > t_in) || ((kase == H_SLICE || kase == J_SLICE) && cols + 2 > f_in) ||
-      ((kase == G_ROLL || kase == K_ROLL) && cols != f_in) ||
-      (kase >= J_SLICE && (n_out != CO2 || size_t(t_in) * f_in > (size_t(1) << 30))) ||
-      (kase == I_PATCHES && (rows != t_in || cols != f_in)))
+      ((kase == G_ROLL || kase == K_ROLL) && cols != f_in) || size_t(t_in) * f_in > (size_t(1) << 30) ||
+      n_out != (kase >= J_SLICE ? CO2 : CO1) || (kase == I_PATCHES && (rows != t_in || cols != f_in)) ||
+      (kase <= I_PATCHES && tc1_smem(probe_tc1_mode(kase), probe_tc1(kase, 1, t_in, f_in, rows, cols)) > 232448))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* x = static_cast<const bf16*>(in);
@@ -991,22 +1306,8 @@ extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* o
   unsigned int* done = static_cast<unsigned int*>(done_);
   cudaError_t err = cudaSuccess;
   if (kase <= I_PATCHES) {
-    const dim3 grid(blocks_per_sample(kase, rows, cols), batch);
-    const size_t smem = conv1_smem(kase, f_in, cols, n_out);
-    const int vec = kase == I_PATCHES ? (cols * 9) % 8 == 0 : f_in % 8 == 0;
-    if (kase == G_ROLL) {
-      err = set_smem(conv1_checksum<G_ROLL>, smem);
-      if (err == cudaSuccess)
-        conv1_checksum<G_ROLL><<<grid, THREADS, smem, s>>>(x, wk, out, y, done, t_in, f_in, rows, cols, n_out, vec);
-    } else if (kase == H_SLICE) {
-      err = set_smem(conv1_checksum<H_SLICE>, smem);
-      if (err == cudaSuccess)
-        conv1_checksum<H_SLICE><<<grid, THREADS, smem, s>>>(x, wk, out, y, done, t_in, f_in, rows, cols, n_out, vec);
-    } else {
-      err = set_smem(conv1_checksum<I_PATCHES>, smem);
-      if (err == cudaSuccess)
-        conv1_checksum<I_PATCHES><<<grid, THREADS, smem, s>>>(x, wk, out, y, done, t_in, f_in, rows, cols, n_out, vec);
-    }
+    err = launch_tc1(probe_tc1_mode(kase), false, x, wk, out, y, done, probe_tc1(kase, batch, t_in, f_in, rows, cols),
+                     s);
   } else if (kase == J_SLICE) {
     err = launch_conv2<false, false, CI2, CO2>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
   } else {
@@ -1019,7 +1320,8 @@ extern "C" int dfac_conv_probe(int kase, const void* in, const void* w, float* o
 // Dynamic shared memory per block of the kernel dfac_conv_probe runs for
 // this case and geometry, in bytes.
 extern "C" int dfac_conv_probe_smem(int kase, int f_in, int cols, int n_out) {
-  return kase <= I_PATCHES ? int(conv1_smem(kase, f_in, cols, n_out)) : int(Conv2Cfg<CI2, CO2>::SMEM);
+  return kase <= I_PATCHES ? int(tc1_smem(probe_tc1_mode(kase), probe_tc1(kase, 1, 1, f_in, 1, cols)))
+                           : int(Conv2Cfg<CI2, CO2>::SMEM);
 }
 
 // Stages 11 and 12 (K7, K8). kase: 0 v0, 1 v1, 2 v2, 3 v3, 4 v4, 5 a, 6 c,
@@ -1070,14 +1372,9 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
       break;
     case V2_SAME_MMA:
     case V3_GROUP_MMA:
-      err = launch(conv1_mma<M_SAME>, grid, smem, s, x, wk, o, y, done, t_in, f_in, group, 0, 0, 0, 0LL);
-      break;
     case A_VALID_MMA:
-      err = launch(conv1_mma<M_VALID>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1, t_in - 2, f_in - 2, 1, 0LL);
-      break;
     case C_FLAT_MMA:
-      err = launch(conv1_mma<M_FLAT>, grid, smem, s, x, wk, o, y, done, t_in, f_in, 1, 1, t_in - 2 * f_in, 1,
-                   (long long)t_in);
+      err = launch_tc1(pass_tc1_mode(kase), false, x, wk, o, y, done, pass_tc1(kase, batch, t_in, f_in, group), s);
       break;
     case V4_EMIT: {
       const long long pixels = (long long)batch * (t_in / 2) * f_in;
@@ -1101,29 +1398,44 @@ namespace {
 
 enum Chunked { H2_WINDOWS = 0, I2_PLANES = 1, J4_CONV2_DX = 2, J5_CONV3 = 3, C2_FLAT_CHUNKS = 4 };
 
-// Blocks per sample of a K10/K11 case (0: its geometry is refused).
+// h2 (SLICE in windows of `win` columns), i2 (PLANES) and c2 (FLAT: cols /
+// win chunks of win outputs; xf's rows x t_in elements a sample) on conv1_tc.
+int chunk_tc1_mode(int kase) { return kase == H2_WINDOWS ? TC_SLICE : kase == I2_PLANES ? TC_PLANES : TC_FLAT; }
+Tc1 chunk_tc1(int kase, int batch, int t_in, int f_in, int rows, int cols, int win) {
+  if (kase == H2_WINDOWS) {
+    const long long per = (long long)t_in * f_in;
+    return tc1_geom(TC_SLICE, batch, rows, cols, t_in, f_in, 1, win, per, 0, batch * per);
+  }
+  if (kase == I2_PLANES) {
+    const long long per = 9LL * t_in * f_in;
+    return tc1_geom(TC_PLANES, batch, rows, cols, t_in, f_in, 1, 0, per, (long long)t_in * f_in, batch * per);
+  }
+  const long long per = (long long)rows * t_in;
+  return tc1_geom(TC_FLAT, batch, cols / win, win, t_in, f_in, 1, 0, per, 0, batch * per);
+}
+
+// Blocks (conv1_tc: bands) per sample of a K10/K11 case (0: its geometry is
+// refused).
 int chunk_blocks(int kase, int t_in, int f_in, int rows, int cols, int win) {
   switch (kase) {
     case H2_WINDOWS:
       return win > 0 && cols % win == 0 && rows + 2 <= t_in && win + 2 <= f_in
-                 ? conv1_mma_blocks(M_VALID, t_in, 1, rows, win, cols / win) : 0;
-    case I2_PLANES: return rows <= t_in && cols == f_in ? (rows + R1 - 1) / R1 : 0;
+                 ? chunk_tc1(kase, 1, t_in, f_in, rows, cols, win).bands : 0;
+    case I2_PLANES: return rows <= t_in && cols == f_in ? chunk_tc1(kase, 1, t_in, f_in, rows, cols, win).bands : 0;
     case J4_CONV2_DX: case J5_CONV3:
       return rows + 2 <= t_in && cols + 2 <= f_in ? conv2_tiles(rows, cols) : 0;
     case C2_FLAT_CHUNKS:
-      return win > 0 && cols % win == 0 && win <= t_in ? conv1_mma_blocks(M_FLAT, t_in, 1, 1, win, cols / win) : 0;
+      return win > 0 && cols % win == 0 && win <= t_in ? chunk_tc1(kase, 1, t_in, f_in, rows, cols, win).bands : 0;
     default: return 0;
   }
 }
 
 size_t chunk_smem(int kase, int f_in, int cols, int n_out) {
   switch (kase) {
-    case H2_WINDOWS: return conv1_mma_smem(M_VALID, f_in);
-    case I2_PLANES: return conv1_smem(I_PLANES, f_in, cols, n_out);
     case J4_CONV2_DX: return Conv2Cfg<CI2, CO2>::SMEM;
     case J5_CONV3: return Conv2Cfg<CI3, CO3>::SMEM;
-    case C2_FLAT_CHUNKS: return conv1_mma_smem(M_FLAT, f_in);
-    default: return 0;
+    default:  // h2, i2, c2: the rows, the window and the chunks only size the bands
+      return tc1_smem(chunk_tc1_mode(kase), chunk_tc1(kase, 1, 1, f_in, 1, cols, cols));
   }
 }
 
@@ -1131,12 +1443,12 @@ size_t chunk_smem(int kase, int f_in, int cols, int n_out) {
 
 // Stages 14 and 15 (K10, K11); j2 and j3 are dfac_conv_probe's j. kase:
 //   0 h2: x (B, t_in, f_in), w9 (9, 32); rows x cols outputs in windows of `win` columns
-//   1 i2: p9 (B, 9, t_in, f_in) tap-leading patches, w9 (9, n_out); rows <= t_in, cols = f_in
+//   1 i2: p9 (B, 9, t_in, f_in) tap-leading patches, w9 (9, 32); rows <= t_in, cols = f_in
 //   2 j4: h1 (B, t_in, f_in, 32), w2i (3, 96, 64) as stage 12's w2dx; rows x cols outputs
 //   3 j5: h2 (B, t_in, f_in, 64), w3 (9, 64, 128); rows x cols outputs
 //   4 c2: xf (B, rows, L = t_in) of which row 0 is read, flat padded rows of width W = f_in;
 //         wt (32, 16); cols = n_chunks x win outputs in chunks of win = Mc
-// n_out: 32 (h2, c2), 64 (j4), 128 (j5), any of 1..1024 (i2). out (B, 8, 128)
+// n_out: 32 (h2, i2, c2), 64 (j4), 128 (j5). out (B, 8, 128)
 // f32; y: null, or (B, rows, cols, n_out) f32 for every output (c2: (B, 1,
 // cols, 32)); done: B zeroed counters (scratch). 16-byte aligned `in`, `w`
 // and `out`. One kernel launch on `stream`, no synchronisation; returns
@@ -1144,7 +1456,7 @@ size_t chunk_smem(int kase, int f_in, int cols, int n_out) {
 extern "C" int dfac_conv_chunk(int kase, const void* in, const void* w, float* out, float* y, void* done_,
                                int batch, int t_in, int f_in, int rows, int cols, int win, int n_out,
                                void* stream) {
-  const int want_out[] = {CO1, n_out, CO2, CO3, CO1};
+  const int want_out[] = {CO1, CO1, CO2, CO3, CO1};
   if (kase < H2_WINDOWS || kase > C2_FLAT_CHUNKS || batch <= 0 || batch > 65535 || t_in <= 0 || f_in <= 0 ||
       rows <= 0 || cols <= 0 || n_out <= 0 || n_out > 1024 || n_out != want_out[kase] ||
       size_t(t_in) * f_in * (kase == I2_PLANES ? 9 : 1) * (kase == J5_CONV3 ? CI3 : kase == J4_CONV2_DX ? CI2 : 1) >
@@ -1157,25 +1469,19 @@ extern "C" int dfac_conv_chunk(int kase, const void* in, const void* w, float* o
   const bf16* x = static_cast<const bf16*>(in);
   const bf16* wk = static_cast<const bf16*>(w);
   unsigned int* done = static_cast<unsigned int*>(done_);
-  const dim3 grid(blocks, batch);
   cudaError_t err = cudaSuccess;
   switch (kase) {
     case H2_WINDOWS:
-      err = launch(conv1_mma<M_VALID>, grid, smem, s, x, wk, out, y, done, t_in, f_in, 1, rows, win, cols / win, 0LL);
-      break;
     case I2_PLANES:
-      err = launch(conv1_checksum<I_PLANES>, grid, smem, s, x, wk, out, y, done, t_in, f_in, rows, cols, n_out,
-                   int(f_in % 8 == 0));
+    case C2_FLAT_CHUNKS:
+      err = launch_tc1(chunk_tc1_mode(kase), kase == C2_FLAT_CHUNKS, x, wk, out, y, done,
+                       chunk_tc1(kase, batch, t_in, f_in, rows, cols, win), s);
       break;
     case J4_CONV2_DX:
       err = launch_conv2<false, true, CI2, CO2>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
       break;
     case J5_CONV3:
       err = launch_conv2<false, false, CI3, CO3>(x, wk, out, y, done, batch, t_in, f_in, rows, cols, s);
-      break;
-    case C2_FLAT_CHUNKS:
-      err = launch(conv1_mma<M_FLAT, true>, grid, smem, s, x, wk, out, y, done, t_in, f_in, 1, 1, win, cols / win,
-                   (long long)rows * t_in);
       break;
   }
   if (err != cudaSuccess) return (int)err;

@@ -1,6 +1,5 @@
-// bf16 tensor-core helpers of the port's mma.sync implicit-GEMM kernels
-// (conv_probe.cu, conv_block.cu's block-1 kernel): 32-bit fragment loads and
-// one mma.sync m16n8k16 with f32 accumulators.
+// bf16 tensor-core helper of the port's mma.sync kernel (conv_block.cu's
+// block-1 kernel): one mma.sync m16n8k16 with f32 accumulators.
 
 #pragma once
 
@@ -9,19 +8,6 @@
 #include <cstdint>
 
 namespace dfac {
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // D = A * B + C with C's rows all (c0, c1): a thread's two accumulator
 // columns start at c0 and c1 in both of its rows (a per-column bias).

@@ -628,3 +628,38 @@ def test_conv2_checksum_repeats_and_does_not_depend_on_the_batch(cuda, name):
     assert torch.equal(case.kernel(inp.flip(0), w), out.flip(0))
     for i in range(inp.shape[0]):
         assert torch.equal(case.kernel(inp[i : i + 1], w), out[i : i + 1])
+
+
+CONV1_TC_FAMILY = {  # the cases conv1_tc serves: f(input, weights) -> (results, 8, 128), and their stage's arrays
+    "g": (conv_probe.CASES["g"], "13"), "h": (conv_probe.CASES["h"], "13"), "i": (conv_probe.CASES["i"], "13"),
+    "v2": (conv_probe.STAGE11_CASES["v2"], "11"), "v3": (conv_probe.STAGE11_CASES["v3"], "11"),
+    "a": (conv_probe.STAGE12_CASES["a"], "12"), "c": (conv_probe.STAGE12_CASES["c"], "12"),
+    "h2": (conv_probe.STAGE14_CASES["h2"], "14"), "i2": (conv_probe.STAGE14_CASES["i2"], "14"),
+    "c2": (conv_probe.STAGE15_CASES["c2"], "15"),
+}
+# B = 5 for each case; B = 133 for g and i2 (more bands than the persistent grid takes at once, and 1,280
+# 64-output tiles a sample, more than its 1,024 result slots); v3 at 17 samples: two groups of 8 and a tail
+CONV1_TC_PARAMS = ([(name, 17 if name == "v3" else 5) for name in CONV1_TC_FAMILY]
+                   + [("g", 133), ("i2", 133)])
+
+
+@pytest.mark.parametrize("name,batch", CONV1_TC_PARAMS)
+def test_conv1_tc_repeats_and_does_not_depend_on_the_batch(cuda, name, batch):
+    """At the stages' widths: a second call equals the first bit for bit,
+    and each result's sums from a batched call equal, bit for bit, a call on
+    that result's samples alone and a call on the batch in reverse order
+    (v3: its groups of 8 reversed, the tail left out)."""
+    from dfac_tpu_torch.scripts import train_opt_probe
+
+    case, stage = CONV1_TC_FAMILY[name]
+    arrs = getattr(train_opt_probe, f"stage{stage}_inputs")(batch, torch.bfloat16, cuda, seed=batch)
+    inp, w = arrs[case.inp], arrs[case.weights]
+    group = conv_probe.GROUP if name == "v3" else 1
+    n = inp.shape[0] // group
+    units = inp[: n * group].reshape(n, group, *inp.shape[1:])  # a result's samples
+    out = case.kernel(inp, w)
+    assert out.shape == (n, 8, 128) and bool(torch.isfinite(out).all())
+    assert torch.equal(case.kernel(inp, w), out)
+    assert torch.equal(case.kernel(units.flip(0).reshape(-1, *inp.shape[1:]), w), out.flip(0))
+    for i in range(n):
+        assert torch.equal(case.kernel(units[i], w), out[i : i + 1])
