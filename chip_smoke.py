@@ -11,9 +11,11 @@ line:
 
 1. device   torch / CUDA / nvcc versions, the card's name and power limit
 2. build    every kernel from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
-            ptxas' registers and spills (the probes' tensor-core kernels'
-            always, others' where there are any) and the dynamic shared
-            memory of each kernel
+            ptxas' registers and spills (the probe kernels' always, others'
+            where there are any) and the dynamic shared memory of each
+            kernel; ``cuobjdump -sass`` shows that the CUDA-core conv1
+            (``conv1_checksum``: v1, d) has no tensor-core instruction and
+            v4's ``conv1_emit`` has ``HMMA``
 3. K1       the GEMM front-end kernel against its plain version, B=128
             waveforms of 51,520 samples, bf16 and f32; a second call of each
             mode equal to the first bit for bit
@@ -53,9 +55,10 @@ line:
             versions at the stages' shapes at B=512, bf16: the checksums
             within 1e-5 of sum |y|, v4's emitted tensor within one bf16 last
             bit; one launch per call under the stage's counter, a second
-            call equal bit for bit; for the tensor-core cases (``conv1_tc``:
-            v2, v3, a, c, h2, i2, c2; the conv2/conv3 kernel: f, j2-j5) also
-            every output y within atol 1e-4 + rtol 1e-5
+            call equal bit for bit; for the conv cases (``conv1_checksum``:
+            v1, d; ``conv1_tc``: v2, v3, a, c, h2, i2, c2; the conv2/conv3
+            kernel: f, j2-j5) also every output y within atol 1e-4 + rtol
+            1e-5
 13. probes  the probes' path: ``pallas_err_probe``, ``train_opt_probe
             --stages 11,12,13,14,15`` and ``pool_kernel_probe`` as ``python
             -m`` at their defaults: exit 0, their result lines, logits of
@@ -92,7 +95,10 @@ work: the larger of the bytes each call must move (inputs read once,
 outputs written once) over 3.35 TB/s and its operations of each type over
 the dense peak for that type (989 TFLOP/s bf16 on the tensor cores, 67
 TFLOP/s f32 on the CUDA cores; NVIDIA's H100 SXM data sheet; the two units
-run at once, so the larger time counts). The script imports nothing of JAX.
+run at once, so the larger time counts). A probe case's operations count
+at the rate of the unit it runs on: v1 and d (and v0) on the CUDA cores at
+the f32 rate, with their bf16-rate bound printed beside it; the rest on the
+tensor cores. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -144,8 +150,9 @@ METHOD_ATOL, METHOD_RTOL = 5e-3, 1e-3  # direct DFT against FFT: the JAX package
 CHECKSUM_RTOL = 1e-5  # conv-probe checksums: bf16 x bf16 products are exact in
 # f32, so kernel and plain differ only by f32 summation order; bound relative
 # to the sample's sum |y|
-Y_ATOL, Y_RTOL = 1e-4, 1e-5  # every y of the tensor-core cases (conv1_tc, conv2_checksum): exact
+Y_ATOL, Y_RTOL = 1e-4, 1e-5  # every y of the conv cases (conv1_checksum, conv1_tc, conv2_checksum): exact
 # products, f32 sums of 9 (conv1), 288 or 576 terms in another order (the cuda tests' bound)
+FMA_CASES = ("v1", "d")  # the probe cases on the CUDA cores (conv1_checksum): bound at the f32 rate
 # K7, K8, K10, K11 -> their train_opt_probe stage
 PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12", "conv_chunked": "14", "conv_trailing": "15"}
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
@@ -248,6 +255,33 @@ def in_turns(plain, kernel, reps: int = 10):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def check_units(lib_path: str) -> None:
+    """From the built library's SASS: the CUDA-core conv1 (``conv1_checksum``,
+    v1 and d) issues no tensor-core instruction, and v4's ``conv1_emit`` does
+    (``HMMA``); prints each one's count of FFMA, FADD, shared loads and
+    tensor-core instructions."""
+    from dfac_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], check=True, capture_output=True, text=True).stdout
+    found = set()
+    for chunk in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        fn = chunk.split(None, 1)[0]
+        kernel = next((k for k in ("conv1_checksum", "conv1_emit") if k in fn), None)
+        if kernel is None:
+            continue
+        ops = re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", chunk, flags=re.M)
+        count = {op: ops.count(op) for op in ("FFMA", "FADD", "LDS", "HMMA", "HGMMA")}
+        tensor = count["HMMA"] + count["HGMMA"]
+        phase("build", f"SASS {fn}: {len(ops)} instructions, " + ", ".join(f"{k} {v}" for k, v in count.items()))
+        if (kernel == "conv1_checksum") == bool(tensor):
+            raise AssertionError(f"{fn}: {tensor} tensor-core instructions; want "
+                                 f"{'none' if kernel == 'conv1_checksum' else 'HMMA'}")
+        found.add(kernel)
+    if found != {"conv1_checksum", "conv1_emit"}:
+        raise AssertionError(f"SASS: found {sorted(found)} of conv1_checksum, conv1_emit")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -329,8 +363,10 @@ def main() -> int:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:  # spills shown where there are any, and always for the probes' tensor-core kernels
             shown = (f", {spills} bytes spill stores"
-                     if spills != "0" or name.startswith(("conv2_checksum", "conv1_tc")) else "")
+                     if spills != "0" or name.startswith(("conv2_checksum", "conv1_tc", "conv1_checksum",
+                                                          "conv1_emit")) else "")
             phase("build", f"ptxas {name}: {m.group(1)} registers{shown}")
+    check_units(lib_path)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = LFCCConfig()
@@ -607,7 +643,9 @@ def main() -> int:
                     f"elements): bit-identical")
 
     # -- 11. conv-probe checksums vs plain ----------------------------------
-    y_of = {  # the tensor-core kernels' cases (conv1_tc, conv2_checksum), each returning its sums and every y
+    y_of = {  # the conv kernels' cases (conv1_checksum, conv1_tc, conv2_checksum), each returning its sums and every y
+        "v1": lambda a, w: conv_probe.conv1_same_checksum(a, w, "fma", return_y=True),
+        "d": lambda a, w: conv_probe.conv1_valid_checksum(a, w, "fma", return_y=True),
         "g": lambda a, w: conv_probe.conv1_taps_checksum(a, w, "roll", return_y=True),
         "h": lambda a, w: conv_probe.conv1_taps_checksum(a, w, "slice", return_y=True),
         "i": lambda a, w: conv_probe.patches_checksum(a, w, return_y=True),
@@ -628,7 +666,7 @@ def main() -> int:
     }
 
     def check_y(label, name, a, wt, sums, want_y):
-        """A tensor-core case's every output against the plain version's, and
+        """A conv case's every output against the plain version's, and
         its sums with y equal to its sums alone, bit for bit."""
         got_sums, got_y = y_of[name](a, wt)
         torch.cuda.synchronize()
@@ -892,7 +930,7 @@ def main() -> int:
         phase("timing", f"K5 time_pool bf16 {tuple(x.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel "
                         f"{ms2:.4f} ms, F.avg_pool2d (channels-last view) {lib_ms:.4f} ms, on {card}")
     # each probe case's bound from this run's inputs (bytes: the part of the input its result depends on, read
-    # once, the weights and the result; operations at the bf16 rate whichever unit runs them)
+    # once, the weights and the result; operations at the rate of the unit that runs them)
     cp_parts = []
     for name, case in conv_probe.CASES.items():
         a, wt = probe_arrs[case.inp], probe_arrs[case.weights]
@@ -905,6 +943,7 @@ def main() -> int:
         cp_parts.append(bound((read + wt.numel()) * 2 + PROBE_BATCH * 8 * 128 * 4, bf16=2 * macs))
     cp_bound = bound_sum(cp_parts)
     pass_parts = {key: [] for key in PASS_KERNELS}
+    bf16_bound = {}  # v1, d: the bound at the tensor cores' rate, printed beside their own
     for key, name, case, a, wt in pass_cases:
         if PASS_KERNELS[key] in ("14", "15"):  # only the part of the input the result depends on
             macs, read = chunk_work(name, a, wt)
@@ -913,16 +952,23 @@ def main() -> int:
         macs, out_bytes = conv_pass_work(name, a, wt)
         if name == "v0":  # reads no weights; an add and an FMA per value on the CUDA cores
             pass_parts[key].append(bound(a.numel() * 2 + out_bytes, f32=3 * a.numel()))
-        else:  # counted at the bf16 rate whichever unit runs it
-            pass_parts[key].append(bound((a.numel() + wt.numel()) * 2 + out_bytes, bf16=2 * macs))
+        else:  # v1, d: the CUDA cores' f32 FMAs; the rest the tensor cores'
+            io_bytes = (a.numel() + wt.numel()) * 2 + out_bytes
+            pass_parts[key].append(bound(io_bytes, **{"f32" if name in FMA_CASES else "bf16": 2 * macs}))
+            if name in FMA_CASES:
+                bf16_bound[name] = bound(io_bytes, bf16=2 * macs)
     pass_bound = {key: bound_sum(parts) for key, parts in pass_parts.items()}
     case_bound = dict(zip(conv_probe.CASES, cp_parts))
     case_bound.update(zip((name for _, name, *_ in pass_cases), (p for parts in pass_parts.values() for p in parts)))
 
     def case_line(label, name, ms, plain_ms):
         bnd_ms, bnd_by = case_bound[name]
+        unit = ""
+        if name in bf16_bound:
+            unit = (f" at the f32 rate (CUDA cores); at the bf16 rate {bf16_bound[name][0]:.4f} ms "
+                    f"({bf16_bound[name][1]}), {bf16_bound[name][0] / ms:.1%}")
         return (f"{label} {name} B={PROBE_BATCH}: kernel {ms:.4f} ms, bound {bnd_ms:.4f} ms ({bnd_by}), "
-                f"{bnd_ms / ms:.1%} of the bound's rate; plain {plain_ms:.4f} ms, on {card}")
+                f"{bnd_ms / ms:.1%} of the bound's rate{unit}; plain {plain_ms:.4f} ms, on {card}")
 
     cp_ms = cp_plain = 0.0
     for name, case in conv_probe.CASES.items():

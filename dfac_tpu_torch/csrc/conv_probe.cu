@@ -56,19 +56,15 @@
 //      k's wrapped source column, indices stepped per lane).
 //    - No store epilogue: each thread sums its valid accumulators (row <
 //      rows, col < cols) where conv_block_tc would store them.
-//  * One launch, deterministic sums. conv1_checksum (v1, d): each block
-//    reduces its threads in a fixed order into its slot of out[b] (a
-//    sample has at most 1024 blocks) and counts itself done in done[b]; the
-//    last block of sample b to finish adds the slots in a fixed order (one
-//    warp, then a shuffle tree) and fills out[b] with the total. conv1_tc
-//    does the same per band (below). conv2_checksum does it per tile: a tile's sum (threads, a shuffle tree, then its
-//    four warps in order) goes to slot out[b][tile of b] (a sample has at
-//    most 1024 tiles; the entries refuse more), done[b] counts tiles (one
-//    fence and count per warpgroup's run of a sample's tiles: a fence per
-//    tile stalls the warpgroup at every tile), and the warp that counts a
-//    sample's last tiles adds its slots in order. No float atomics: a call
-//    repeats bit for bit, and a sample's sum does not depend on its batch
-//    or on the grid.
+//  * One launch, deterministic sums. conv2_checksum: a tile's sum
+//    (threads, a shuffle tree, then its four warps in order) goes to slot
+//    out[b][tile of b] (a sample has at most 1024 tiles; the entries refuse
+//    more), done[b] counts tiles (one fence and count per warpgroup's run
+//    of a sample's tiles: a fence per tile stalls the warpgroup at every
+//    tile), and the warp that counts a sample's last tiles adds its slots
+//    in order (publish). conv1_tc and conv1_checksum do the same per band.
+//    No float atomics: a call repeats bit for bit, and a sample's sum does
+//    not depend on its batch or on the grid.
 //  * Optionally (tests) every y is written to a (B, rows, cols, N) f32
 //    buffer as it is formed.
 //
@@ -85,7 +81,7 @@
 //   c   y[m,co] = sum_k xf[min(dy W + dx, 2W) + m] w9[k,co], m < Np - 2W, on the flat padded
 //       sample xf (Np = (T+2) W, W = F+2); jax.lax.dynamic_slice clamps its start so that
 //       the slice fits, so taps 7 and 8 read tap 6's window. Tensor cores
-//   d   a's y on the CUDA cores: the h kernel above at rows T-2, cols F-2
+//   d   a's y on the CUDA cores
 //   f   conv2 of h1 (B, T2+2, F+2, 32) with w2dx (3, 96, 64), w[3dy+dx][ci][co] =
 //       w2dx[dx][32 dy + ci][co]: the j kernel above, reading w2dx's layout as it stages
 //       the weights (one launch, no re-layout op)
@@ -93,27 +89,47 @@
 // What bounds K7/K8 on the card, at the probe's B=512, T=321, F=180: every
 // case but v4 and f reads ~59 MB of x (~18 us at 3.35 TB/s) for 8.4-8.6e9
 // MACs (~17 us at the 989 TFLOP/s bf16 peak), so bytes and operations are
-// nearly even; on the CUDA cores (v1, d) the f32 FMA rate (67 TFLOP/s)
-// makes them ~0.25 ms of arithmetic. v4 writes 944 MB (~0.28 ms); f is
-// 0.54 TFLOP (~0.55 ms at the bf16 peak).
+// nearly even on the tensor cores; v1 and d stay on the CUDA cores (the
+// stages compare the TPU's VPU and MXU), where the f32 FMA rate (67
+// TFLOP/s) makes them 0.254 / 0.250 ms of arithmetic. v4 writes 944 MB
+// (~0.28 ms); f is 0.54 TFLOP (~0.55 ms at the bf16 peak).
 //
 // Design (K7/K8):
-//  * v1 and d: conv1_checksum, the CUDA-core conv1 kernel (the stages
-//    compare the TPU's VPU and MXU, so these two stay off the tensor
-//    cores). One block per 8 output rows of a sample stages its rows (v1:
-//    zero-padded, R1 + 2 rows of F + 2 columns, the rows above and below
-//    the sample zero) and keeps the 9 x N weights in shared memory as f32;
-//    a thread holds the 36 taps of 4 pixels of one column in registers and
-//    forms their N outputs, 36 multiply-adds per 9 broadcast weight loads.
+//  * v1 and d: conv1_checksum, register-tiled FMAs (no tensor core). Its
+//    floor is the FMA pipe: each y takes 9 FMAs and one add into the sum,
+//    so every other instruction, idle lane or stalled cycle is lost time.
+//    - a band is 32 output rows of a sample, and a block of 128 threads is
+//      exactly its 32 rows x 4 channel octets, whatever F is: no idle lane
+//      but the rows past a sample's last;
+//    - a thread keeps its octet's 72 weights in registers for its life and
+//      walks its row in quads of 4 columns: 288 FMAs and 32 adds for six
+//      16-byte shared loads (its 3 x 8 window), ~88% of the loop's issue;
+//    - the band's input rows are copied by 16-byte cp.async two bands
+//      ahead (from the 8-element boundary below them: rows of 180 or 178
+//      columns need no aligned source) and built once into f32 rows with
+//      the zero padding and the row edges resolved, so the loop has no
+//      test (staging synchronously from global loads cost a sixth of the
+//      time);
+//    - whole quads run with no mask and no y test (WITH_Y is a template
+//      argument); a ragged last quad runs once, masked;
+//    - persistent blocks walk contiguous ranges of (sample, band); a
+//      band's sum goes to its slot (publish).
+//    What binds it (PERF.md, patched copies timed beside it): the quad
+//    loop runs at about two thirds of the issue rate at full clock, and
+//    the build and copies take about a tenth of the time.
 //  * v2, v3, a, c: conv1_tc (SAME: v2; v3 in groups of 8 samples, a tap in
 //    a row of another sample reading zero; VALID: a; FLAT: c).
-//  * v4: one thread per pooled pixel holds its 4 x 3 inputs in registers
-//    and forms the two conv rows of all 32 channels with f32 FMAs, then
-//    the affine, ReLU and the pool in f32 and one cast, written as 16-byte
-//    vectors (the style of conv_block.cu's Cin = 1 kernel): the write bounds it.
-//  * v0: 4-byte (bf16 pair) loads, f32 sums, the checksum reduction below.
-//  * Every checksum case ends in finish_sample: one launch, a result that
-//    repeats bit for bit.
+//  * v4: conv1_emit, the design of conv_block.cu's conv_block_cin1_tc on
+//    the tensor cores, so that the CUDA cores only load, finish and store
+//    and the 944 MB write bounds it (576 FMAs a pooled pixel on the CUDA
+//    cores are issue-bound well above the write). Both conv rows of
+//    a pooled pixel are one mma.sync m16n8k16 product with K = 16 (the 4 x
+//    3 input window) and N = 64, B (halved) in registers, C zero; then the
+//    affine (rounded apart), ReLU, the pool and one cast in registers,
+//    16-byte stores (see conv1_emit below).
+//  * v0: 4-byte (bf16 pair) loads, f32 sums, one block a chunk of a
+//    sample, summed by finish_sample: one launch, a result that repeats
+//    bit for bit.
 //
 // K10 and K11 (dfac_conv_chunk, and dfac_conv_probe's j) replace:
 // scripts/train_opt_probe.py  stage 14's kern_h2 (:1248), kern_i2 (:1266)
@@ -213,10 +229,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -265,114 +283,6 @@ __device__ void finish_sample(float total, float* out, unsigned int* done) {
   }
   __syncthreads();
   for (int i = threadIdx.x; i < OUT_PER_SAMPLE; i += THREADS) ob[i] = s_total;
-}
-
-// Copy `n` bf16 from global to shared memory, 16 bytes a step when both
-// ends allow it; elements past `valid` are zero. The scalar path loads 8
-// values into registers before it stores any, so 8 loads are in flight.
-__device__ void stage(bf16* dst, const bf16* src, int n, int valid, bool vec) {
-  if (vec && valid == n) {
-    for (int i = threadIdx.x; i < n / 8; i += THREADS)
-      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-  } else {
-    constexpr int U = 8;
-    for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
-      bf16 v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) v[u] = i0 + u * THREADS < valid ? src[i0 + u * THREADS] : __float2bfloat16_rn(0.f);
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (i0 + u * THREADS < n) dst[i0 + u * THREADS] = v[u];
-    }
-  }
-}
-
-// Stage the zero-padded rows r0 - 1 .. r0 + R1 of `n_rows` contiguous rows
-// of width f_in (a sample, or v3's group of samples) into R1 + 2 rows of
-// f_in + 2 columns: each thread loads its column of all rows into registers
-// before it stores any, so they are in flight together.
-template <int R>
-__device__ void stage_padded(bf16* dst, const bf16* rows, int n_rows, int f_in, int r0) {
-  const int stride = f_in + 2;
-  for (int c = threadIdx.x; c < stride; c += THREADS) {
-    const bool col_ok = c >= 1 && c <= f_in;
-    bf16 v[R + 2];
-#pragma unroll
-    for (int j = 0; j < R + 2; ++j) {
-      const int t = r0 - 1 + j;
-      v[j] = col_ok && t >= 0 && t < n_rows ? rows[size_t(t) * f_in + c - 1] : __float2bfloat16_rn(0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < R + 2; ++j) dst[j * stride + c] = v[j];
-  }
-}
-
-// ---- v1, d: CUDA cores ----------------------------------------------------
-
-constexpr int R1 = 8;   // output rows per block
-constexpr int PX = 4;   // pixels (rows of one column) per thread step
-constexpr int SAME_PAD = 5;  // conv1_checksum's zero-padded taps (stage 11's v1); H_SLICE is d's
-
-__host__ __device__ size_t conv1_in_elems(int mode, int f_in) {
-  return size_t(R1 + 2) * (mode == SAME_PAD ? f_in + 2 : f_in);
-}
-
-size_t conv1_smem(int mode, int f_in, int n_out) {
-  return (conv1_in_elems(mode, f_in) * sizeof(bf16) + 15) / 16 * 16 + size_t(9) * n_out * sizeof(float);
-}
-
-// x (B, t_in, f_in), w (9, n_out); y over t < rows, f < cols: SAME_PAD
-// (v1) zero-pads x by one on each side, H_SLICE (d) reads x[t + dy, f + dx].
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-conv1_checksum(const bf16* __restrict__ in, const bf16* __restrict__ w, float* __restrict__ out,
-               float* __restrict__ y, unsigned int* __restrict__ done, int t_in, int f_in, int rows, int cols,
-               int n_out, int vec) {
-  static_assert(MODE == SAME_PAD || MODE == H_SLICE, "v1 or d");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_in = reinterpret_cast<bf16*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + (conv1_in_elems(MODE, f_in) * sizeof(bf16) + 15) / 16 * 16);
-  const int b = blockIdx.y, r0 = blockIdx.x * R1;
-  const int stride = MODE == SAME_PAD ? f_in + 2 : f_in;  // of a staged x row
-
-  for (int i = threadIdx.x; i < 9 * n_out; i += THREADS) s_w[i] = __bfloat162float(w[i]);
-  if (MODE == SAME_PAD) {  // rows r0 - 1 .. r0 + R1, a zero column on each side
-    stage_padded<R1>(s_in, in + size_t(b) * t_in * f_in, t_in, f_in, r0);
-  } else {
-    const int n = (R1 + 2) * f_in;
-    const int valid = max(0, min(t_in - r0, R1 + 2)) * f_in;
-    stage(s_in, in + (size_t(b) * t_in + r0) * f_in, n, valid, vec);
-  }
-  __syncthreads();
-
-  float acc = 0.f;
-  for (int g = threadIdx.x; g < cols * (R1 / PX); g += THREADS) {
-    const int c = g % cols, rr = (g / cols) * PX;  // column, first local row
-    float v[PX + 2][3];
-#pragma unroll
-    for (int r = 0; r < PX + 2; ++r)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) v[r][dx] = __bfloat162float(s_in[(rr + r) * stride + c + dx]);
-    float s = 0.f;
-    for (int co = 0; co < n_out; ++co) {
-      float wk[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) wk[k] = s_w[k * n_out + co];
-#pragma unroll
-      for (int p = 0; p < PX; ++p) {
-        float yv = 0.f;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) yv = fmaf(v[p + k / 3][k % 3], wk[k], yv);
-        const int t = r0 + rr + p;
-        if (t < rows) {
-          s += yv;
-          if (y) y[((size_t(b) * rows + t) * cols + c) * n_out + co] = yv;
-        }
-      }
-    }
-    acc += s;
-  }
-  finish_sample(block_sum(acc), out, done);
 }
 
 // ---- j, k, f, j2-j5: conv2 / conv3 on wgmma ---------------------------------
@@ -1180,58 +1090,370 @@ sum_sq_checksum(const bf16* __restrict__ x, float* __restrict__ out, unsigned in
   finish_sample(block_sum(s + q), out, done);
 }
 
-// v4: x (B, t_in, f_in), w (9, n_out) -> out (B, t_in / 2, f_in, n_out) bf16:
-// SAME conv, y 1.01 + 0.01, ReLU, the mean of conv rows 2t and 2t + 1, one
-// cast. One thread per pooled pixel.
-__global__ void __launch_bounds__(THREADS)
-conv1_emit(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out, int batch, int t_in,
-           int f_in, int n_out) {
-  extern __shared__ float s_w[];  // [9][n_out]
-  for (int i = threadIdx.x; i < 9 * n_out; i += THREADS) s_w[i] = __bfloat162float(w[i]);
-  __syncthreads();
-  const int t_out = t_in / 2;
-  const long long pix = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (pix >= (long long)batch * t_out * f_in) return;
-  const int col = int(pix % f_in);
-  const long long r = pix / f_in;
-  const int to = int(r % t_out), b = int(r / t_out);
-  float xv[4][3];  // rows 2 to - 1 .. 2 to + 2, columns col - 1 .. col + 1
+// ---- v1, d: conv1_checksum, a register-tiled conv1 on the CUDA cores ------
+//
+// A block of 128 threads takes a band of 32 output rows of one sample:
+// thread (r, o) = (threadIdx.x / 4, threadIdx.x % 4) forms output row r's y
+// for channels 8 o .. 8 o + 7, holding those channels' 72 weights in
+// registers for its whole life. It walks its row in quads of 4 columns: a
+// quad is 4 x 8 y from the 3 x 6 window of its three input rows, 288 FMAs
+// and 32 adds for six 16-byte shared-memory loads. The band's input rows
+// arrive by cp.async two bands ahead and are built into f32 rows once.
+
+constexpr int FMA_THREADS = 128;           // a band's 32 output rows x 4 channel octets
+constexpr int FMA_ROWS = FMA_THREADS / 4;  // output rows per band (result slot)
+constexpr int FMA_IN = FMA_ROWS + 2;       // the band's input rows
+constexpr int FMA_BLOCKS = 3;              // at least 3 blocks an SM: at most 168 registers a thread
+
+// A launch's geometry (host-computed): y over t < rows, f < cols of x (B,
+// t_in, f_in); SAME (v1) pads x with one zero on each side, VALID (d) reads
+// x[t + dy, f + dx].
+struct Fma1 {
+  int t_in, f_in, rows, cols;
+  int bands;           // per sample
+  int stride;          // f32 of a built row: every column a quad's window reads, 16-byte aligned
+  int raw_bytes;       // one raw stage: a band's input rows as bf16, from the 8-element boundary below them
+  long long in_total;  // elements of x (copies past them read zeros)
+};
+
+Fma1 fma1_geom(bool same, int batch, int t_in, int f_in) {
+  Fma1 p{};
+  p.t_in = t_in, p.f_in = f_in;
+  p.rows = same ? t_in : t_in - 2, p.cols = same ? f_in : f_in - 2;
+  p.bands = (p.rows + FMA_ROWS - 1) / FMA_ROWS;
+  p.stride = 4 * ((p.cols + 3) / 4) + 4;
+  if (p.stride % 32 == 0) p.stride += 4;  // the two rows of a 16-byte load phase fall on other banks
+  p.raw_bytes = ((FMA_IN * f_in + 16) * 2 + 15) / 16 * 16 + 32;  // raw8 reads up to 15 elements past its last
+  p.in_total = (long long)batch * t_in * f_in;
+  return p;
+}
+
+size_t fma1_smem(const Fma1& p) { return size_t(FMA_IN) * p.stride * sizeof(float) + 2 * size_t(p.raw_bytes); }
+
+// A band's place: its sample, first output row, output rows, and the input
+// rows [lo, hi) it reads that lie in x.
+template <bool SAME>
+struct Fma1Band {
+  int b, t0, n, lo, hi;
+  __device__ Fma1Band(const Fma1& p, int band)
+      : b(band / p.bands), t0((band - b * p.bands) * FMA_ROWS), n(min(FMA_ROWS, p.rows - t0)),
+        lo(max(t0 - SAME, 0)), hi(min(t0 - SAME + n + 2, p.t_in)) {}
+  __device__ long long base(const Fma1& p) const { return (long long)b * p.t_in * p.f_in; }
+};
+
+// The copies of a band's input rows into a raw stage (all threads; the
+// caller commits one cp.async group).
+template <bool SAME>
+__device__ void fma1_copy(uint32_t raw, const bf16* __restrict__ x, const Fma1& p, int band) {
+  const Fma1Band<SAME> at(p, band);
+  const long long base = at.base(p);
+  copy_span(raw, x, base + (long long)at.lo * p.f_in, base + (long long)at.hi * p.f_in, p.in_total, threadIdx.x,
+            FMA_THREADS);
+}
+
+// The band's n + 2 f32 rows from its raw stage: row j is input row t0 -
+// SAME + j, its column c input column c - SAME, zero outside x. Eight
+// columns a step; inside the row they are one shifted 16-byte read.
+template <bool SAME>
+__device__ void fma1_build(float* rows, const unsigned char* raw, const Fma1& p, const Fma1Band<SAME>& at) {
+  const int lead = int((at.base(p) + (long long)at.lo * p.f_in) & 7);  // raw element of (row lo, column 0)
+  const int gpr = (p.stride + 7) / 8;
+  for (int it = threadIdx.x; it < (at.n + 2) * gpr; it += FMA_THREADS) {
+    const int j = it / gpr, c0 = 8 * (it - j * gpr), u = at.t0 - SAME + j;
+    float v[8] = {};
+    if (u >= 0 && u < p.t_in) {
+      const int e0 = lead + (u - at.lo) * p.f_in + c0 - SAME;  // raw element of column c0
+      if (c0 - SAME >= 0 && c0 + 7 - SAME < p.f_in) {
+        const uint4 r = raw8(raw, e0);
+        const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = 2 * to - 1 + i;
+        for (int e = 0; e < 4; ++e) v[2 * e] = __uint_as_float(w[e] << 16), v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      } else {  // an edge: each column inside the row, or zero
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int c = col - 1 + j;
-      xv[i][j] = t >= 0 && t < t_in && c >= 0 && c < f_in ? __bfloat162float(x[(size_t(b) * t_in + t) * f_in + c])
-                                                           : 0.f;
-    }
-  }
-  bf16* o = out + pix * n_out;
-  for (int c0 = 0; c0 < n_out; c0 += 8) {
-    float res[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) res[e] = 0.f;
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float acc[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const float v = xv[rr + t / 3][t % 3];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(v, s_w[t * n_out + c0 + e], acc[e]);
+        for (int e = 0; e < 8; ++e) {
+          const int ic = c0 + e - SAME;
+          if (ic >= 0 && ic < p.f_in) v[e] = __uint_as_float(uint32_t(raw1(raw, e0 + e)) << 16);
+        }
       }
-      // separate multiply and add, as the reference's y * 1.01 + 0.01 (no contraction)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) res[e] += fmaxf(__fadd_rn(__fmul_rn(acc[e], 1.01f), 0.01f), 0.f);
     }
-    uint4 v;
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p2[e] = __floats2bfloat162_rn(0.5f * res[2 * e], 0.5f * res[2 * e + 1]);
-    *reinterpret_cast<uint4*>(o + c0) = v;
+    float4* dst = reinterpret_cast<float4*>(rows + j * p.stride + c0);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    if (c0 + 4 < p.stride) dst[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
+}
+
+// Element i (0-7, known at compile time) of the 8 built columns lo, hi.
+__device__ __forceinline__ float col_of(const float4& lo, const float4& hi, int i) {
+  const float4& v = i < 4 ? lo : hi;
+  const int j = i & 3;
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One quad: output columns 4q .. 4q + 3 of the thread's row and octet from
+// its three input rows' built columns 4q .. 4q + 7 (lo, hi). The y of the
+// first `valid` columns (WHOLE: all four) go to the two sums, channel pairs
+// in order, and with WITH_Y to yq (the quad's first output, channel 8 o).
+template <bool WITH_Y, bool WHOLE>
+__device__ __forceinline__ void fma1_quad(const float4 (&lo)[3], const float4 (&hi)[3], const float (&wk)[9][8],
+                                          float& s0, float& s1, float* yq, int valid) {
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    float yv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      yv[e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) yv[e] = fmaf(col_of(lo[k / 3], hi[k / 3], cc + k % 3), wk[k][e], yv[e]);
+    }
+    if (WHOLE || cc < valid) {
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) s0 += yv[e], s1 += yv[e + 1];
+      if constexpr (WITH_Y) {
+        reinterpret_cast<float4*>(yq + cc * CO1)[0] = make_float4(yv[0], yv[1], yv[2], yv[3]);
+        reinterpret_cast<float4*>(yq + cc * CO1)[1] = make_float4(yv[4], yv[5], yv[6], yv[7]);
+      }
+    }
+  }
+}
+
+// The thread's output row from its three built input rows (the first at
+// `row`): whole quads with no test, then a last partial quad, masked.
+// Returns the sum of the row's y. (A window kept across quads in rotating
+// registers saves three of the six loads but triples the loop's code, and
+// ran slower.)
+template <bool WITH_Y>
+__device__ __forceinline__ float fma1_row(const float* row, int stride, int cols, const float (&wk)[9][8],
+                                          float* yrow) {
+  float4 lo[3], hi[3];
+  auto load = [&](int c) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      lo[dy] = *reinterpret_cast<const float4*>(row + dy * stride + c);
+      hi[dy] = *reinterpret_cast<const float4*>(row + dy * stride + c + 4);
+    }
+  };
+  float s0 = 0.f, s1 = 0.f;
+  const int whole = cols / 4;
+  for (int q = 0; q < whole; ++q) {
+    load(4 * q);
+    fma1_quad<WITH_Y, true>(lo, hi, wk, s0, s1, yrow + 4 * CO1 * q, 4);
+  }
+  if (cols % 4) {
+    load(4 * whole);
+    fma1_quad<WITH_Y, false>(lo, hi, wk, s0, s1, yrow + 4 * CO1 * whole, cols % 4);
+  }
+  return s0 + s1;
+}
+
+// x (B, t_in, f_in), w (9, 32); n_bands = B x p.bands, walked by persistent
+// blocks in contiguous ranges, each band's copies issued two bands ahead
+// into a ring of two raw stages. A band's sum (each thread's row, a shuffle
+// tree, the 4 warps in order) goes to its slot of out[b] through publish.
+template <bool SAME, bool WITH_Y>
+__global__ void __launch_bounds__(FMA_THREADS, FMA_BLOCKS)
+conv1_checksum(const bf16* __restrict__ x, const bf16* __restrict__ w, float* __restrict__ out,
+               float* __restrict__ y, unsigned int* __restrict__ done, int n_bands, const Fma1 p) {
+  extern __shared__ __align__(16) unsigned char smem[];  // [FMA_IN][stride] f32, then the two raw stages
+  __shared__ float s_warp[FMA_THREADS / 32];
+  float* rows = reinterpret_cast<float*>(smem);
+  const int raw0 = FMA_IN * p.stride * int(sizeof(float));
+  const int oct = threadIdx.x & 3, r = threadIdx.x >> 2, lane = threadIdx.x & 31;
+  const int begin = int((long long)n_bands * blockIdx.x / gridDim.x);
+  const int end = int((long long)n_bands * (blockIdx.x + 1) / gridDim.x);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // the first two bands' copies fly while the weights load
+    if (begin + k < end) fma1_copy<SAME>(smem_u32(smem + raw0 + k * p.raw_bytes), x, p, begin + k);
+    cp_async_commit();
+  }
+  float wk[9][8];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) wk[k][e] = __bfloat162float(w[k * CO1 + 8 * oct + e]);
+
+  int run = 0;  // warp 0: slots stored since the last count
+  for (int band = begin, s = 0; band < end; ++band, s ^= 1) {
+    const Fma1Band<SAME> at(p, band);
+    const int raw = raw0 + s * p.raw_bytes;
+    cp_async_wait<1>();
+    __syncthreads();  // the band's copies are in
+    fma1_build<SAME>(rows, smem + raw, p, at);
+    __syncthreads();  // its rows are built; the raw stage is free
+    if (band + 2 < end) fma1_copy<SAME>(smem_u32(smem + raw), x, p, band + 2);
+    cp_async_commit();
+    float sum = 0.f;
+    if (r < at.n)
+      sum = fma1_row<WITH_Y>(rows + r * p.stride, p.stride, p.cols, wk,
+                             WITH_Y ? y + (size_t(at.b) * p.rows + at.t0 + r) * p.cols * CO1 + 8 * oct : nullptr);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) s_warp[threadIdx.x >> 5] = sum;
+    __syncthreads();  // the band's warp sums are in, and no thread reads its rows any more
+    if (threadIdx.x < 32)
+      publish(((s_warp[0] + s_warp[1]) + s_warp[2]) + s_warp[3], out, done, band, p.bands, lane, run,
+              band + 1 == end || at.t0 + FMA_ROWS >= p.rows);
+  }
+}
+
+// One persistent launch: as many blocks as fit at once, at most one per band.
+template <bool SAME>
+cudaError_t launch_fma1(const bf16* x, const bf16* w, float* out, float* y, unsigned int* done, int batch,
+                        const Fma1& p, cudaStream_t s) {
+  auto kern = y ? conv1_checksum<SAME, true> : conv1_checksum<SAME, false>;
+  const size_t smem = fma1_smem(p);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FMA_THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // < 2^31: batch <= 65535 and bands <= OUT_PER_SAMPLE, checked by the entry
+  const long long bands = (long long)batch * p.bands, cap = (long long)per_sm * sm_count();
+  kern<<<int(bands < cap ? bands : cap), FMA_THREADS, smem, s>>>(x, w, out, y, done, int(bands), p);
+  return cudaSuccess;
+}
+
+// ---- v4: conv1_emit, conv_block.cu's block-1 product on the tensor cores ----
+//
+// conv_block_cin1_tc's design with v4's epilogue: both conv rows of a pooled
+// pixel as one mma.sync m16n8k16 product, K = 16 (the 4 x 3 input window,
+// k = 4 * row + col: ops/conv_block.py CIN1_TC_K), N = 64 (conv row 0's 32
+// channels, then conv row 1's: CIN1_TC_N), each warp walking 16-pixel tiles
+// of the flat (b, to, col) output. B is the weights scaled by 0.5
+// (CIN1_TC_SCALE) and C is zero, so the product is y / 2; then per channel
+// (y / 2) 1.01 + 0.01 / 2 (multiply and add rounded apart, as the plain
+// version), ReLU, the sum of the two conv rows and one cast. Halving commutes
+// with every rounding on the way (barring subnormal y), so this is the plain
+// version's 0.5 (relu(y 1.01 + 0.01) + relu(y' 1.01 + 0.01)) bit for bit
+// on the same y, one multiply a channel cheaper.
+// Fragment layout (PTX m16n8k16): lane (g, q) = (lane / 4, lane % 4) holds A
+// rows g and g + 8 at k = 2q, 2q + 1 and 2q + 8, 2q + 9, B column g at the
+// same k, and accumulators of rows g, g + 8 at columns 2q, 2q + 1.
+
+constexpr int EMIT_TILES = 4;  // 16-pixel tiles per warp and loop trip: their loads in flight together
+
+// n / d for 0 <= n < 2^31 by one multiply and shift (Granlund-Montgomery):
+// m = ceil(2^(31 + l) / d) with 2^l >= d, q = (n * m) >> (31 + l).
+struct Divisor {
+  uint32_t m, shift;
+};
+
+Divisor make_divisor(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  return {uint32_t(((1ull << (31 + l)) + d - 1) / d), 31 + l};
+}
+
+__device__ __forceinline__ uint32_t div_by(uint32_t n, const Divisor& v) {
+  return uint32_t((uint64_t(n) * v.m) >> v.shift);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One channel of a pooled pixel from its conv rows' halved y, a (row 2 to)
+// and b.
+__device__ __forceinline__ float emit_pool(float a, float b) {
+  const float ra = fmaxf(__fadd_rn(__fmul_rn(a, 1.01f), 0.5f * 0.01f), 0.f);
+  const float rb = fmaxf(__fadd_rn(__fmul_rn(b, 1.01f), 0.5f * 0.01f), 0.f);
+  return ra + rb;
+}
+
+// x (B, t_in, f_in), w (9, 32) -> out (B, t_in / 2, f_in, 32) bf16; pixels =
+// B x t_in / 2 x f_in.
+__global__ void __launch_bounds__(THREADS, 2)
+conv1_emit(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out, int t_in, int f_in,
+           int pixels, Divisor div_w, Divisor div_to) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  // B: this lane's column g of n-tile j is conv row j / 4, channel 8 (g / 2)
+  // + 2 (j % 4) + g % 2; its k pair of register e is window row q / 2 + 2e,
+  // columns 2 (q % 2) and + 1 (column 3 is zero). Conv row r's tap dy sits at
+  // window row dy + r.
+  uint32_t bw[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int conv_row = j >> 2, ch = 8 * (g >> 1) + 2 * (j & 3) + (g & 1);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int dy = (q >> 1) + 2 * e - conv_row, dx = 2 * (q & 1);
+      const bool tap = dy >= 0 && dy < 3;
+      const float lo = tap ? 0.5f * __bfloat162float(w[(dy * 3 + dx) * CO1 + ch]) : 0.f;
+      const float hi = tap && dx == 0 ? 0.5f * __bfloat162float(w[(dy * 3 + 1) * CO1 + ch]) : 0.f;
+      bw[j][e] = bf16x2(lo, hi);  // exact: half a bf16 is a bf16
+    }
+  }
+
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const int t_out = t_in / 2;
+  // this lane's first window value: column col - 1 (even q, with col beside
+  // it) or col + 1 (odd q, with the zero column beside it)
+  const int dcol = (q & 1) ? 1 : -1;
+  const bool pair = !(q & 1);
+  const int tiles = (pixels + 15) / 16;
+  const int step = gridDim.x * (THREADS / 32) * EMIT_TILES;
+  for (int t0 = (blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * EMIT_TILES; t0 < tiles; t0 += step) {
+    uint32_t a[EMIT_TILES][4];  // tile t0 + u: A rows g (pixel 16 (t0 + u) + g) and g + 8
+#pragma unroll
+    for (int u = 0; u < EMIT_TILES; ++u) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * (t0 + u) + g + 8 * half;
+        const uint32_t r = div_by(uint32_t(p), div_w);
+        const int col = p - int(r) * f_in;
+        const uint32_t b = div_by(r, div_to);
+        const int to = int(r) - int(b) * t_out;
+        const int y0 = 2 * to - 1 + (q >> 1);  // window row q / 2; the second register's is y0 + 2
+        const bool in = p < pixels;
+        const bool c_ok = in && ((q & 1) ? col + 1 < f_in : col > 0);
+        const bool y0_ok = y0 >= 0, y1_ok = y0 + 2 < t_in;
+        const unsigned short* row = xs + (ptrdiff_t(b) * t_in + y0) * f_in + col;
+        const unsigned short v00 = c_ok && y0_ok ? __ldg(row + dcol) : 0;
+        const unsigned short v01 = pair && in && y0_ok ? __ldg(row) : 0;
+        const unsigned short v10 = c_ok && y1_ok ? __ldg(row + 2 * f_in + dcol) : 0;
+        const unsigned short v11 = pair && in && y1_ok ? __ldg(row + 2 * f_in) : 0;
+        a[u][half] = uint32_t(v00) | (uint32_t(v01) << 16);
+        a[u][2 + half] = uint32_t(v10) | (uint32_t(v11) << 16);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < EMIT_TILES; ++u) {
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_bf16_bias(acc[j], a[u], bw[j][0], bw[j][1], 0.f, 0.f);
+      // acc[jj] is conv row 2 to, acc[jj + 4] conv row 2 to + 1; accumulator
+      // rows g and g + 8 are the two pixels, n-tile jj's columns channels 8q
+      // + 2jj, + 1: each lane stores 8 channels of a pixel in one 16-byte store
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          v[jj] = bf16x2(emit_pool(acc[jj][2 * half], acc[jj + 4][2 * half]),
+                         emit_pool(acc[jj][2 * half + 1], acc[jj + 4][2 * half + 1]));
+        const int p = 16 * (t0 + u) + g + 8 * half;
+        if (p < pixels) *reinterpret_cast<uint4*>(out + size_t(p) * CO1 + 8 * q) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+cudaError_t launch_emit(const bf16* x, const bf16* w, bf16* out, int batch, int t_in, int f_in, cudaStream_t s) {
+  const long long pixels = (long long)batch * (t_in / 2) * f_in;
+  if (pixels == 0) return cudaSuccess;
+  if (pixels > 0x7fffffffLL - 16 * EMIT_TILES) return cudaErrorInvalidValue;  // pixel indices stay in int
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv1_emit, THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // persistent: as many blocks as fit at once, each warp walking EMIT_TILES 16-pixel tiles a trip
+  constexpr int per_block = 16 * EMIT_TILES * (THREADS / 32);
+  const long long blocks = (pixels + per_block - 1) / per_block, cap = (long long)per_sm * sm_count();
+  conv1_emit<<<int(blocks < cap ? blocks : cap), THREADS, 0, s>>>(x, w, out, t_in, f_in, int(pixels),
+                                                                  make_divisor(uint32_t(f_in)),
+                                                                  make_divisor(uint32_t(t_in / 2)));
+  return cudaSuccess;
 }
 
 // v2, v3 (SAME), a (SLICE, one window) and c (FLAT, one chunk of Np - 2W)
@@ -1253,8 +1475,8 @@ Tc1 pass_tc1(int kase, int batch, int t_in, int f_in, int group) {
 int pass_blocks(int kase, int t_in, int f_in, int group) {
   switch (kase) {
     case V0_SUMS: return (t_in * f_in + V0_CHUNK - 1) / V0_CHUNK;
-    case V1_SAME_FMA: return (t_in + R1 - 1) / R1;
-    case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? (t_in - 2 + R1 - 1) / R1 : 0;
+    case V1_SAME_FMA: return fma1_geom(true, 1, t_in, f_in).bands;
+    case D_VALID_FMA: return t_in >= 3 && f_in >= 3 ? fma1_geom(false, 1, t_in, f_in).bands : 0;
     case F_CONV2_DX: return t_in >= 3 && f_in >= 3 ? conv2_tiles(t_in - 2, f_in - 2) : 0;
     case V2_SAME_MMA: case V3_GROUP_MMA: return pass_tc1(kase, 1, t_in, f_in, group).bands;
     case A_VALID_MMA: return t_in >= 3 && f_in >= 3 ? pass_tc1(kase, 1, t_in, f_in, 1).bands : 0;
@@ -1265,21 +1487,13 @@ int pass_blocks(int kase, int t_in, int f_in, int group) {
 
 size_t pass_smem(int kase, int f_in, int n_out) {
   switch (kase) {
-    case V1_SAME_FMA: return conv1_smem(SAME_PAD, f_in, n_out);
-    case D_VALID_FMA: return conv1_smem(H_SLICE, f_in, n_out);
+    case V1_SAME_FMA: return fma1_smem(fma1_geom(true, 1, 1, f_in));  // t_in only sizes the bands
+    case D_VALID_FMA: return fma1_smem(fma1_geom(false, 1, 3, f_in));
     case F_CONV2_DX: return Conv2Cfg<CI2, CO2>::SMEM;
     case V2_SAME_MMA: case V3_GROUP_MMA: case A_VALID_MMA: case C_FLAT_MMA:  // t_in only sizes the bands
       return tc1_smem(pass_tc1_mode(kase), pass_tc1(kase, 1, 2 * f_in + 3, f_in, 1));
-    case V4_EMIT: return size_t(9) * n_out * sizeof(float);
     default: return 0;
   }
-}
-
-template <typename K, typename... Args>
-cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err == cudaSuccess) kern<<<grid, THREADS, smem, s>>>(args...);
-  return err;
 }
 
 }  // namespace
@@ -1327,10 +1541,10 @@ extern "C" int dfac_conv_probe_smem(int kase, int f_in, int cols, int n_out) {
 // Stages 11 and 12 (K7, K8). kase: 0 v0, 1 v1, 2 v2, 3 v3, 4 v4, 5 a, 6 c,
 // 7 d, 8 f. in: x (B, t_in, f_in) bf16, but for c the flat padded samples
 // (B, 1, t_in = Np) with f_in = W (M = Np - 2W outputs), and for f h1 (B,
-// t_in, f_in, 32). w: (9, n_out) for v1, d, v4; (9, 32) for v2, v3, a, c
-// (n_out = 32); w2dx (3, 96, 64) for f (n_out = 64); unused for v0. out:
-// (n_res, 8, 128) f32, where n_res = batch result blocks (samples; for v3
-// groups of `group` samples), or for v4 (batch, t_in / 2, f_in, n_out) bf16.
+// t_in, f_in, 32). w: (9, 32) for the conv1 cases v1-v4, a, c, d (n_out =
+// 32); w2dx (3, 96, 64) for f (n_out = 64); unused for v0. out: (n_res, 8,
+// 128) f32, where n_res = batch result blocks (samples; for v3 groups of
+// `group` samples), or for v4 (batch, t_in / 2, f_in, 32) bf16.
 // y: null, or every output in f32 (not for v0 and v4). done: n_res zeroed
 // counters (scratch; unused for v4). 16-byte aligned `in`, `w` and `out`.
 // One kernel launch on `stream`, no synchronisation; returns
@@ -1340,10 +1554,9 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
   if (kase < V0_SUMS || kase > F_CONV2_DX || batch <= 0 || batch > 65535 || t_in <= 0 || f_in <= 0 ||
       group < 1 || (kase != V3_GROUP_MMA && group != 1))
     return (int)cudaErrorInvalidValue;
-  const bool mma = kase == V2_SAME_MMA || kase == V3_GROUP_MMA || kase == A_VALID_MMA || kase == C_FLAT_MMA;
-  if ((mma && n_out != CO1) || (kase == F_CONV2_DX && n_out != CO2) ||
-      ((kase == V1_SAME_FMA || kase == D_VALID_FMA) && (n_out <= 0 || n_out > 1024)) ||
-      (kase == V4_EMIT && (n_out <= 0 || n_out % 8 || t_in < 2)) || size_t(t_in) * f_in > (size_t(1) << 30))
+  // every conv1 case takes kern_v1's 32 output channels, f conv2's 64
+  if ((kase != V0_SUMS && n_out != (kase == F_CONV2_DX ? CO2 : CO1)) || (kase == V4_EMIT && t_in < 2) ||
+      size_t(t_in) * f_in > (size_t(1) << 30))
     return (int)cudaErrorInvalidValue;
   const int blocks = pass_blocks(kase, t_in, f_in, group);
   const size_t smem = pass_smem(kase, f_in, n_out);
@@ -1354,18 +1567,16 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
   const bf16* wk = static_cast<const bf16*>(w);
   float* o = static_cast<float*>(out);
   unsigned int* done = static_cast<unsigned int*>(done_);
-  const dim3 grid(blocks, batch);
   cudaError_t err = cudaSuccess;
   switch (kase) {
     case V0_SUMS:
-      sum_sq_checksum<<<grid, THREADS, 0, s>>>(x, o, done, t_in * f_in);
+      sum_sq_checksum<<<dim3(blocks, batch), THREADS, 0, s>>>(x, o, done, t_in * f_in);
       break;
     case V1_SAME_FMA:
-      err = launch(conv1_checksum<SAME_PAD>, grid, smem, s, x, wk, o, y, done, t_in, f_in, t_in, f_in, n_out, 0);
+      err = launch_fma1<true>(x, wk, o, y, done, batch, fma1_geom(true, batch, t_in, f_in), s);
       break;
     case D_VALID_FMA:
-      err = launch(conv1_checksum<H_SLICE>, grid, smem, s, x, wk, o, y, done, t_in, f_in, t_in - 2, f_in - 2, n_out,
-                   int(f_in % 8 == 0));
+      err = launch_fma1<false>(x, wk, o, y, done, batch, fma1_geom(false, batch, t_in, f_in), s);
       break;
     case F_CONV2_DX:
       err = launch_conv2<false, true, CI2, CO2>(x, wk, o, y, done, batch, t_in, f_in, t_in - 2, f_in - 2, s);
@@ -1376,13 +1587,9 @@ extern "C" int dfac_conv_pass(int kase, const void* in, const void* w, void* out
     case C_FLAT_MMA:
       err = launch_tc1(pass_tc1_mode(kase), false, x, wk, o, y, done, pass_tc1(kase, batch, t_in, f_in, group), s);
       break;
-    case V4_EMIT: {
-      const long long pixels = (long long)batch * (t_in / 2) * f_in;
-      if (pixels == 0) return (int)cudaSuccess;
-      err = launch(conv1_emit, dim3(unsigned((pixels + THREADS - 1) / THREADS)), smem, s, x, wk,
-                   static_cast<bf16*>(out), batch, t_in, f_in, n_out);
+    case V4_EMIT:
+      err = launch_emit(x, wk, static_cast<bf16*>(out), batch, t_in, f_in, s);
       break;
-    }
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -51,8 +51,10 @@ past the edge of a ref: c's taps 7 and 8 (offsets 2W + 1, 2W + 2) read
 tap 6's window (2W), h2's second window starts at Fp - 130, not 128, and
 c2's last chunk reads from L - CHUNK_LEN for every tap. That is the
 reference's result, and the port's. ``unit`` picks the hardware: f32
-FMAs on the CUDA cores (``"fma"``) or ``mma.sync`` on the tensor cores
-with K = 9 padded to 16 (``"mma"``).
+FMAs on the CUDA cores (``"fma"``) or ``wgmma`` on the tensor cores with
+K = 9 padded to 16 (``"mma"``). v4's kernel forms both conv rows of a
+pooled pixel as one tensor-core product through ``ops/conv_block.py``'s
+``CIN1_TC_K`` and ``CIN1_TC_N`` maps, as K2's block 1 does.
 
 On a CUDA tensor each function launches ``csrc/conv_probe.cu`` (bf16 only)
 or raises; on a CPU tensor it runs the plain version. A launch counts under
@@ -237,7 +239,7 @@ CASES = {
 
 FLAT_WIDTH = 182              # c's row width W = F + 2 at stage 12's F = 180
 EMIT_AFFINE = (1.01, 0.01)    # kern_v4's y * 1.01 + 0.01
-MMA_CHANNELS = 32             # the tensor-core conv1 kernel's C_out (v2, v3, a, c)
+CONV1_CHANNELS = 32           # every conv1 kernel's C_out (kern_v1's): v1-v4, a, c, d, and stages 13-15's
 GROUP = 8                     # kern_v3's samples per grid step
 
 _PASS_ID = {"v0": 0, "v1": 1, "v2": 2, "v3": 3, "v4": 4, "a": 5, "c": 6, "d": 7, "f": 8}
@@ -337,8 +339,12 @@ def _check_conv1(x, w, lead: tuple) -> None:
 def _check_unit(unit: str, x, w) -> None:
     if unit not in _UNITS:
         raise ValueError(f"unit must be 'fma' or 'mma', got {unit!r}")
-    if x.is_cuda and unit == "mma" and w.shape[-1] != MMA_CHANNELS:
-        raise ValueError(f"the tensor-core conv1 kernel takes {MMA_CHANNELS} output channels, got w {tuple(w.shape)}")
+    _check_conv1_channels(x, w)
+
+
+def _check_conv1_channels(x, w) -> None:
+    if x.is_cuda and w.shape[-1] != CONV1_CHANNELS:
+        raise ValueError(f"the conv1 kernels take {CONV1_CHANNELS} output channels, got w {tuple(w.shape)}")
 
 
 def sum_sq_checksum(x):
@@ -378,12 +384,11 @@ def conv1_group_checksum(x, w, return_y=False):
 def conv1_emit(x, w):
     """v4: x (B, T, F), w (3, 3, CO) -> (B, T // 2, F, CO) in x's dtype: the
     SAME conv1, y * 1.01 + 0.01, ReLU and the mean of conv rows 2t and
-    2t + 1 in f32, one cast at the end. The CUDA kernel takes CO % 8 == 0."""
+    2t + 1 in f32, one cast at the end. The CUDA kernel takes CO = 32."""
     _check_conv1(x, w, (3, 3))
+    _check_conv1_channels(x, w)
     b, t, f = x.shape
     co = w.shape[-1]
-    if x.is_cuda and co % 8:
-        raise ValueError(f"the emit kernel writes 8 channels at a time, got w {tuple(w.shape)}")
 
     def kernel():
         out = torch.empty((b, t // 2, f, co), device=x.device, dtype=torch.bfloat16)
@@ -612,8 +617,8 @@ def flat_chunks_checksum(xf, wt, return_y=False):
     if length < CHUNK_LEN:
         raise ValueError(f"CHUNK_LEN {CHUNK_LEN} does not fit in xf {tuple(xf.shape)}")
     co = wt.shape[0]
-    if xf.is_cuda and co != MMA_CHANNELS:
-        raise ValueError(f"the tensor-core conv1 kernel takes {MMA_CHANNELS} output channels, got wt {tuple(wt.shape)}")
+    if xf.is_cuda and co != CONV1_CHANNELS:
+        raise ValueError(f"the conv1 kernels take {CONV1_CHANNELS} output channels, got wt {tuple(wt.shape)}")
     cols = CHUNKS * CHUNK_LEN
     return _dispatch(xf, lambda: _chunk_launch("c2", xf, wt, (b, cols, co), return_y, length, FLAT_WIDTH, r, cols,
                                                CHUNK_LEN, co),

@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from dfac_tpu.ops.pallas import conv_block as jcb
 from dfac_tpu_torch.ops import conv_block as tcb
+from dfac_tpu_torch.ops import conv_probe as tcp
 
 CASES = [
     (64, 24, 8, 16, True),
@@ -49,11 +50,10 @@ def test_conv_block_matches_pallas_v2_and_xla(h, w, cin, cout, pool):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
 
 
-def _cin1_tc_block(x, wk, b):
-    """Block 1 (C_in = 1, C_out = 32, pooled) through the tensor-core
-    kernel's product, in f32: A (pooled pixels x 16) by ``CIN1_TC_K``, B (16
-    x 64) by ``CIN1_TC_K`` and ``CIN1_TC_N``, B and the bias scaled by
-    ``CIN1_TC_SCALE``, then per channel relu(conv row 0) + relu(conv row 1)."""
+def _cin1_tc_product(x, wk, scale):
+    """Both conv rows of every pooled pixel as the tensor-core kernels' one
+    product, in f32: A (pooled pixels x 16) by ``CIN1_TC_K``, B (16 x 64) by
+    ``CIN1_TC_K`` and ``CIN1_TC_N``, scaled by ``scale`` -> (B, H // 2, W, 64)."""
     batch, h, width, _ = x.shape
     h_out = h // 2
     xp = F.pad(x[..., 0], (1, 1, 1, 1))  # window row i of pooled row ho is padded row 2ho + i
@@ -66,10 +66,17 @@ def _cin1_tc_block(x, wk, b):
         a[..., k] = xp[:, row : row + 2 * h_out : 2, col : col + width]
         for n, (conv_row, ch) in enumerate(tcb.CIN1_TC_N):
             if 0 <= row - conv_row < 3:  # conv row r's tap dy reads window row dy + r
-                bm[k, n] = tcb.CIN1_TC_SCALE * wk[row - conv_row, col, 0, ch]
+                bm[k, n] = scale * wk[row - conv_row, col, 0, ch]
+    return a @ bm
+
+
+def _cin1_tc_block(x, wk, b):
+    """Block 1 (C_in = 1, C_out = 32, pooled) through the tensor-core
+    kernel's product, B and the bias scaled by ``CIN1_TC_SCALE``, then per
+    channel relu(conv row 0) + relu(conv row 1)."""
     bias = tcb.CIN1_TC_SCALE * b[[ch for _, ch in tcb.CIN1_TC_N]]
-    y = torch.relu(a @ bm + bias)
-    out = torch.zeros(batch, h_out, width, 32)
+    y = torch.relu(_cin1_tc_product(x, wk, tcb.CIN1_TC_SCALE) + bias)
+    out = torch.zeros(*y.shape[:-1], 32)
     for n, (_, ch) in enumerate(tcb.CIN1_TC_N):  # the pool: each channel's column of both conv rows
         out[..., ch] += y[..., n]
     return out
@@ -86,6 +93,54 @@ def test_cin1_tensor_core_map_matches_pallas_v2_and_plain(h, w):
     # f32 throughout; the products are exact, the summation order differs
     np.testing.assert_allclose(got, v2, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(got, plain, atol=1e-4, rtol=1e-4)
+
+
+def _emit_halved(y0, y1):
+    """v4's epilogue as its CUDA kernel runs it on conv rows 2t and 2t + 1
+    whose y arrive halved (B scaled by ``CIN1_TC_SCALE``): relu(y 1.01 +
+    0.01 / 2) of each, summed (in f32; one cast to bf16 follows)."""
+    scale, shift = tcp.EMIT_AFFINE
+    half = tcb.CIN1_TC_SCALE
+    return torch.relu(y0 * scale + half * shift) + torch.relu(y1 * scale + half * shift)
+
+
+def _cin1_tc_emit(x, w):
+    """Stage 11's v4 (``conv1_emit``) through the same product, as its CUDA
+    kernel forms it: B halved and C zero, then :func:`_emit_halved` of each
+    channel's two conv rows."""
+    y = _cin1_tc_product(x[..., None], w[:, :, None, :], tcb.CIN1_TC_SCALE)
+    rows = torch.zeros(2, *y.shape[:-1], 32)
+    for n, (conv_row, ch) in enumerate(tcb.CIN1_TC_N):
+        rows[conv_row][..., ch] = y[..., n]
+    return _emit_halved(rows[0], rows[1]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,f", [(8, 24), (33, 21), (7, 13)])  # odd T (the last conv row dropped), F % 8 != 0
+def test_emit_tensor_core_map_matches_plain(t, f):
+    """v4's tensor-core kernel computes the emit through K2 block 1's maps:
+    within one bf16 last bit of ``conv1_emit_plain`` (f32 sums of the exact
+    products in another order can straddle a rounding boundary)."""
+    rng = np.random.default_rng(t + f)
+    x = torch.from_numpy(rng.normal(size=(2, t, f)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((0.2 * rng.normal(size=(3, 3, 32))).astype(np.float32)).to(torch.bfloat16)
+    got = _cin1_tc_emit(x.float(), w.float()).float()
+    want = tcp.conv1_emit_plain(x, w).float()
+    assert got.shape == want.shape == (2, t // 2, f, 32)
+    assert bool(((got - want).abs() <= 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-4).all())
+
+
+def test_emit_on_halved_y_is_the_plain_epilogue_bit_for_bit():
+    """Halving commutes with each rounding of the epilogue, so the kernel's
+    epilogue on y / 2 equals the plain version's 0.5 (relu(y 1.01 + 0.01) +
+    relu(y' 1.01 + 0.01)) on y, bit for bit (normal y; zeros and values
+    around the ReLU's edge included)."""
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(np.concatenate([rng.normal(size=(2, 4096)) * 10.0 ** rng.integers(-6, 4, size=(2, 4096)),
+                                         np.array([[0.0, -0.0099, -0.00990099, 1e-30], [0.0, 0.0, -1.0, 3.0]])],
+                                        axis=1).astype(np.float32))
+    scale, shift = tcp.EMIT_AFFINE
+    plain = (0.5 * (torch.clamp_min(y[0] * scale + shift, 0.0) + torch.clamp_min(y[1] * scale + shift, 0.0)))
+    assert torch.equal(_emit_halved(0.5 * y[0], 0.5 * y[1]), plain)
 
 
 def test_conv_block_matches_pallas_v1():

@@ -14,7 +14,7 @@ and non-contiguous power; for the time pool odd T, f32, rows that are not
 16-byte vectors, misaligned, transposed and untileable inputs; for the
 conv-probe checksums each case at B=1 and B=3 with every output, the wrap
 columns included, against the plain version; for stages 11 and 12's cases
-odd T, F that is not a multiple of 8 (d's scalar staging path), batches
+odd T, F that is not a multiple of 8 (v1's and d's ragged last quad), batches
 that are not multiples of v3's group of 8, every output against the plain
 version; for stages 14 and 15's cases every output at small odd sizes,
 F not a multiple of 8, h2's clamped second window, c2's partly and wholly
@@ -441,7 +441,8 @@ def test_conv_pass_kernel_matches_plain(cuda, name, shape, monkeypatch):
     assert torch.equal(case.kernel(inp, w), out)
 
 
-@pytest.mark.parametrize("shape", PASS_SHAPES + [(3, 8, 16), (2, 1, 9)])
+# (7, 9, 13): 364 pooled pixels, not a multiple of the kernel's 16-pixel tile or of a warp's 64-pixel trip
+@pytest.mark.parametrize("shape", PASS_SHAPES + [(3, 8, 16), (2, 1, 9), (7, 9, 13)])
 def test_conv_emit_kernel_matches_plain(cuda, shape):
     """v4 within one bf16 last bit of its plain version (odd T: the last conv
     row is dropped; T = 1: no pooled row, no launch), bit for bit twice."""
@@ -481,8 +482,12 @@ def test_conv_pass_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
         conv_probe.conv1_valid_checksum(x, w9[:, :16], "mma")
     with pytest.raises(ValueError, match="32 output channels"):
         conv_probe.flat_shift_checksum(arrs["xpad_flat"], w9[:, :16])
-    with pytest.raises(ValueError, match="8 channels"):
-        conv_probe.conv1_emit(x, w[..., :12])
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.conv1_emit(x, w[..., :16])
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.conv1_same_checksum(x, w[..., :16], "fma")
+    with pytest.raises(ValueError, match="32 output channels"):
+        conv_probe.conv1_valid_checksum(x, w9[:, :16], "fma")
     with pytest.raises(ValueError, match="32 -> 64"):
         conv_probe.conv2_dx_checksum(arrs["h1"], arrs["w2dx"][..., :32])
     # f on 300 rows x 200 columns: 150 x 7 tiles, more than a sample's 1,024 result slots
@@ -663,3 +668,27 @@ def test_conv1_tc_repeats_and_does_not_depend_on_the_batch(cuda, name, batch):
     assert torch.equal(case.kernel(units.flip(0).reshape(-1, *inp.shape[1:]), w), out.flip(0))
     for i in range(n):
         assert torch.equal(case.kernel(units[i], w), out[i : i + 1])
+
+
+CONV1_FMA_FAMILY = {"v1": (conv_probe.STAGE11_CASES["v1"], "11"), "d": (conv_probe.STAGE12_CASES["d"], "12")}
+
+
+@pytest.mark.parametrize("batch", [5, 133])
+@pytest.mark.parametrize("name", list(CONV1_FMA_FAMILY))
+def test_conv1_checksum_repeats_and_does_not_depend_on_the_batch(cuda, name, batch):
+    """The CUDA-core conv1 (v1, d) at the stages' widths, whose 321 and 319
+    output rows are not a multiple of its 32-row band: a second call equals
+    the first bit for bit, and each sample's sums from a batched call equal,
+    bit for bit, a call on that sample alone and a call on the batch in
+    reverse order. B = 133: more bands than the persistent grid takes at once."""
+    from dfac_tpu_torch.scripts import train_opt_probe
+
+    case, stage = CONV1_FMA_FAMILY[name]
+    arrs = getattr(train_opt_probe, f"stage{stage}_inputs")(batch, torch.bfloat16, cuda, seed=batch)
+    inp, w = arrs[case.inp], arrs[case.weights]
+    out = case.kernel(inp, w)
+    assert out.shape == (batch, 8, 128) and bool(torch.isfinite(out).all())
+    assert torch.equal(case.kernel(inp, w), out)
+    assert torch.equal(case.kernel(inp.flip(0), w), out.flip(0))
+    for i in range(batch):
+        assert torch.equal(case.kernel(inp[i : i + 1], w), out[i : i + 1])
