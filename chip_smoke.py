@@ -11,8 +11,8 @@ line:
 
 1. device   torch / CUDA / nvcc versions, the card's name and power limit
 2. build    every kernel from ``dfac_tpu_torch/csrc`` (nvcc, sm_90a), with
-            ptxas' registers and spills (the probe kernels' always, others'
-            where there are any) and the dynamic shared memory of each
+            ptxas' registers and spills (the probe kernels' and K4's always,
+            others' where there are any) and the dynamic shared memory of each
             kernel; ``cuobjdump -sass`` shows that the CUDA-core conv1
             (``conv1_checksum``: v1, d) has no tensor-core instruction and
             v4's ``conv1_emit`` has ``HMMA``
@@ -20,8 +20,9 @@ line:
             waveforms of 51,520 samples, bf16 and f32; a second call of each
             mode equal to the first bit for bit
 4. K4       the post-FFT kernel against its plain version on the rFFT power
-            of the same waveforms (41,088 rows), and the rFFT front-end
-            with it against the plain one
+            of the same waveforms (41,088 rows) and of the first 64 (20,544),
+            a second call equal bit for bit, and the rFFT front-end with it
+            against the plain one
 5. K2       the fused conv-block kernel against its plain version at the
             three serving block shapes at B=128, bf16 (a second call equal
             bit for bit) and f32
@@ -74,7 +75,8 @@ line:
             host clock ending in a synchronize), extraction utt/s per
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
-            each K1 mode, each K2 block in bf16 and in f32 and each probe
+            K4 (B=128 and B=64) and K7's v0 also by their device time a launch
+            (``torch.profiler``'s kernel records), each K1 mode, each K2 block in bf16 and in f32 and each probe
             case beside its own bound, rFFT + K4 against K1, K5 against
             ``F.avg_pool2d``, and controls: cuBLAS's DFT product alone in
             bf16 and f32 for K1, cuDNN's conv alone for each K2 block in
@@ -194,6 +196,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Device time per launch of the kernel named ``kernel`` over ``reps``
+    calls of ``fn``, from ``torch.profiler``'s kernel records
+    (``dfac_tpu_torch.profiling.kernel_device_ms``): the kernel alone,
+    without its wrapper's host work. Fails unless each call launched it once."""
+    from dfac_tpu_torch.profiling import kernel_device_ms
+
+    found = kernel_device_ms(fn, kernel, reps)
+    require(found is not None and found[1] == reps, f"torch.profiler: {found} for {kernel} over {reps} calls")
+    return found[0]
 
 
 def bound(n_bytes: float, **flops: float) -> tuple[float, str]:
@@ -361,10 +375,10 @@ def main() -> int:
         if m:
             spills = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:  # spills shown where there are any, and always for the probes' tensor-core kernels
+        if m and name:  # spills shown where there are any, and always for the probe kernels and K4
             shown = (f", {spills} bytes spill stores"
                      if spills != "0" or name.startswith(("conv2_checksum", "conv1_tc", "conv1_checksum",
-                                                          "conv1_emit")) else "")
+                                                          "conv1_emit", "fb_log_dct_kernel")) else "")
             phase("build", f"ptxas {name}: {m.group(1)} registers{shown}")
     check_units(lib_path)
 
@@ -394,16 +408,25 @@ def main() -> int:
 
     # -- 4. K4 vs plain ---------------------------------------------------
     power = power_spectrum(wave, cfg)
-    got = fused_fb_log_dct(power, cfg)
-    want = fb_log_dct_plain(power, cfg)
-    torch.cuda.synchronize()
-    require(got.shape == want.shape == (BATCH, N_FRAMES, cfg.n_ceps), got.shape)
-    require(torch.isfinite(got).all(), "K4 output is not finite")
-    k4_err, rel_err = max_errors(got, want)
-    phase("K4", f"f32 power {tuple(power.shape)} ({BATCH * N_FRAMES} rows) -> {tuple(got.shape)}: max abs "
-                f"{k4_err:.3e}, max rel {rel_err:.3e} (tolerance atol {K4_ATOL} + rtol {K4_RTOL})")
-    if not bool(((got - want).abs() <= K4_ATOL + K4_RTOL * want.abs()).all()):
-        raise AssertionError("K4 disagrees with its plain version")
+    phase("K4", f"walk: {lib.dfac_fb_log_dct_tile_rows()}-row tiles, {lib.dfac_fb_log_dct_stages()} ring slots, "
+                f"{lib.dfac_fb_log_dct_grid(BATCH * N_FRAMES)} blocks at B={BATCH}, "
+                f"{lib.dfac_fb_log_dct_grid(EXTRACT_BATCH * N_FRAMES)} at B={EXTRACT_BATCH}")
+    k4_err = 0.0
+    for b in (BATCH, EXTRACT_BATCH):
+        got = fused_fb_log_dct(power[:b], cfg)
+        want = fb_log_dct_plain(power[:b], cfg)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape == (b, N_FRAMES, cfg.n_ceps), got.shape)
+        require(torch.isfinite(got).all(), "K4 output is not finite")
+        abs_err, rel_err = max_errors(got, want)
+        phase("K4", f"f32 power {tuple(power[:b].shape)} ({b * N_FRAMES} rows) -> {tuple(got.shape)}: max abs "
+                    f"{abs_err:.3e}, max rel {rel_err:.3e} (tolerance atol {K4_ATOL} + rtol {K4_RTOL})")
+        if not bool(((got - want).abs() <= K4_ATOL + K4_RTOL * want.abs()).all()):
+            raise AssertionError(f"K4 disagrees with its plain version at B={b}")
+        if not torch.equal(fused_fb_log_dct(power[:b], cfg), got):
+            raise AssertionError(f"K4 B={b}: a second call gives other cepstra")
+        k4_err = max(k4_err, abs_err)
+    phase("K4", "a second call equals the first bit for bit at both batches")
     got = lfcc_features(wave, cfg, use_kernel=True)
     want = lfcc_features(wave, cfg)
     torch.cuda.synchronize()
@@ -839,6 +862,10 @@ def main() -> int:
     k1_bytes, dft_flops = wave.numel() * 4 + rows * cfg.n_ceps * 4, 2 * rows * cfg.win_length * 2 * n_bins
     k1_bound = {torch.bfloat16: bound(k1_bytes, bf16=dft_flops, f32=rows * (3 * n_bins + epilogue)),
                 torch.float32: bound(k1_bytes, f32=dft_flops + rows * (3 * n_bins + epilogue))}
+    def k4_bound(pw):  # power read once, cepstra written once; the banded filters and the DCT in f32
+        n = pw.numel() // n_bins
+        return bound(pw.numel() * 4 + n * cfg.n_ceps * 4, f32=n * epilogue)
+
     k1_time = {}
     for dt in (torch.bfloat16, torch.float32):
         k1_time[dt] = in_turns(lambda: cepstra_plain(wave, cfg, dt), lambda: gemm_lfcc_cepstra(wave, cfg, dt))
@@ -857,13 +884,17 @@ def main() -> int:
         phase("timing", f"K1 control, cuBLAS DFT product alone (one {str(dt)[6:]} torch.matmul, TF32 off) "
                         f"{tuple(fr.shape)} @ {tuple(bs.shape)}: {control_ms:.4f} ms, on {card}")
     del frames_f32
-    k4_ms, k4_plain = in_turns(lambda: fb_log_dct_plain(power, cfg), lambda: fused_fb_log_dct(power, cfg))
-    phase("timing", f"K4 fb_log_dct B={BATCH} ({BATCH * N_FRAMES} rows): kernel {k4_ms:.4f} ms, "
-                    f"plain {k4_plain:.4f} ms, on {card}")
-    half = power[:EXTRACT_BATCH]
-    ms, plain_ms = in_turns(lambda: fb_log_dct_plain(half, cfg), lambda: fused_fb_log_dct(half, cfg))
-    phase("timing", f"K4 fb_log_dct B={EXTRACT_BATCH} ({EXTRACT_BATCH * N_FRAMES} rows): kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, on {card}")
+    for b in (BATCH, EXTRACT_BATCH):
+        pw = power[:b]
+        ms, plain_ms = in_turns(lambda: fb_log_dct_plain(pw, cfg), lambda: fused_fb_log_dct(pw, cfg))
+        dev_ms = device_ms(lambda: fused_fb_log_dct(pw, cfg), "fb_log_dct_kernel")
+        bnd_ms, bnd_by = k4_bound(pw)
+        phase("timing", f"K4 fb_log_dct B={b} ({b * N_FRAMES} rows): kernel {ms:.4f} ms in turns, device "
+                        f"{dev_ms:.4f} ms a launch (torch.profiler), bound {bnd_ms:.4f} ms ({bnd_by}), "
+                        f"{bnd_ms / ms:.1%} of the bound's rate in turns, {bnd_ms / dev_ms:.1%} on the device; "
+                        f"plain {plain_ms:.4f} ms, on {card}")
+        if b == BATCH:
+            k4_ms, k4_plain = ms, plain_ms
     for dt in (torch.bfloat16, torch.float32):
         fft_k4, k1_dt = in_turns(lambda: gemm_lfcc_cepstra(wave, cfg, dt),
                                  lambda: fused_fb_log_dct(power_spectrum(wave, cfg), cfg))
@@ -982,6 +1013,11 @@ def main() -> int:
         ms, plain_ms = in_turns(lambda: reduce(case.plain(a, wt)), lambda: case.kernel(a, wt))
         pass_ms[key], pass_plain[key] = pass_ms[key] + ms, pass_plain[key] + plain_ms
         phase("timing", case_line(key, name, ms, plain_ms))
+        if name == "v0":  # a ~0.03 ms kernel behind its wrapper's host work: its device time too
+            dev_ms = device_ms(lambda: case.kernel(a, wt), "sum_sq_checksum")
+            phase("timing", f"{key} v0 B={PROBE_BATCH}: device {dev_ms:.4f} ms a launch (torch.profiler; "
+                            f"sum_sq_checksum alone), {case_bound[name][0] / dev_ms:.1%} of the bound's rate, "
+                            f"on {card}")
     x11, w11 = pass_arrs["11"]["x"], pass_arrs["11"]["w"]
     train_opt_probe.conv1_control(x11, w11)
     control_ms = statistics.mean(cuda_ms(lambda: train_opt_probe.conv1_control(x11, w11), 10) for _ in range(2))
@@ -1002,7 +1038,6 @@ def main() -> int:
                         f"only sums y) B={PROBE_BATCH}: {control_ms:.4f} ms, on {card}")
         del hc
 
-    k4_bound = bound(power.numel() * 4 + rows * cfg.n_ceps * 4, f32=rows * epilogue)
     k2_bound = bound_sum(k2_parts)
     k2_f32_bound = bound_sum(k2_f32_parts)
     k5_bound = bound_sum(bound((x.shape[1] // 2) * x[:, 0].numel() * 2 * 3) for x in k5_inputs)
@@ -1023,7 +1058,7 @@ def main() -> int:
         entry("conv_block_f32", "dfac_tpu_torch/csrc/conv_block.cu", "dfac_tpu/ops/pallas/conv_block.py:142",
               f32_launches["conv_block"], k2_f32_err, k2_f32_ms, k2_f32_plain, k2_f32_bound),
         entry("fb_log_dct", "dfac_tpu_torch/csrc/lfcc_kernel.cu", "dfac_tpu/ops/pallas/lfcc_kernel.py:41",
-              ext_launches["fft-pallas"]["fb_log_dct"], k4_err, k4_ms, k4_plain, k4_bound),
+              ext_launches["fft-pallas"]["fb_log_dct"], k4_err, k4_ms, k4_plain, k4_bound(power)),
         entry("time_pool", "dfac_tpu_torch/csrc/pool_kernel.cu", "scripts/pool_kernel_probe.py:81",
               probe_launches["pool_kernel_probe"]["time_pool"], k5_err, k5_ms, k5_plain, k5_bound, k5_lib),
         entry("conv_probe", "dfac_tpu_torch/csrc/conv_probe.cu",

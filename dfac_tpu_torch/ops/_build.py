@@ -66,6 +66,12 @@ _SIGNATURES = {
     "dfac_gemm_frontend_smem": [_I],
     "dfac_conv_block_smem": [_I, _I, _I],
     "dfac_fb_log_dct_smem": [],
+    # the post-FFT kernel's walk: rows per tile, ring slots, padded band
+    # width, blocks of a launch of (rows)
+    "dfac_fb_log_dct_tile_rows": [],
+    "dfac_fb_log_dct_stages": [],
+    "dfac_fb_log_dct_band": [],
+    "dfac_fb_log_dct_grid": [_I],
     "dfac_conv_probe_smem": [_I, _I, _I, _I],
     "dfac_conv_pass_smem": [_I, _I, _I],
     "dfac_conv_chunk_smem": [_I, _I, _I, _I],

@@ -6,8 +6,9 @@ LFCC front-end after the rFFT,
     ceps = log(max(power @ FB, floor)) @ DCT     # (..., T, 257) -> (..., T, 60)
 
 On a CUDA tensor, :func:`fused_fb_log_dct` launches the hand-written kernel
-in ``csrc/lfcc_kernel.cu`` (banded filterbank, log and DCT in f32, the
-log energies never leave the chip). On a CPU tensor it runs
+in ``csrc/lfcc_kernel.cu`` (persistent blocks fed by a ring of bulk copies
+of 32-row tiles; banded filterbank, log and a register-tiled DCT in f32;
+the log energies never leave the chip). On a CPU tensor it runs
 :func:`fb_log_dct_plain`. It never falls back from one to the other.
 
 The TPU's 128-lane padding (257 -> 384 bins, 120 -> 128 filters, 60 -> 128
@@ -38,7 +39,7 @@ def _fb_log_dct_cuda(power: torch.Tensor, cfg: lfcc_mod.LFCCConfig) -> torch.Ten
     if power.ndim < 1 or power.shape[-1] != n_bins:
         raise ValueError(f"power must end in {n_bins} bins, got shape {tuple(power.shape)}")
     if not power.is_contiguous():
-        raise ValueError("power must be contiguous (the kernel copies 64-row tiles flat)")
+        raise ValueError("power must be contiguous (the kernel copies 32-row tiles flat)")
     lead = power.shape[:-1]
     rows = power.numel() // n_bins
     out = torch.empty((*lead, cfg.n_ceps), device=power.device, dtype=torch.float32)

@@ -56,6 +56,27 @@ def _wall_ms(fn, n_batches: int, sync) -> float:
     return (time.perf_counter() - t0) * 1e3 / n_batches
 
 
+def kernel_device_ms(fn, kernel: str, reps: int = 10) -> tuple[float, int] | None:
+    """(device ms per launch, launches) of the kernels whose name holds
+    ``kernel``, from ``torch.profiler``'s kernel records over ``reps`` calls
+    of ``fn`` after one call to warm up; None where no such kernel ran on
+    a device (on the CPU, none does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    found = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in found)
+    return (sum(_device_us(e) for e in found) / 1e3 / launches, launches) if launches else None
+
+
 def profile_path(label: str, fn, n_batches: int, device: torch.device) -> dict:
     """Time ``fn`` (which runs ``n_batches`` batches), then profile one more
     run; print the summary and return it."""

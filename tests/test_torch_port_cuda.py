@@ -8,10 +8,12 @@ tiny H and T, fewer tiles than SMs, enough tiles that each tile ring
 wraps, every kernel case of the conv block, block 1's 16-pixel tiles
 across rows and utterances, the f32 kernel's 36-column and row tiles
 ragged and whole, f32, misaligned inputs, a second call equal
-bit for bit; for the post-FFT kernel one row,
-rows off its 64-row tile, lead dims, the log floor, huge power, misaligned
-and non-contiguous power; for the time pool odd T, f32, rows that are not
-16-byte vectors, misaligned, transposed and untileable inputs; for the
+bit for bit; for the post-FFT kernel one row, rows off its 32-row tile,
+lead dims, the log floor, huge power, misaligned and non-contiguous power,
+blocks that walk 1, 2 and many tiles with a ring that wraps and a ragged
+last tile, power 4, 8 and 12 bytes past a 16-byte boundary bit for bit,
+one row alone as in a 41,088-row batch; for the time pool odd T, f32, rows
+that are not 16-byte vectors, misaligned, transposed and untileable inputs; for the
 conv-probe checksums each case at B=1 and B=3 with every output, the wrap
 columns included, against the plain version; for stages 11 and 12's cases
 odd T, F that is not a multiple of 8 (v1's and d's ragged last quad), batches
@@ -226,7 +228,7 @@ def _power(lead, seed, scale=100.0):
 
 @pytest.mark.parametrize("lead", [(1,), (65,), (321,), (2, 3, 17), (2, 3, 64)])
 def test_fb_log_dct_kernel_matches_plain(cuda, lead):
-    """One row, rows off the 64-row tile, lead dims (the tile crosses them)."""
+    """One row, rows off the 32-row tile, lead dims (the tile crosses them)."""
     power = _power(lead, sum(lead)).to(cuda)
     before = _build.launch_counts()["fb_log_dct"]
     got = fused_fb_log_dct(power, CFG)
@@ -271,6 +273,71 @@ def test_fb_log_dct_misaligned_and_strided(cuda):
         fused_fb_log_dct(wide, CFG)
     with pytest.raises(TypeError, match="float32"):
         fused_fb_log_dct(power.double(), CFG)
+
+
+def _fb_log_dct_walk():
+    """(rows per tile, ring slots, blocks of a full card) of the kernel's walk."""
+    lib = _build.library()
+    tile = lib.dfac_fb_log_dct_tile_rows()
+    return tile, lib.dfac_fb_log_dct_stages(), lib.dfac_fb_log_dct_grid(1 << 30)
+
+
+# (tiles per block of a full card, rows past them): blocks walk 1, 2, a ring's
+# worth and more tiles, the ring wraps, the last tile is one row or one short
+WALK_CASES = [(1, -1), (1, 1), (2, -1), (2, 1), ("stages", -1), ("stages", 1), ("stages+1", 1), (7, -1), (7, 5)]
+
+
+@pytest.mark.parametrize("per_block,extra", WALK_CASES)
+def test_fb_log_dct_walk_matches_plain(cuda, per_block, extra):
+    tile, stages, grid = _fb_log_dct_walk()
+    per_block = {"stages": stages, "stages+1": stages + 1}.get(per_block, per_block)
+    rows = grid * per_block * tile + extra
+    assert _build.library().dfac_fb_log_dct_grid(rows) == grid
+    power = _power((rows,), rows).to(cuda)
+    got = fused_fb_log_dct(power, CFG)
+    want = fb_log_dct_plain(power, CFG)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)  # as test_fb_log_dct_kernel_matches_plain
+
+
+@pytest.mark.parametrize("rows", [1, 5, 33, 70])
+def test_fb_log_dct_fewer_tiles_than_blocks(cuda, rows):
+    tile, _, grid = _fb_log_dct_walk()
+    assert _build.library().dfac_fb_log_dct_grid(rows) == min(grid, -(-rows // tile))
+    power = _power((rows,), rows + 1).to(cuda)
+    torch.testing.assert_close(fused_fb_log_dct(power, CFG), fb_log_dct_plain(power, CFG), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("offset", [4, 8, 12])
+def test_fb_log_dct_source_offsets_bit_for_bit(cuda, offset):
+    """Power 4, 8 or 12 bytes past a 16-byte boundary, over 2 tiles a block
+    and 3 rows: the tensor ends 0-3 floats past its last 16-byte boundary."""
+    tile, _, grid = _fb_log_dct_walk()
+    rows = 2 * grid * tile + 3
+    power = _power((rows,), offset).to(cuda)
+    flat = torch.empty(offset // 4 + power.numel(), device=cuda)
+    flat[offset // 4:] = power.reshape(-1)
+    shifted = flat[offset // 4:].view(rows, 257)
+    assert shifted.data_ptr() % 16 == offset
+    torch.testing.assert_close(fused_fb_log_dct(shifted, CFG), fused_fb_log_dct(power, CFG), atol=0, rtol=0)
+
+
+def test_fb_log_dct_row_alone_equals_row_in_batch(cuda):
+    """One row alone gives the bits it gets inside a 41,088-row batch (B=128 x
+    321 frames), wherever it lies in its tile."""
+    power = _power((128 * 321,), 6).to(cuda)
+    batch = fused_fb_log_dct(power, CFG)
+    for i in (0, 31, 32, 20_000, 128 * 321 - 1):
+        assert torch.equal(fused_fb_log_dct(power[i : i + 1], CFG), batch[i : i + 1]), i
+
+
+def test_fb_log_dct_band_fits_the_filterbank(cuda):
+    """The kernel pads every filter to a fixed band: the widest band of the
+    filterbank it is given must fit."""
+    from dfac_tpu_torch.features.lfcc import banded_constants
+
+    _, fb_lo, fb_hi, _ = banded_constants(CFG, cuda)
+    assert int((fb_hi - fb_lo).max()) + 1 <= _build.library().dfac_fb_log_dct_band()
 
 
 @pytest.mark.parametrize("method,kernel", [("gemm", "gemm_frontend"), ("fft-pallas", "fb_log_dct"), ("fft", None)])

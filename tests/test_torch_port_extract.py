@@ -103,6 +103,24 @@ def test_kernels_share_banded_constants():
     assert not (fb_h[(rows < lo_h) | (rows > hi_h)] != 0).any()
 
 
+def test_fixed_width_bands_reproduce_the_filterbank():
+    """K4's kernel pads each filter to 5 bins from its first bin s = min(lo,
+    257 - 5) (csrc/lfcc_kernel.cu, BAND) and fills its band table from fb,
+    fb_lo and fb_hi: that table, put back on the bins, is the filterbank bit
+    for bit, and every padded weight is an exact zero."""
+    band = 5
+    fb, fb_lo, fb_hi, _ = (t.numpy() for t in tlfcc.banded_constants(CFG_T, torch.device("cpu")))
+    start = np.minimum(fb_lo, fb.shape[0] - band)
+    bins = start[None, :] + np.arange(band)[:, None]  # (5, 120)
+    inside = (bins >= fb_lo) & (bins <= fb_hi)
+    table = np.where(inside, fb[bins, np.arange(fb.shape[1])], np.float32(0))
+    assert (bins < fb.shape[0]).all() and (fb_hi - start < band).all()  # every band fits its window
+    dense = np.zeros_like(fb)
+    dense[bins, np.arange(fb.shape[1])] = table
+    np.testing.assert_array_equal(dense, fb)
+    assert (table[~inside] == 0).all() and not np.signbit(table[~inside]).any()
+
+
 def test_check_kernel_cfg_names_the_other_fields():
     import dataclasses
 

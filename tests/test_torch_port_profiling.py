@@ -26,3 +26,9 @@ def test_chain_rates_warm_up_then_time_each_run():
     assert len(calls) == 4 and len(r) == 3 and all(x > 0 for x in r)
     line = chain_rates.summary("chain", [1.0, 3.0, 2.0])
     assert line == "chain 2.0 utt/s (median of 3; min 1.0, max 3.0)"
+
+
+def test_kernel_device_ms_finds_no_device_kernel_on_the_cpu():
+    calls = []
+    assert profiling.kernel_device_ms(lambda: calls.append(1), "fb_log_dct_kernel", reps=3) is None
+    assert len(calls) == 4  # one to warm up, then the profiled calls
