@@ -83,6 +83,27 @@ line:
             bf16 and in f32, a write of block 1's output size in each
             (``zero_``), stage 11's cuDNN conv1, cuDNN's bf16 VALID conv at
             j's and j5's shapes (it writes y: it computes more)
+15. train   the training path at full CNN2D width (180 features, 321
+            frames, channels 1->32->64->128): the device EER against
+            ``calculate_eer`` bit for bit (the golden cases of
+            ``tests/test_eer.py``, two splits with tied minima of
+            |FAR - FRR| and a seeded 200,000-row split with tied scores,
+            n_spoof * n_bona > 2^31); ``python -m
+            dfac_tpu_torch.cli.train`` with the reference's recipe flags at
+            B=32 for 2 epochs on 1,024 train and 256 dev utterances, host-fed
+            and ``--device-resident`` (exit 0, both checkpoints, epoch 2's
+            train loss below epoch 1's); the trained checkpoint through
+            ``evaluate --checkpoint`` (the EER ``fit`` recorded for its best
+            epoch), ``predict`` and ``predict --fast`` (K2 f32, 3 launches
+            per batch in process; scores within 1e-4 of each other);
+            ``reproduce_reference --no-assert`` on a small fixture in the
+            Zenodo layout (beside the two train runs); then ms per train step and utt/s at B=32 and
+            B=512, host-fed and device-resident (median of 7 epochs, with
+            min and max; no kernel of the port launched), a TF32-conv
+            control and a channels-last control at B=512 (median of 3 each),
+            and one profiled B=512 epoch: the device's
+            busy share, its largest items, and conv1's forward and
+            backward kernels
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -157,6 +178,17 @@ Y_ATOL, Y_RTOL = 1e-4, 1e-5  # every y of the conv cases (conv1_checksum, conv1_
 FMA_CASES = ("v1", "d")  # the probe cases on the CUDA cores (conv1_checksum): bound at the f32 rate
 # K7, K8, K10, K11 -> their train_opt_probe stage
 PASS_KERNELS = {"conv1_pass": "11", "conv_forms": "12", "conv_chunked": "14", "conv_trailing": "15"}
+# the training phase (15)
+TRAIN_FEATURES = 180  # CNN2D's full width (the LFCC+delta+delta-delta features)
+TRAIN_UTTS, TRAIN_DEV_UTTS = 1024, 256  # the CLI runs' corpus
+TRAIN_BATCH, TRAIN_BIG_BATCH = 32, 512  # the reference recipe's batch; the probes' batch
+TRAIN_STEPS = {TRAIN_BATCH: 8, TRAIN_BIG_BATCH: 4}  # steps per timed epoch
+EER_ROWS = 200_000
+REPRO_UTTS = {"train": 64, "dev": 32, "test1": 16}
+RECIPE = ["--spec-augment", "--time-mask-ratio", "0.20", "--feature-mask", "--feature-mask-ratio", "0.10",
+          "--time-shift", "--time-shift-ratio", "0.10", "--channel-drop", "--channel-drop-prob", "0.05",
+          "--gaussian-jitter", "--gaussian-jitter-std", "0.005", "--label-smoothing", "0.05",
+          "--lr-scheduler", "plateau", "--lr-scheduler-metric", "dev_eer"]  # the reference's robust recipe
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
                  "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
@@ -296,13 +328,248 @@ def check_units(lib_path: str) -> None:
         raise AssertionError(f"SASS: found {sorted(found)} of conv1_checksum, conv1_emit")
 
 
-def main() -> int:
+def eer_golden() -> list:
+    """(scores, labels) of the golden cases of ``tests/test_eer.py``."""
+    rng = np.random.default_rng(42)
+    labels = (rng.random(200) > 0.5).astype(int)
+    scores = rng.normal(size=200) + labels * 1.5
+    return [
+        (np.array([0.1, 0.2, 0.3, 0.8, 0.9, 0.95]), np.array([0, 0, 0, 1, 1, 1])),
+        (np.array([0.1, 0.85, 0.3, 0.8, 0.2, 0.95]), np.array([0, 0, 0, 1, 1, 1])),
+        (scores, labels),
+        (1 - scores, labels),
+        (np.array([0.1, 0.2]), np.array([1, 1])),
+        (np.array([0.5, 0.5, 0.5, 0.5, 0.7, 0.7]), np.array([0, 1, 0, 1, 0, 1])),
+    ]
+
+
+def eer_tied_minima() -> list:
+    """Splits whose |FAR - FRR| has two minimal positions: exactly equal, or
+    equal until float64 rounds them apart (``tests/test_torch_port_train.py``)."""
+    return [(np.array([0.1, 0.2, 0.3], np.float32), np.array([1, 0, 1])),
+            (np.array([0, 2, 5, 1, 3, 2, 2, 0, 1], np.float32), np.array([0, 1, 0, 0, 0, 0, 1, 0, 1]))]
+
+
+def write_split(root: str, name: str, ds, labeled: bool = True) -> tuple[str, str]:
+    """A split as the reference's pickles (torch.Tensor cells) under ``root/name``."""
+    import pandas as pd
+    import torch
+
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    fpath, lpath = os.path.join(d, "features.pkl"), os.path.join(d, "labels.pkl")
+    pd.DataFrame({"uttid": ds.uttids, "features": [torch.from_numpy(m) for m in ds.features]}).to_pickle(fpath)
+    if labeled:
+        pd.DataFrame({"uttid": ds.uttids, "label": ds.labels.astype(np.int64)}).to_pickle(lpath)
+    return fpath, lpath
+
+
+def run_all(commands: dict, env) -> dict:
+    """Start every command at once; wait for all; stdout of each, or fail
+    with the first non-zero exit and its stderr."""
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+             for k, cmd in commands.items()}
+    outs = {k: p.communicate() for k, p in procs.items()}
+    for k, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"{k} exited {p.returncode}: {outs[k][1][-3000:]}")
+    return {k: out for k, (out, _) in outs.items()}
+
+
+def train_phase(dev, card: str) -> None:
+    """Phase 15: the training path at full width (see the module docstring)."""
+    import contextlib
+
+    import pandas as pd
+    import torch
+
+    from dfac_tpu_torch.data.augment import AugmentConfig
+    from dfac_tpu_torch.models.fast_infer import predict_scores_fast
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.ops import eer as teer
+    from dfac_tpu_torch.train import loop as train_loop
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train.checkpoint import load_checkpoint, load_model_variables
+    from dfac_tpu_torch.train.evaluate import predict_scores
+    from dfac_tpu_torch.models import build_model
+
+    features = TRAIN_FEATURES
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # -- device EER, bit for bit
+    for scores, labels in eer_golden() + eer_tied_minima():
+        want = teer.calculate_eer(scores, labels)
+        s_dev, l_dev = torch.as_tensor(scores, device=dev), torch.as_tensor(labels, device=dev)
+        got, got_t = teer.eer_device(s_dev, l_dev), tuple(float(v) for v in teer.eer_torch(s_dev, l_dev))
+        require(got == want == got_t, f"eer_device {got}, eer_torch {got_t}, calculate_eer {want}")
+    rng = np.random.default_rng(SEED)
+    labels = (rng.random(EER_ROWS) > 0.5).astype(np.int64)
+    scores = (np.round((rng.normal(size=EER_ROWS) + labels) * 64) / 64).astype(np.float32)  # ties
+    n_bona = int(labels.sum())
+    n_spoof = EER_ROWS - n_bona
+    require(n_bona * n_spoof > 2**31, "the split must overflow int32 products")
+    t0 = time.perf_counter()
+    want = teer.calculate_eer(scores, labels)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    s_dev, l_dev = torch.from_numpy(scores).to(dev), torch.from_numpy(labels).to(dev)
+    teer.eer_device(s_dev, l_dev)
+    sync()
+    t0 = time.perf_counter()
+    got = teer.eer_device(s_dev, l_dev)
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    got_t = tuple(float(v) for v in teer.eer_torch(s_dev, l_dev))
+    require(got == want == got_t, f"eer_device {got}, eer_torch {got_t}, calculate_eer {want}")
+    phase("train", f"eer_device and eer_torch on {card}: the {len(eer_golden())} golden cases, "
+                   f"{len(eer_tied_minima())} tied minima and {EER_ROWS} rows "
+                   f"({EER_ROWS - len(np.unique(scores))} tied scores, n_spoof * n_bona = {n_spoof * n_bona:,} > "
+                   f"2^31) equal calculate_eer bit for bit: eer {got[0]!r}, threshold {got[1]!r}; eer_device "
+                   f"{dev_ms:.2f} ms, calculate_eer {host_ms:.2f} ms on the host")
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_train_") as tmp:
+        # -- the train CLI, host-fed and device-resident, at the recipe's batch
+        train_ds = rates.synthetic_dataset(TRAIN_UTTS, features, N_FRAMES, 1)
+        dev_ds = rates.synthetic_dataset(TRAIN_DEV_UTTS, features, N_FRAMES, 2)
+        (tf, tl), (df, dl) = write_split(tmp, "train", train_ds), write_split(tmp, "dev", dev_ds)
+        data = os.path.join(tmp, "data")  # reproduce_reference's fixture in the Zenodo layout
+        for i, (name, n) in enumerate(REPRO_UTTS.items()):
+            write_split(data, name, rates.synthetic_dataset(n, features, N_FRAMES, 10 + i), labeled=name != "test1")
+        out_dir = os.path.join(tmp, "repro")
+        ck = os.path.join(tmp, "ck")
+        base = [*cli, "dfac_tpu_torch.cli.train", "--train-features", tf, "--train-labels", tl, "--dev-features", df,
+                "--dev-labels", dl, "--batch-size", str(TRAIN_BATCH), "--epochs", "2", "--checkpoint-dir", ck,
+                "--seed", str(SEED), "--in-features", str(features), "--device", dev.type, *RECIPE]
+        t0 = time.perf_counter()
+        outs = run_all({"host-fed": base + ["--run-name", "host"],
+                        "device-resident": base + ["--run-name", "resident", "--device-resident"],
+                        "reproduce_reference": [*cli, "dfac_tpu_torch.cli.reproduce_reference", "--data-dir", data,
+                                                "--out-dir", out_dir, "--epochs", "1", "--batch-size",
+                                                str(TRAIN_BATCH), "--no-assert", "--device", dev.type]}, env)
+        phase("train", f"train CLI x2 and reproduce_reference (concurrent): {time.perf_counter() - t0:.1f}s")
+        require(os.path.exists(os.path.join(out_dir, "report.md")) and
+                len(pd.read_pickle(os.path.join(out_dir, "prediction.pkl"))) == REPRO_UTTS["test1"], "no report")
+        for line in outs.pop("reproduce_reference").strip().splitlines():
+            if line.startswith("|") or "wrote" in line:
+                phase("train", f"reproduce_reference --no-assert: {line}")
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("train", f"cli {label}: {line}")
+            losses = [float(m.group(1)) for m in re.finditer(r"^epoch \d+: train_loss (\S+)", out, re.M)]
+            require(len(losses) == 2 and losses[1] < losses[0], f"{label}: epoch train losses {losses}")
+            run_dir = os.path.join(ck, "host" if label == "host-fed" else "resident")
+            for kind in ("best", "last"):
+                require(os.path.exists(os.path.join(run_dir, f"cnn2d_{kind}.ckpt")), f"{label}: no {kind} checkpoint")
+
+        # -- serve and evaluate the host-fed run's best checkpoint
+        best = os.path.join(ck, "host", "cnn2d_best.ckpt")
+        best_eer = load_checkpoint(best)["config"]["_trainer_state"]["best_eer"]
+        preds = {k: os.path.join(tmp, f"{k}.pkl") for k in ("eval-model", "fast")}
+        pred = [*cli, "dfac_tpu_torch.cli.predict", "--features", df, "--checkpoint", best, "--model", "cnn2d",
+                "--batch-size", str(BATCH), "--in-features", str(features), "--device", dev.type]
+        t0 = time.perf_counter()
+        outs = run_all({
+            "evaluate": [*cli, "dfac_tpu_torch.cli.evaluate", "--features", df, "--labels", dl, "--checkpoint", best,
+                         "--batch-size", str(TRAIN_BATCH), "--no-apply-sigmoid", "--in-features", str(features),
+                         "--device", dev.type],
+            "predict": pred + ["--out", preds["eval-model"]],
+            "predict --fast": pred + ["--out", preds["fast"], "--fast"],
+        }, env)
+        phase("train", f"evaluate and predict x2 (concurrent): {time.perf_counter() - t0:.1f}s")
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("train", f"{label}: {line}")
+        eer = float(re.search(r"^eer=(\S+)", outs["evaluate"], re.M).group(1))
+        require(eer == best_eer, f"evaluate --checkpoint: eer {eer!r}; fit's best epoch: {best_eer!r}")
+        cli_scores = {k: pd.read_pickle(v)["predictions"].to_numpy() for k, v in preds.items()}
+        d_cli = float(np.abs(cli_scores["eval-model"] - cli_scores["fast"]).max())
+        model = build_model("cnn2d", in_features=features)
+        model.load_state_dict(load_model_variables(best))
+        _build.reset_launch_counts()
+        fast = predict_scores_fast(model.state_dict(), dev_ds, dev, batch_size=BATCH, compute_dtype=torch.float32)
+        served = _build.launch_counts()
+        n_served = -(-TRAIN_DEV_UTTS // BATCH)
+        require(served == {**dict.fromkeys(served, 0), "conv_block": 3 * n_served}, f"served: {served}")
+        plain = predict_scores(model.to(dev), dev_ds, batch_size=BATCH, apply_sigmoid=True)
+        d_in = float(np.abs(fast - plain).max())
+        d_fast = float(np.abs(fast - cli_scores["fast"]).max())
+        phase("train", f"evaluate --checkpoint eer {eer!r} = fit's best epoch {best_eer!r}; predict vs predict --fast "
+                       f"(K2 f32) on {TRAIN_DEV_UTTS} utterances: max abs {d_cli:.3e}; in process {d_in:.3e}, "
+                       f"launches over {n_served} batches {served}; predict_scores_fast vs the CLI's --fast "
+                       f"{d_fast:.3e} (tolerance {F32_SCORE_ATOL})")
+        require(max(d_cli, d_in, d_fast) <= F32_SCORE_ATOL, "predict and predict --fast disagree")
+
+
+    # -- ms per step and utt/s, host-fed and device-resident; one profiled epoch
+    recipe = AugmentConfig(spec_augment=True, time_mask_ratio=0.2, feature_mask=True, feature_mask_ratio=0.1,
+                           time_shift=True, time_shift_ratio=0.1, channel_drop=True, channel_drop_prob=0.05,
+                           gaussian_jitter=True, gaussian_jitter_std=0.005)
+    _build.reset_launch_counts()
+    for b, steps in TRAIN_STEPS.items():
+        ds = rates.synthetic_dataset(b * steps, features, N_FRAMES, 3)
+        for resident in (False, True):
+            cfg = train_loop.TrainConfig(batch_size=b, in_features=features, seed=SEED, label_smoothing=0.05,
+                                         augment=recipe,
+                                         lr_scheduler="plateau", device_resident=resident)
+            trainer = train_loop.Trainer(cfg, device=dev)
+            trainer.init_state()
+            secs = rates.epoch_seconds(trainer, ds)
+            ms = [1e3 * t / steps for t in secs]
+            utt = [len(ds) / t for t in secs]
+            phase("train", f"train step B={b} {'device-resident' if resident else 'host-fed'}: "
+                           f"{statistics.median(ms):.4f} ms (median of {len(ms)} epochs of {steps} steps; min "
+                           f"{min(ms):.4f}, max {max(ms):.4f}), {statistics.median(utt):.1f} utt/s (min {min(utt):.1f}, "
+                           f"max {max(utt):.1f}), f32 convs, on {card}")
+        if b != TRAIN_BIG_BATCH:
+            continue
+        prof = rates.profile_epoch(trainer, ds, 100, (b, 1, N_FRAMES, features))
+        dev_share = (lambda t: t / prof["device_ms"]) if prof["device_ms"] else (lambda t: float("nan"))
+        phase("train", f"profile B={b} device-resident: device {prof['device_ms']:.4f} ms a step, busy "
+                       f"{prof['device_ms'] / statistics.median(ms):.1%} of the {statistics.median(ms):.4f} ms step "
+                       f"(profiled wall {prof['wall_ms']:.4f} ms)")
+        for name, k_ms, n in prof["top"]:
+            phase("train", f"  {k_ms:8.4f} ms {dev_share(k_ms):6.1%} {n:5.1f}x  {name[:110]}")
+        conv1 = prof["conv"]
+        require(conv1["ops"]["forward"] == conv1["ops"]["backward"] == steps, f"conv1 ops per epoch: {conv1['ops']}")
+        for kind in ("forward", "backward"):
+            total = sum(k_ms for k_ms, _ in conv1[kind].values())
+            phase("train", f"conv1 {kind} (cuDNN, input ({b}, 1, {N_FRAMES}, {features})): {total:.4f} ms a step, "
+                           f"{dev_share(total):.1%} of the device time")
+            for name, (k_ms, n) in sorted(conv1[kind].items(), key=lambda kv: -kv[1][0]):
+                phase("train", f"  {k_ms:8.4f} ms {n:4.1f}x  {name[:110]}")
+        dgrad = [name for name in conv1["backward"] if "dgrad" in name.lower()]
+        phase("train", f"conv1 data grad: {dgrad or 'no kernel (its input needs no gradient)'}")
+        # control: the same step with cuDNN's TF32 convs (torch's default for f32 on Hopper)
+        torch.backends.cudnn.allow_tf32 = True
+        train_loop.f32_convs = contextlib.nullcontext
+        try:
+            ms_tf32 = [1e3 * t / steps for t in rates.epoch_seconds(trainer, ds, reps=3, first_epoch=200)]
+        finally:
+            train_loop.f32_convs = sys.modules["dfac_tpu_torch.models.common"].f32_convs
+            torch.backends.cudnn.allow_tf32 = False
+        phase("train", f"control, train step B={b} device-resident with TF32 convs: {statistics.median(ms_tf32):.4f} ms "
+                       f"(median of {len(ms_tf32)} epochs; min {min(ms_tf32):.4f}, max {max(ms_tf32):.4f}), on {card}")
+        # control: the same step with the model channels-last (NHWC activations for BatchNorm and the pools)
+        trainer.model.to(memory_format=torch.channels_last)
+        try:
+            ms_nhwc = [1e3 * t / steps for t in rates.epoch_seconds(trainer, ds, reps=3, first_epoch=300)]
+        finally:
+            trainer.model.to(memory_format=torch.contiguous_format)
+        phase("train", f"control, train step B={b} device-resident with the model channels-last (f32 convs): "
+                       f"{statistics.median(ms_nhwc):.4f} ms (median of {len(ms_nhwc)} epochs; min {min(ms_nhwc):.4f}, "
+                       f"max {max(ms_nhwc):.4f}), on {card}")
+    trained = _build.launch_counts()
+    require(not any(trained.values()), f"training launched kernels of the port: {trained}")
+    phase("train", f"launches over the timed training runs: {trained} (cuDNN and cuBLAS only)")
+
+
+def kernel_phases():
+    """Phases 1-14; returns ``(kernels, kind, card, dev)``, or None without a GPU."""
     import torch
     import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+        return None
     sys.path.insert(0, ROOT)
     from dfac_tpu_torch.data.pipeline import ArrayDataset
     from dfac_tpu_torch.features.lfcc import METHODS, LFCCConfig, batch_features, lfcc_features, \
@@ -1071,6 +1338,24 @@ def main() -> int:
     for k in kernels:
         phase("timing", f"{k['name']}: kernel {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
                         f"{k['bound_ms'] / k['ms']:.1%} of the bound's rate, on {card}")
+
+    return kernels, kind, card, dev
+
+
+def main() -> int:
+    done = kernel_phases()
+    if done is None:
+        return 1
+    kernels, kind, card, dev = done
+    import torch
+
+    # -- 15. training -------------------------------------------------------
+    # phases 1-14's tensors went with their frame; hand their cached blocks back, so that the train
+    # CLIs' processes and the B=512 steps find the card's memory
+    torch.cuda.empty_cache()
+    phase("train", f"device memory before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+                   f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    train_phase(dev, card)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,72 @@
+"""Shared CLI plumbing: the flag groups of the reference scripts.
+
+Counterpart of the subset of :mod:`dfac_tpu.cli.common` that the ported
+CLIs use.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+from dfac_tpu_torch.data.augment import AugmentConfig
+
+
+def add_data_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--train-features", default="data/train/features.pkl")
+    p.add_argument("--train-labels", default="data/train/labels.pkl")
+    p.add_argument("--dev-features", default="data/dev/features.pkl")
+    p.add_argument("--dev-labels", default="data/dev/labels.pkl")
+
+
+def add_swap_tf_args(p: argparse.ArgumentParser) -> None:
+    """Mutually-exclusive --swap-tf/--no-swap-tf pair (reference
+    ``src/train.py:232-245``; default swap **on**)."""
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--swap-tf", dest="swap_tf", action="store_true",
+                   help="swap time and feature dimensions (T <-> F) (default)")
+    g.add_argument("--no-swap-tf", dest="swap_tf", action="store_false",
+                   help="disable time/feature swap")
+    p.set_defaults(swap_tf=True)
+
+
+def add_augment_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--spec-augment", action="store_true",
+                   help="enable SpecAugment during training")
+    p.add_argument("--time-mask-ratio", type=float, default=0.2)
+    p.add_argument("--feature-mask-ratio", type=float, default=0.1)
+    p.add_argument("--feature-mask", action="store_true",
+                   help="enable feature masking in addition to time masking")
+    p.add_argument("--time-shift", action="store_true")
+    p.add_argument("--time-shift-ratio", type=float, default=0.1)
+    p.add_argument("--channel-drop", action="store_true")
+    p.add_argument("--channel-drop-prob", type=float, default=0.1)
+    p.add_argument("--gaussian-jitter", action="store_true")
+    p.add_argument("--gaussian-jitter-std", type=float, default=0.01)
+
+
+def augment_config_from_args(args) -> AugmentConfig:
+    return AugmentConfig(
+        spec_augment=args.spec_augment,
+        time_mask_ratio=args.time_mask_ratio,
+        feature_mask_ratio=args.feature_mask_ratio,
+        feature_mask=args.feature_mask,
+        time_shift=args.time_shift,
+        time_shift_ratio=args.time_shift_ratio,
+        channel_drop=args.channel_drop,
+        channel_drop_prob=args.channel_drop_prob,
+        gaussian_jitter=args.gaussian_jitter,
+        gaussian_jitter_std=args.gaussian_jitter_std,
+    )
+
+
+def set_seed(seed: int) -> None:
+    """Seed the host generators and torch's default generators (every
+    device). The trainer's own draws use generators of its own, seeded
+    from the same value."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

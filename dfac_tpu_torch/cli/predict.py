@@ -6,9 +6,10 @@ and swap_tf on by default), strict prediction count, ``prediction.pkl``
 DataFrame {uttid, predictions}. Reads dfac_tpu pickle checkpoints and
 reference ``.pt`` files.
 
-Ported: ``--fast --model cnn2d`` (the folded chain through the fused
-kernels on CUDA), ``--bf16``, ``--device cuda|cpu``. The other flags of
-the JAX CLI exit non-zero with "not yet ported".
+Ported for ``--model cnn2d``: ``--fast`` (the folded chain through the
+fused kernels on CUDA, f32 or ``--bf16``), the eval model without
+``--fast`` (f32), ``--device cuda|cpu``. The other flags of the JAX CLI,
+and ``--bf16`` without ``--fast``, exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _not_yet_ported(args) -> str | None:
     for flag, on in (
         ("--int8", args.int8), ("--ingest-int8", args.ingest_int8),
         ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
-        ("--model cnn1d", args.model != "cnn2d"), ("predict without --fast", not args.fast),
+        ("--model cnn1d", args.model != "cnn2d"), ("--bf16 without --fast", args.bf16 and not args.fast),
     ):
         if on:
             return flag
@@ -71,6 +72,7 @@ def main(argv=None):
     from dfac_tpu_torch.models import build_model
     from dfac_tpu_torch.models.fast_infer import predict_scores_fast
     from dfac_tpu_torch.train.checkpoint import load_model_variables
+    from dfac_tpu_torch.train.evaluate import predict_scores
 
     device = resolve_device(args.device)
     model = build_model(args.model, in_features=args.in_features, dropout=args.dropout)
@@ -79,13 +81,19 @@ def main(argv=None):
 
     stats = PrefetchStats()
     t_run = time.perf_counter()
-    scores = predict_scores_fast(
-        model.state_dict(), ds, device,
-        batch_size=args.batch_size, swap_tf=args.swap_tf,
-        apply_sigmoid=args.apply_sigmoid,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        stats=stats,
-    )
+    if args.fast:
+        scores = predict_scores_fast(
+            model.state_dict(), ds, device,
+            batch_size=args.batch_size, swap_tf=args.swap_tf,
+            apply_sigmoid=args.apply_sigmoid,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            stats=stats,
+        )
+    else:
+        scores = predict_scores(
+            model.to(device), ds, batch_size=args.batch_size, swap_tf=args.swap_tf,
+            apply_sigmoid=args.apply_sigmoid, stats=stats,
+        )
     elapsed = time.perf_counter() - t_run
     if len(scores) != len(ds):
         raise ValueError("Number of predictions does not match number of rows in features.pkl")

@@ -1,0 +1,188 @@
+"""``python -m dfac_tpu_torch.cli.train`` — supervised training CLI.
+
+Counterpart of ``dfac-train`` (:mod:`dfac_tpu.cli.train`), parity target
+reference ``src/train.py:94-246``: the same flags, with ``--device``
+defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on the
+CPU). Trains CNN2D in f32 on one device, host-fed or
+``--device-resident``; ``--resume``, ``--run-name``, ``--quiet``,
+``--debug-augment-stats`` work. Progress is one plain line per epoch
+(``--no-rich`` selects the same display: the rich and tqdm visualizers
+are not ported). The flags of paths not ported yet exit non-zero with
+"not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from dfac_tpu_torch.cli.common import (
+    add_augment_args,
+    add_data_args,
+    add_swap_tf_args,
+    augment_config_from_args,
+    set_seed,
+)
+
+MODELS = [
+    "cnn2d", "cnn1d", "meanpool_mlp", "statspool_mlp", "cnn1d_spatial",
+    "cnn1d_archive", "cnn2d_spatial", "crnn", "crnn2", "cnn2d_robust",
+]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train a model for audio deepfake detection (PyTorch).")
+    add_data_args(p)
+    p.add_argument("--model", default="cnn2d", choices=MODELS)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--num-workers", type=int, default=2,
+                   help="accepted for reference-CLI compatibility (a prefetch thread feeds the card)")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--early-stop", type=int, default=0, help="patience in epochs (0 disables)")
+    p.add_argument("--lr-scheduler", default="none", choices=["none", "plateau"])
+    p.add_argument("--lr-scheduler-metric", default="dev_eer", choices=["dev_eer", "dev_loss"])
+    p.add_argument("--lr-scheduler-factor", type=float, default=0.5)
+    p.add_argument("--lr-scheduler-patience", type=int, default=2)
+    p.add_argument("--lr-scheduler-threshold", type=float, default=1e-4)
+    p.add_argument("--lr-scheduler-min-lr", type=float, default=1e-6)
+    p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
+    p.add_argument("--in-features", type=int, default=180)
+    p.add_argument("--hidden-dim", type=int, default=128)
+    p.add_argument("--dropout", type=float, default=0.2)
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--run-name", default="",
+                   help="optional subfolder under --checkpoint-dir for outputs")
+    p.add_argument("--no-rich", action="store_true", help="plain per-epoch lines (the only display ported)")
+    p.add_argument("--quiet", action="store_true", help="noop visualizer (CI)")
+    p.add_argument("--seed", type=int, default=0)
+    add_augment_args(p)
+    p.add_argument("--label-smoothing", type=float, default=0.0,
+                   help="label smoothing epsilon in [0, 0.5)")
+    p.add_argument("--debug-augment-stats", action="store_true",
+                   help="print feature stats before/after augmentation on the first batch")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (not yet ported)")
+    p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
+    p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
+                   help="checkpoint layout (orbax is not yet ported)")
+    p.add_argument("--device-resident", action="store_true",
+                   help="upload the training corpus to the card once; gather batches there")
+    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help="not yet ported")
+    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help="not yet ported")
+    p.add_argument("--fused-fit", action="store_true", help="not yet ported")
+    p.add_argument("--resume", default=None, metavar="CKPT",
+                   help="resume training from a checkpoint (model+optimizer+scheduler+epoch)")
+    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
+    p.add_argument("--train-fast", action="store_true", help="not yet ported")
+    p.add_argument("--profile-dir", default=None, help="not yet ported")
+    p.add_argument("--multihost", action="store_true", help="not yet ported")
+    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT", help="with --multihost")
+    p.add_argument("--num-processes", type=int, default=None, help="with --multihost")
+    p.add_argument("--process-id", type=int, default=None, help="with --multihost")
+    add_swap_tf_args(p)
+    return p.parse_args(argv)
+
+
+def _not_yet_ported(args) -> str | None:
+    for flag, on in (
+        (f"--model {args.model}", args.model != "cnn2d"), ("--bf16", args.bf16),
+        ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
+        ("--resident-chunk-batches", args.resident_chunk_batches > 0),
+        ("--chunk-ingest", args.chunk_ingest != "f32"), ("--fused-fit", args.fused_fit),
+        ("--bn-freeze-after", args.bn_freeze_after > 0), ("--train-fast", args.train_fast),
+        ("--checkpoint-format orbax", args.checkpoint_format == "orbax"),
+        ("--profile-dir", args.profile_dir is not None),
+    ):
+        if on:
+            return flag
+    return None
+
+
+def _debug_augment_stats(augment_fn, feats_swapped, device) -> None:
+    """First-batch before/after quantile dump (reference ``src/train.py:390-430``)."""
+    import torch
+
+    def stats(x):
+        flat = np.asarray(x).reshape(-1)
+        q01, q50, q99 = np.quantile(flat, [0.01, 0.50, 0.99])
+        return (
+            f"shape={tuple(x.shape)} min={flat.min():.4f} q01={q01:.4f} "
+            f"median={q50:.4f} q99={q99:.4f} max={flat.max():.4f} "
+            f"mean={flat.mean():.4f} std={flat.std():.4f} "
+            f"zero%={100 * (flat == 0).mean():.4f}"
+        )
+
+    print("[augment-stats] before:", stats(feats_swapped))
+    if augment_fn is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        out = augment_fn(torch.as_tensor(feats_swapped, device=device), gen)
+        print("[augment-stats] after: ", stats(out.cpu().numpy()))
+    else:
+        print("[augment-stats] after:  (no augmentation enabled)")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    missing = _not_yet_ported(args)
+    if missing:
+        raise SystemExit(f"{missing}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+    set_seed(args.seed)
+
+    from dfac_tpu_torch.data.pipeline import load_dataset
+    from dfac_tpu_torch.obs.lines import LineVisualizer
+    from dfac_tpu_torch.obs.noop import NoOpVisualizer
+    from dfac_tpu_torch.train.checkpoint import build_config_dict
+    from dfac_tpu_torch.train.loop import TrainConfig, Trainer
+
+    checkpoint_root = args.checkpoint_dir
+    if args.run_name:
+        checkpoint_root = os.path.join(checkpoint_root, args.run_name)
+
+    train_ds = load_dataset(args.train_features, args.train_labels)
+    dev_ds = load_dataset(args.dev_features, args.dev_labels)
+
+    cfg = TrainConfig(
+        model=args.model,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        early_stop=args.early_stop,
+        lr_scheduler=args.lr_scheduler,
+        lr_scheduler_metric=args.lr_scheduler_metric,
+        lr_scheduler_factor=args.lr_scheduler_factor,
+        lr_scheduler_patience=args.lr_scheduler_patience,
+        lr_scheduler_threshold=args.lr_scheduler_threshold,
+        lr_scheduler_min_lr=args.lr_scheduler_min_lr,
+        in_features=args.in_features,
+        hidden_dim=args.hidden_dim,
+        dropout=args.dropout,
+        seed=args.seed,
+        label_smoothing=args.label_smoothing,
+        swap_tf=args.swap_tf,
+        augment=augment_config_from_args(args),
+        device_resident=args.device_resident,
+    )
+    trainer = Trainer(cfg, visualizer=NoOpVisualizer() if args.quiet else LineVisualizer(), device=args.device)
+
+    if args.debug_augment_stats:
+        first = train_ds.features[: args.batch_size]
+        feats = np.transpose(first, (0, 2, 1)) if args.swap_tf else first
+        _debug_augment_stats(trainer.augment_fn, np.ascontiguousarray(feats, np.float32), trainer.device)
+
+    result = trainer.fit(
+        train_ds, dev_ds, checkpoint_dir=checkpoint_root,
+        config_snapshot=build_config_dict(args),
+        resume_from=args.resume,
+    )
+    if result["best_eer"] is not None:
+        print(f"best dev EER: {result['best_eer']:.6f}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -61,6 +61,12 @@ def load_features(
     return uttids, feats
 
 
+def load_feature_lengths(path: str) -> np.ndarray:
+    """Per-utterance time lengths (for variable-length corpora)."""
+    df = pd.read_pickle(path)
+    return np.asarray([_cell_to_numpy(c).shape[1] for c in df["features"]], dtype=np.int32)
+
+
 def load_labels(path: str) -> tuple[list[str], np.ndarray]:
     df = pd.read_pickle(path)
     if "uttid" not in df.columns or "label" not in df.columns:
@@ -102,6 +108,18 @@ def align_labels(
             f"{len(missing)} feature uttids have no label (e.g. {missing[0]!r})"
         )
     return np.asarray([lab_map[u] for u in feat_uttids], dtype=np.int32)
+
+
+def verify_uttid_alignment(features_path: str, labels_path: str) -> None:
+    """Strict features/labels uttid agreement check; raises on any mismatch
+    (reference ``src/evaluation.py:107-124``). Reads only the uttid columns."""
+    fdf = pd.read_pickle(features_path)
+    ldf = pd.read_pickle(labels_path)
+    for df, name in ((fdf, "features.pkl"), (ldf, "labels.pkl")):
+        if "uttid" not in df.columns:
+            raise ValueError(f"{name} must contain 'uttid'")
+    if set(fdf["uttid"]) != set(ldf["uttid"]) or len(fdf) != len(ldf):
+        raise ValueError("uttid mismatch between features and labels")
 
 
 def write_predictions(path: str, uttids: list[str], scores) -> pd.DataFrame:

@@ -9,8 +9,11 @@ Linear(128 * F, 1).
 
 Parameter names are the reference ``state_dict``'s (``conv.0/.1``,
 ``conv.5/.6``, ``conv.10/.11``, ``classifier``), so reference ``.pt``
-files load with ``load_state_dict``. This module is the f32 eval model;
-the serving path is the folded chain in :mod:`.fast_infer`.
+files load with ``load_state_dict``. In ``train()`` mode BatchNorm uses
+batch statistics and updates its running ones, and the byte-quantized
+:class:`~.common.FastDropout` (in ``nn.Dropout``'s place) is active; in
+``eval()`` mode this is the f32 eval model. The serving path is the
+folded chain in :mod:`.fast_infer`.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dfac_tpu_torch.models.common import conv_bn_relu, time_pool
+from dfac_tpu_torch.models.common import FastDropout, conv_bn_relu, time_pool
 
 
 class CNN2D(nn.Module):
@@ -32,8 +35,8 @@ class CNN2D(nn.Module):
         bc = base_channels
         self.in_features = in_features
         self.conv = nn.Sequential(
-            *conv_bn_relu(1, bc), time_pool(), nn.Dropout(dropout),
-            *conv_bn_relu(bc, bc * 2), time_pool(), nn.Dropout(dropout),
+            *conv_bn_relu(1, bc), time_pool(), FastDropout(dropout),
+            *conv_bn_relu(bc, bc * 2), time_pool(), FastDropout(dropout),
             *conv_bn_relu(bc * 2, bc * 4),
         )
         self.classifier = nn.Linear(bc * 4 * in_features, 1)

@@ -43,7 +43,8 @@ POOL_FRAMES = 321
 SEED = 0
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
+    """A profiler row's device time in us (``cuda_time_total`` in older torch)."""
     return evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
 
 
@@ -74,7 +75,7 @@ def kernel_device_ms(fn, kernel: str, reps: int = 10) -> tuple[float, int] | Non
         sync()
     found = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
     launches = sum(e.count for e in found)
-    return (sum(_device_us(e) for e in found) / 1e3 / launches, launches) if launches else None
+    return (sum(device_us(e) for e in found) / 1e3 / launches, launches) if launches else None
 
 
 def profile_path(label: str, fn, n_batches: int, device: torch.device) -> dict:
@@ -91,7 +92,7 @@ def profile_path(label: str, fn, n_batches: int, device: torch.device) -> dict:
         fn()
         sync()
     rows = sorted(
-        ((e.key, e.count, _device_us(e)) for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        ((e.key, e.count, device_us(e)) for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
         key=lambda r: -r[2],
     )
     dev_ms = sum(r[2] for r in rows) / 1e3 / n_batches

@@ -1,13 +1,22 @@
-"""Checkpoint loading (the read half of :mod:`dfac_tpu.train.checkpoint`).
+"""Checkpoints (counterpart of :mod:`dfac_tpu.train.checkpoint`).
 
-Two on-disk formats load into the port's ``state_dict``:
+The port writes the JAX package's format, so each package serves and
+resumes the other's checkpoints:
 
-* **dfac_tpu pickle checkpoints** — a pickled dict ``{format, model_state,
-  optimizer_state, epoch, config}`` whose arrays are numpy. The optimizer
-  state pickles optax NamedTuple classes, so a plain ``pickle.load`` would
-  import optax and with it jax. :class:`_ModelStateUnpickler` stubs every
-  ``jax``/``jaxlib``/``optax``/``flax`` class instead, and only
-  ``model_state`` is kept.
+* **dfac_tpu pickle checkpoints** — a pickled dict ``{format:
+  "dfac_tpu.v1", model_state, optimizer_state, epoch, config,
+  scheduler_state?}`` whose arrays are numpy; ``model_state`` is in the
+  JAX package's layout (``{'params', 'batch_stats'}``, HWIO kernels, see
+  :mod:`dfac_tpu_torch.utils.convert`). The port's AdamW state goes under
+  its own key, ``torch_optimizer_state`` (numpy arrays), with
+  ``optimizer_state: None``: the JAX package then resumes such a file
+  with fresh Adam moments. A JAX-written ``optimizer_state`` pickles
+  optax NamedTuple classes, so a plain ``pickle.load`` would import optax
+  and with it jax. :class:`_ModelStateUnpickler` puts a stand-in in place
+  of every ``jax``/``jaxlib``/``optax``/``flax`` class; the stand-in is a
+  tuple that keeps the NamedTuple's fields in order, so the Adam moments
+  of a JAX-written ``*_last.ckpt`` carry across
+  (:func:`~dfac_tpu_torch.utils.convert.adam_state_from_optax`).
 * **reference PyTorch ``.pt`` files** — wrapped dicts or raw state_dicts
   (reference ``src/training/checkpoint.py:42-71``), read with
   ``torch.load(weights_only=True)``. A wrapped dict's ``config`` and
@@ -25,6 +34,7 @@ import argparse
 import os
 import pickle
 import zipfile
+from typing import Any
 
 import numpy as np
 import torch
@@ -32,14 +42,16 @@ import torch
 from dfac_tpu_torch.utils.convert import state_dict_from_jax
 
 _JAX_MODULES = ("jax", "jaxlib", "optax", "flax", "orbax", "chex")
+FORMAT = "dfac_tpu.v1"
 
 
-class _Stub:
-    """Stand-in for a JAX-ecosystem class inside a pickle: accepts any
-    constructor arguments and state, keeps nothing."""
+class _Stub(tuple):
+    """Stand-in for a JAX-ecosystem class inside a pickle: a tuple of its
+    constructor arguments (a NamedTuple's fields, in order); any other
+    state is ignored."""
 
     def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
+        return tuple.__new__(cls, args)
 
     def __init__(self, *args, **kwargs):
         pass
@@ -91,6 +103,87 @@ def _extract_state_dict(ckpt) -> dict:
     return {k: v for k, v in ckpt.items() if isinstance(v, torch.Tensor)}
 
 
+def build_config_dict(args: Any) -> dict:
+    """Snapshot hyperparameters from an argparse Namespace / dict
+    (reference ``src/training/checkpoint.py:8-39``)."""
+    fields = [
+        "model", "batch_size", "epochs", "lr", "weight_decay", "early_stop",
+        "lr_scheduler", "lr_scheduler_metric", "lr_scheduler_factor",
+        "lr_scheduler_patience", "lr_scheduler_threshold", "lr_scheduler_min_lr",
+        "in_features", "hidden_dim", "dropout", "seed", "label_smoothing",
+        "swap_tf", "spec_augment",
+    ]
+    src = vars(args) if not isinstance(args, dict) else args
+    return {k: src[k] for k in fields if k in src}
+
+
+def _numpy_tree(node):
+    """Tensors -> numpy arrays through dicts and lists (a torch optimizer
+    state_dict stays readable without torch)."""
+    if isinstance(node, torch.Tensor):
+        return node.detach().cpu().numpy()
+    if isinstance(node, dict):
+        return {k: _numpy_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_numpy_tree(v) for v in node)
+    return node
+
+
+def torch_tree(node):
+    """The inverse of :func:`_numpy_tree` for an optimizer state_dict:
+    numpy arrays -> tensors."""
+    if isinstance(node, np.ndarray):
+        return torch.from_numpy(np.array(node))
+    if isinstance(node, dict):
+        return {k: torch_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(torch_tree(v) for v in node)
+    return node
+
+
+def save_checkpoint(
+    path: str,
+    variables: dict,
+    epoch: int = 0,
+    config: dict | None = None,
+    scheduler_state: dict | None = None,
+    torch_optimizer_state: dict | None = None,
+) -> None:
+    """Write the JAX package's pickle payload. ``variables`` is the JAX
+    layout (:func:`~dfac_tpu_torch.utils.convert.jax_from_state_dict`);
+    ``torch_optimizer_state`` an ``optimizer.state_dict()``, stored as
+    numpy under its own key."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = {
+        "format": FORMAT,
+        "model_state": variables,
+        "optimizer_state": None,
+        "epoch": int(epoch),
+        "config": config or {},
+    }
+    if scheduler_state is not None:
+        payload["scheduler_state"] = scheduler_state
+    if torch_optimizer_state is not None:
+        payload["torch_optimizer_state"] = _numpy_tree(torch_optimizer_state)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def load_checkpoint(path: str) -> dict:
+    """The whole payload of a dfac_tpu pickle checkpoint, read without jax
+    (a raw variables tree comes back wrapped). Orbax directories are not
+    ported."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (orbax checkpoint); orbax loading is not ported yet"
+        )
+    with open(path, "rb") as f:
+        ckpt = _ModelStateUnpickler(f).load()
+    if isinstance(ckpt, dict) and "model_state" in ckpt:
+        return ckpt
+    return {"model_state": ckpt, "optimizer_state": None, "epoch": 0, "config": {}}
+
+
 def load_model_variables(path: str, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
     """Load a dfac_tpu pickle checkpoint or a reference ``.pt`` file as the
     port's ``state_dict`` (CPU tensors), auto-detected."""
@@ -102,7 +195,4 @@ def load_model_variables(path: str, model_name: str = "cnn2d") -> dict[str, torc
         with torch.serialization.safe_globals(_reference_globals()):
             ckpt = torch.load(path, map_location="cpu", weights_only=True)
         return _extract_state_dict(ckpt)
-    with open(path, "rb") as f:
-        ckpt = _ModelStateUnpickler(f).load()
-    variables = ckpt["model_state"] if isinstance(ckpt, dict) and "model_state" in ckpt else ckpt
-    return state_dict_from_jax(variables, model_name)
+    return state_dict_from_jax(load_checkpoint(path)["model_state"], model_name)

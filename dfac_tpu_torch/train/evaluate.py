@@ -1,4 +1,13 @@
-"""Batched scoring over a corpus (the serving half of :mod:`dfac_tpu.train.evaluate`)."""
+"""Batched scoring and evaluation over a corpus.
+
+Counterpart of :mod:`dfac_tpu.train.evaluate` (parity target reference
+``src/evaluation.py:51-104``): run a classifier over a labeled split and
+return ``{avg_loss, eer, threshold}`` with the raw scores and labels.
+Scores and the loss sum stay on the device until one fetch at the end;
+the EER's sort and crossing search run there too
+(:func:`dfac_tpu_torch.ops.eer.eer_device`), with the two final
+divisions on the host in float64.
+"""
 
 from __future__ import annotations
 
@@ -7,9 +16,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dfac_tpu_torch.data.pipeline import ArrayDataset, batch_iterator
 from dfac_tpu_torch.io.prefetch import prefetched
+from dfac_tpu_torch.models.common import f32_convs
+from dfac_tpu_torch.ops.eer import eer_device
+from dfac_tpu_torch.train.optim import smooth_labels
 
 
 def collect_masked_scores(
@@ -47,3 +60,102 @@ def collect_masked_scores(
     if stats is not None:
         stats.device_wait_s += time.perf_counter() - t0
     return out
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def eval_step(model, feats, labels, swap_tf: bool, apply_sigmoid: bool, label_smoothing: float):
+    """One eval-mode batch: ``(scores, per-row BCE)``, both (B,) on the
+    device. ``feats`` is stored-orientation (B, F, T) with ``swap_tf``."""
+    x = feats.transpose(1, 2).contiguous() if swap_tf else feats
+    logits = model(x).reshape(-1)
+    per = F.binary_cross_entropy_with_logits(logits, smooth_labels(labels, label_smoothing), reduction="none")
+    return (torch.sigmoid(logits) if apply_sigmoid else logits), per
+
+
+def _uploads(features, batch_size: int, device: torch.device):
+    """Device batches of ``features``: slices of a tensor already on the
+    device, or f32 uploads of a numpy corpus made in a prefetch thread."""
+    from dfac_tpu_torch.models.fast_infer import ingest
+
+    n = len(features)
+    if isinstance(features, torch.Tensor):
+        return (features[s : s + batch_size] for s in range(0, n, batch_size))
+    return prefetched(
+        (ingest(features[s : s + batch_size], torch.float32, device) for s in range(0, n, batch_size)), depth=2
+    )
+
+
+def evaluate_classifier(
+    model: torch.nn.Module,
+    ds: ArrayDataset,
+    batch_size: int = 128,
+    swap_tf: bool = True,
+    apply_sigmoid: bool = False,
+    label_smoothing: float = 0.0,
+    with_loss: bool = True,
+    features: torch.Tensor | None = None,
+) -> tuple[dict, np.ndarray, np.ndarray]:
+    """Returns ``(metrics, scores, labels)`` like the reference ``evaluate``.
+
+    Runs in eval mode on the model's device, convs in full f32 (BatchNorm
+    on its running statistics, so a batch's rows are independent and the
+    tail runs at its true size). ``features`` (optional) is ``ds.features`` already on that
+    device: the trainer's resident path uploads the dev split once."""
+    if ds.labels is None:
+        raise ValueError("evaluate_classifier needs a labeled dataset")
+    device = model_device(model)
+    was_training = model.training
+    model.eval()
+    labels = torch.as_tensor(np.asarray(ds.labels), device=device)
+    labels_f = labels.float()
+    chunks, loss_sum = [], torch.zeros((), device=device)
+    with torch.inference_mode(), f32_convs():
+        src = features if features is not None else ds.features
+        for start, feats in zip(range(0, len(ds), batch_size), _uploads(src, batch_size, device)):
+            scores, per = eval_step(model, feats, labels_f[start : start + batch_size], swap_tf, apply_sigmoid,
+                                    label_smoothing)
+            chunks.append(scores)
+            loss_sum += per.sum()
+        scores = torch.cat(chunks) if chunks else torch.zeros(0, device=device)
+        eer, threshold = eer_device(scores, labels) if len(scores) else (None, None)
+        loss_sum = float(loss_sum)
+    model.train(was_training)
+    n = len(ds)
+    metrics = {
+        "avg_loss": loss_sum / n if (with_loss and n) else None,
+        "eer": eer,
+        "threshold": threshold,
+    }
+    return metrics, scores.cpu().numpy(), np.asarray(ds.labels)
+
+
+def predict_scores(
+    model: torch.nn.Module,
+    ds: ArrayDataset,
+    batch_size: int = 128,
+    swap_tf: bool = True,
+    apply_sigmoid: bool = False,
+    stats=None,
+) -> np.ndarray:
+    """Score every utterance with the eval model on its device (convs in
+    full f32); (N,) float32 in dataset order (:func:`collect_masked_scores`: padded
+    batches, f32 uploads from pinned memory in a prefetch thread, one
+    fetch at the end)."""
+    from dfac_tpu_torch.models.fast_infer import ingest
+
+    device = model_device(model)
+    was_training = model.training
+    model.eval()
+    zeros = torch.zeros(batch_size, device=device)
+    with torch.inference_mode(), f32_convs():
+        scores = collect_masked_scores(
+            lambda feats: eval_step(model, feats, zeros[: len(feats)], swap_tf, apply_sigmoid, 0.0)[0],
+            ds, batch_size,
+            prepare_batch=lambda b: ingest(b.features, torch.float32, device),
+            stats=stats,
+        )
+    model.train(was_training)
+    return scores

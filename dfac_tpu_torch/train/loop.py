@@ -1,0 +1,449 @@
+"""Supervised training driver (CNN2D on one device).
+
+Counterpart of :mod:`dfac_tpu.train.loop`; parity target reference
+``src/train.py`` (call stack SURVEY.md §3.1). The step — swap,
+augmentation, forward in train mode, label-smoothed weighted BCE,
+backward, AdamW, BatchNorm running statistics — runs on the device
+through autograd (cuDNN convs on CUDA, in full f32 as the JAX package's
+``Precision.HIGHEST``: :func:`~dfac_tpu_torch.models.common.f32_convs`);
+the host loop orchestrates
+batches, evaluation, the best-checkpoint rule, LR plateau scheduling,
+early stopping and visualizer events. The JAX package's hand-scheduled
+backward (``ops/train_chain.py``) computes the same math and is not
+ported.
+
+Reference semantics kept:
+
+* best-checkpoint rule (``src/train.py:484-518``): dev EER strictly lower
+  wins; on an EER tie within 1e-4, both train loss and dev loss must
+  improve by > 1e-6;
+* early stop counts epochs without *EER* improvement only (``:556-561``);
+* ReduceLROnPlateau monitors dev_eer or dev_loss (``:520-525``);
+* loss averaging weights each batch by its true sample count (``:78-80``);
+* the final partial batch trains at its true size, so its BatchNorm
+  statistics cover real rows only.
+
+Both feeds walk one order, ``np.random.default_rng(seed * 100003 +
+epoch).shuffle`` of the row ids, the JAX package's host loop's: host-fed
+(a prefetch thread gathers each batch and uploads it from pinned memory)
+or ``device_resident`` (the corpus uploaded once, each batch gathered on
+the card). The epoch's loss is summed on the device and fetched once.
+Dropout bytes and augmentation draws come from one ``torch.Generator`` on
+the device, seeded from ``seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dfac_tpu_torch.data.augment import AugmentConfig, build_augment_fn
+from dfac_tpu_torch.data.pipeline import ArrayDataset, batch_iterator, num_batches
+from dfac_tpu_torch.device import resolve_device
+from dfac_tpu_torch.io.prefetch import prefetched
+from dfac_tpu_torch.models import build_model
+from dfac_tpu_torch.models.common import FastDropout, f32_convs
+from dfac_tpu_torch.obs.base import BatchMetrics, EpochMetrics, TrainingConfig, TrainingVisualizer
+from dfac_tpu_torch.obs.noop import NoOpVisualizer
+from dfac_tpu_torch.train import checkpoint as ckpt_lib
+from dfac_tpu_torch.train.evaluate import evaluate_classifier
+from dfac_tpu_torch.train.optim import PlateauScheduler, build_optimizer, set_lr, smooth_labels
+from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_dict, state_dict_from_jax
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The reference train.py flag surface (``src/train.py:94-246``) that
+    the port trains: CNN2D in f32 on one device (the JAX package's other
+    fields select paths not ported yet; see ROADMAP.md)."""
+
+    model: str = "cnn2d"
+    batch_size: int = 32
+    epochs: int = 10
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    early_stop: int = 0
+    lr_scheduler: str = "none"  # none | plateau
+    lr_scheduler_metric: str = "dev_eer"  # dev_eer | dev_loss
+    lr_scheduler_factor: float = 0.5
+    lr_scheduler_patience: int = 2
+    lr_scheduler_threshold: float = 1e-4
+    lr_scheduler_min_lr: float = 1e-6
+    in_features: int = 180
+    hidden_dim: int = 128
+    dropout: float = 0.2
+    seed: int = 0
+    label_smoothing: float = 0.0
+    swap_tf: bool = True
+    augment: AugmentConfig = dataclasses.field(default_factory=AugmentConfig)
+    device_resident: bool = False  # upload the corpus once; gather batches on the card
+
+    def __post_init__(self):
+        if not (0.0 <= self.label_smoothing < 0.5):
+            raise ValueError("label_smoothing must be in [0, 0.5)")
+
+
+class Trainer:
+    """Host-side orchestration of the supervised training loop."""
+
+    def __init__(
+        self,
+        cfg: TrainConfig,
+        visualizer: TrainingVisualizer | None = None,
+        device=None,
+        model: torch.nn.Module | None = None,
+    ):
+        """``device``: a ``torch.device`` or its name (default ``cuda``, no
+        fallback). ``model`` (optional): the module to train in place of
+        ``build_model(cfg.model, ...)`` (another width, as in the tests);
+        :meth:`init_state` resets or loads its parameters."""
+        self.cfg = cfg
+        self.device = device if isinstance(device, torch.device) else resolve_device(device)
+        self.visualizer = visualizer or NoOpVisualizer()
+        self.augment_fn = build_augment_fn(cfg.augment)
+        self.scheduler = (
+            PlateauScheduler(
+                factor=cfg.lr_scheduler_factor,
+                patience=cfg.lr_scheduler_patience,
+                threshold=cfg.lr_scheduler_threshold,
+                min_lr=cfg.lr_scheduler_min_lr,
+            )
+            if cfg.lr_scheduler == "plateau"
+            else None
+        )
+        # dropout bytes and augmentation draws (one stream on the device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self._module = model
+        self.model: torch.nn.Module | None = None
+        self.optimizer: torch.optim.Optimizer | None = None
+        self.history: list[EpochMetrics] = []
+        self._lr = cfg.lr
+        self._best_state: dict | None = None
+        self._resident: tuple | None = None  # (dataset, features, labels) on the device
+        self._dev_resident: tuple | None = None  # (dataset, features)
+
+    # -- state ------------------------------------------------------------
+    def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
+        """Build the model with torch's default init drawn from ``seed``
+        (the process's global generator is left as it was), or load
+        ``state_dict``; then a fresh optimizer."""
+        cfg = self.cfg
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            if self._module is None:
+                model = build_model(cfg.model, in_features=cfg.in_features, dropout=cfg.dropout)
+            else:  # the draws of construction, in construction order
+                model = self._module
+                for m in model.modules():
+                    if hasattr(m, "reset_parameters"):
+                        m.reset_parameters()
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        self.model = model.to(self.device)
+        for m in self.model.modules():
+            if isinstance(m, FastDropout):
+                m.generator = self.generator
+        self.optimizer = build_optimizer(cfg.model, self.model.parameters(), self._lr, cfg.weight_decay)
+        return self.model
+
+    def variables(self) -> dict:
+        """The current ``state_dict`` (parameters and BN running stats)."""
+        return self.model.state_dict()
+
+    def best_variables(self) -> dict:
+        """The best epoch's ``state_dict`` (a copy taken when it was best;
+        the current one before any epoch was)."""
+        return self._best_state if self._best_state is not None else self.variables()
+
+    # -- step -------------------------------------------------------------
+    def train_step(self, feats: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor):
+        """One optimizer step on a device batch of stored-orientation
+        features; returns ``(loss * count, count)`` as device scalars."""
+        cfg = self.cfg
+        x = feats.transpose(1, 2) if cfg.swap_tf else feats
+        if self.augment_fn is not None:
+            x = self.augment_fn(x, self.generator)
+        self.model.train()
+        with f32_convs():
+            logits = self.model(x.contiguous()).reshape(-1)
+            per = F.binary_cross_entropy_with_logits(
+                logits, smooth_labels(labels, cfg.label_smoothing), reduction="none"
+            )
+            count = weights.sum()
+            loss = (per * weights).sum() / count.clamp_min(1.0)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        self.optimizer.step()
+        return loss.detach() * count, count
+
+    def _host_batches(self, ds: ArrayDataset, seed: int):
+        """Shuffled true-size batches, gathered and uploaded (pinned,
+        ``non_blocking``) by the prefetch thread."""
+        from dfac_tpu_torch.models.fast_infer import ingest
+
+        for b in batch_iterator(ds, self.cfg.batch_size, shuffle=True, seed=seed, pad_tail=False):
+            yield tuple(ingest(a, torch.float32, self.device) for a in (b.features, b.labels, b.weights))
+
+    def _resident_arrays(self, ds: ArrayDataset):
+        if self._resident is None or self._resident[0] is not ds:
+            labels = ds.labels if ds.labels is not None else np.zeros(len(ds))
+            self._resident = (
+                ds,
+                torch.as_tensor(np.asarray(ds.features, np.float32), device=self.device),
+                torch.as_tensor(np.asarray(labels, np.float32), device=self.device),
+            )
+        return self._resident[1], self._resident[2]
+
+    def _resident_batches(self, ds: ArrayDataset, seed: int):
+        """The same order as :meth:`_host_batches`, gathered on the card."""
+        feats_all, labels_all = self._resident_arrays(ds)
+        order = np.arange(len(ds))
+        np.random.default_rng(seed).shuffle(order)
+        order = torch.from_numpy(order).to(self.device)
+        ones = torch.ones(self.cfg.batch_size, device=self.device)
+        for start in range(0, len(ds), self.cfg.batch_size):
+            idx = order[start : start + self.cfg.batch_size]
+            yield feats_all.index_select(0, idx), labels_all.index_select(0, idx), ones[: len(idx)]
+
+    def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
+        cfg = self.cfg
+        seed = cfg.seed * 100003 + epoch
+        # a float per step would sync the card every batch: only a live
+        # progress display pays that
+        live_ui = batch_ctx is not None and getattr(batch_ctx, "wants_updates", True)
+        total_loss = torch.zeros((), device=self.device)
+        total_count = torch.zeros((), device=self.device)
+        batches = (
+            self._resident_batches(ds, seed) if cfg.device_resident
+            else prefetched(self._host_batches(ds, seed), depth=2)
+        )
+        for i, (feats, labels, weights) in enumerate(batches):
+            loss_sum, count = self.train_step(feats, labels, weights)
+            total_loss += loss_sum
+            total_count += count
+            if live_ui:
+                tc = float(total_count)
+                if tc > 0:
+                    batch_ctx.update_batch(
+                        BatchMetrics(batch_idx=i, running_loss=float(total_loss) / tc, batch_size=int(count))
+                    )
+        tc = float(total_count)
+        return (float(total_loss) / tc) if tc else None
+
+    # -- evaluation -------------------------------------------------------
+    def evaluate(self, dev_ds: ArrayDataset) -> dict:
+        cfg = self.cfg
+        features = None
+        if cfg.device_resident:
+            if self._dev_resident is None or self._dev_resident[0] is not dev_ds:
+                self._dev_resident = (
+                    dev_ds, torch.as_tensor(np.asarray(dev_ds.features, np.float32), device=self.device)
+                )
+            features = self._dev_resident[1]
+        metrics, _, _ = evaluate_classifier(
+            self.model, dev_ds,
+            batch_size=cfg.batch_size,
+            swap_tf=cfg.swap_tf,
+            label_smoothing=cfg.label_smoothing,
+            features=features,
+        )
+        return metrics
+
+    # -- checkpoints ------------------------------------------------------
+    def restore(self, ckpt_path: str) -> dict:
+        """Resume from a checkpoint of either package: model, optimizer
+        (the port's own state, or a JAX-written file's Adam moments),
+        scheduler, epoch and best-tracking counters."""
+        cfg = self.cfg
+        ckpt = ckpt_lib.load_checkpoint(ckpt_path)
+        state_dict = state_dict_from_jax(ckpt["model_state"], cfg.model)
+        if self.model is None:
+            self.init_state(state_dict)
+        else:
+            self.model.load_state_dict(state_dict)
+        if ckpt.get("torch_optimizer_state") is not None:
+            self.optimizer.load_state_dict(ckpt_lib.torch_tree(ckpt["torch_optimizer_state"]))
+        elif ckpt.get("optimizer_state") is not None:
+            names = [n for n, _ in self.model.named_parameters()]
+            opt_sd = self.optimizer.state_dict()
+            opt_sd["state"] = adam_state_from_optax(ckpt["optimizer_state"], names, cfg.model)
+            self.optimizer.load_state_dict(opt_sd)
+        if self.scheduler is not None and ckpt.get("scheduler_state"):
+            self.scheduler = PlateauScheduler.from_state_dict(ckpt["scheduler_state"])
+        ts = ckpt.get("config", {}).get("_trainer_state", {})
+        if ts.get("lr") is not None:
+            self._lr = ts["lr"]
+            set_lr(self.optimizer, self._lr)
+        return {"epoch": ckpt.get("epoch", 0), "trainer_state": ts}
+
+    def save_checkpoint_file(
+        self,
+        path: str,
+        *,
+        epoch: int,
+        variables: dict | None = None,
+        config_snapshot: dict | None = None,
+        trainer_state: dict | None = None,
+    ) -> None:
+        """Write a checkpoint in the JAX package's format with the
+        ``_trainer_state`` embedding. With ``variables`` (a best-epoch
+        snapshot written after training moved on) the optimizer and
+        scheduler states are left out: they belong to the last epoch.
+        Resume from ``*_last.ckpt``; ``*_best.ckpt`` is for inference."""
+        snapshot = variables is not None
+        config = dict(config_snapshot or dataclasses.asdict(self.cfg))
+        if trainer_state is not None:
+            config["_trainer_state"] = trainer_state
+        ckpt_lib.save_checkpoint(
+            path,
+            jax_from_state_dict(variables if snapshot else self.variables(), self.cfg.model),
+            epoch=epoch,
+            config=config,
+            scheduler_state=None if snapshot or self.scheduler is None else self.scheduler.state_dict(),
+            torch_optimizer_state=None if snapshot else self.optimizer.state_dict(),
+        )
+
+    # -- loop ---------------------------------------------------------------
+    def fit(
+        self,
+        train_ds: ArrayDataset,
+        dev_ds: ArrayDataset,
+        checkpoint_dir: str | None = None,
+        config_snapshot: dict | None = None,
+        resume_from: str | None = None,
+    ) -> dict:
+        cfg = self.cfg
+        start_epoch = 1
+        resumed_ts: dict = {}
+        if resume_from:
+            restored = self.restore(resume_from)
+            start_epoch = restored["epoch"] + 1
+            resumed_ts = restored["trainer_state"]
+        if self.model is None:
+            self.init_state()
+
+        self.visualizer.on_training_start(
+            TrainingConfig(
+                device=str(self.device),
+                model=cfg.model,
+                epochs=cfg.epochs,
+                batch_size=cfg.batch_size,
+                learning_rate=cfg.lr,
+                weight_decay=cfg.weight_decay,
+                early_stop_patience=cfg.early_stop,
+                in_features=cfg.in_features,
+                hidden_dim=cfg.hidden_dim,
+                dropout=cfg.dropout,
+            )
+        )
+
+        best_eer = resumed_ts.get("best_eer")
+        best_train_loss = resumed_ts.get("best_train_loss")
+        best_dev_loss = resumed_ts.get("best_dev_loss")
+        prev_metrics: EpochMetrics | None = None
+        epochs_no_improve = resumed_ts.get("epochs_no_improve", 0)
+        eer_tie_eps = 1e-4
+        loss_improve_eps = 1e-6
+        best_path = last_path = None
+        if checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            best_path = os.path.join(checkpoint_dir, f"{cfg.model}_best.ckpt")
+            last_path = os.path.join(checkpoint_dir, f"{cfg.model}_last.ckpt")
+
+        def trainer_state() -> dict:
+            return {
+                "best_eer": best_eer, "best_train_loss": best_train_loss,
+                "best_dev_loss": best_dev_loss,
+                "epochs_no_improve": epochs_no_improve, "lr": self._lr,
+            }
+
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            t0 = time.perf_counter()
+            with self.visualizer.on_epoch_start(epoch, num_batches(len(train_ds), cfg.batch_size)) as batch_ctx:
+                train_loss = self.train_epoch(train_ds, epoch, batch_ctx)
+            dev_metrics = self.evaluate(dev_ds)
+            eer = dev_metrics["eer"]
+            dev_loss = dev_metrics["avg_loss"]
+            elapsed = time.perf_counter() - t0
+
+            # best rule (reference src/train.py:484-518)
+            is_best = False
+            if eer is not None:
+                if best_eer is None or eer < best_eer:
+                    is_best = True
+                    best_eer, best_train_loss, best_dev_loss = eer, train_loss, dev_loss
+                    epochs_no_improve = 0
+                else:
+                    epochs_no_improve += 1
+                    if (
+                        abs(eer - best_eer) <= eer_tie_eps
+                        and None not in (train_loss, dev_loss, best_train_loss, best_dev_loss)
+                        and train_loss < best_train_loss - loss_improve_eps
+                        and dev_loss < best_dev_loss - loss_improve_eps
+                    ):
+                        is_best = True
+                        best_train_loss, best_dev_loss = train_loss, dev_loss
+            if is_best:
+                # parameters change in place: keep a copy of the best epoch's
+                self._best_state = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+            if self.scheduler is not None:
+                metric = dev_loss if cfg.lr_scheduler_metric == "dev_loss" else eer
+                if metric is not None:
+                    new_lr = self.scheduler.step(metric, self._lr)
+                    if new_lr != self._lr:
+                        self._lr = new_lr
+                        set_lr(self.optimizer, new_lr)
+
+            improved = (
+                prev_metrics is not None
+                and prev_metrics.dev_eer is not None
+                and eer is not None
+                and eer < prev_metrics.dev_eer
+            )
+            metrics = EpochMetrics(
+                epoch=epoch,
+                train_loss=train_loss,
+                dev_loss=dev_loss,
+                dev_eer=eer,
+                is_best=is_best,
+                improved=improved,
+                epochs_no_improve=epochs_no_improve,
+                learning_rate=self._lr,
+                epoch_seconds=elapsed,
+                throughput_utt_s=len(train_ds) / elapsed if elapsed > 0 else None,
+            )
+            self.visualizer.on_epoch_end(metrics, prev_metrics)
+
+            if is_best and best_path:
+                self._save(best_path, epoch, config_snapshot, trainer_state())
+            if last_path:
+                # refreshed every epoch so a crash resumes from the most
+                # recent state (the reference writes its *_last only at exit)
+                self._save(last_path, epoch, config_snapshot, trainer_state())
+            self.history.append(metrics)
+            prev_metrics = metrics
+
+            if cfg.early_stop and epochs_no_improve >= cfg.early_stop:
+                break
+
+        self.visualizer.on_training_end(self.history)
+        if last_path:
+            # a resumed run with no epochs left keeps the restored epoch
+            last_epoch = self.history[-1].epoch if self.history else start_epoch - 1
+            self._save(last_path, last_epoch, config_snapshot, trainer_state())
+        return {
+            "best_eer": best_eer,
+            "best_train_loss": best_train_loss,
+            "best_dev_loss": best_dev_loss,
+            "history": self.history,
+        }
+
+    def _save(self, path: str, epoch: int, config_snapshot: dict | None, trainer_state: dict) -> None:
+        self.save_checkpoint_file(path, epoch=epoch, config_snapshot=config_snapshot, trainer_state=trainer_state)
+

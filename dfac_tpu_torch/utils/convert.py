@@ -1,12 +1,15 @@
-"""JAX model variables -> the port's ``state_dict``.
+"""JAX model variables <-> the port's ``state_dict``, and optax's Adam
+moments -> torch's.
 
-Same layout rules as ``flax_to_torch`` in ``dfac_tpu/utils/torch_export.py``,
-written again here so that the port never imports ``dfac_tpu``:
+Same layout rules as ``flax_to_torch`` / ``torch_to_flax`` in
+``dfac_tpu/utils/``, written again here so that the port never imports
+``dfac_tpu``:
 
-* conv kernel HWIO ``(kh, kw, I, O)`` -> OIHW ``(O, I, kh, kw)``;
-* Dense kernel ``(I, O)`` -> Linear weight ``(O, I)``;
-* BatchNorm ``scale/bias`` params and ``mean/var`` batch stats ->
-  ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
+* conv kernel HWIO ``(kh, kw, I, O)`` <-> OIHW ``(O, I, kh, kw)``;
+* Dense kernel ``(I, O)`` <-> Linear weight ``(O, I)``;
+* BatchNorm ``scale/bias`` params and ``mean/var`` batch stats <->
+  ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``,
+  which JAX does not keep: momentum is fixed, so it is never read).
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ _CNN2D = [
     for entry in ((f"conv.{ci}", "conv2d", (f"conv{i}", "conv")), (f"conv.{bi}", "bn", (f"bn{i}",)))
 ] + [("classifier", "linear", ("classifier", "dense"))]
 
+# torch parameter suffix -> JAX leaf name, per kind (BN statistics apart)
+_LEAVES = {"conv2d": {"weight": "kernel", "bias": "bias"}, "linear": {"weight": "kernel", "bias": "bias"},
+           "bn": {"weight": "scale", "bias": "bias"}}
+
 
 def _get(tree: dict, path: tuple[str, ...]) -> np.ndarray:
     node = tree
@@ -29,28 +36,111 @@ def _get(tree: dict, path: tuple[str, ...]) -> np.ndarray:
     return np.asarray(node, dtype=np.float32)
 
 
+def _put(tree: dict, path: tuple[str, ...], value: np.ndarray) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a writable copy
 
 
+def _to_torch_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "weight" and kind == "conv2d":
+        return np.transpose(a, (3, 2, 0, 1))  # HWIO -> OIHW
+    if leaf == "weight" and kind == "linear":
+        return a.T
+    return a
+
+
+def _to_jax_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "weight" and kind == "conv2d":
+        return np.transpose(a, (2, 3, 1, 0))  # OIHW -> HWIO
+    if leaf == "weight" and kind == "linear":
+        return a.T
+    return a
+
+
+def _check(model_name: str) -> None:
+    if model_name != "cnn2d":
+        raise NotImplementedError(f"no JAX <-> torch mapping for '{model_name}' yet (see ROADMAP.md)")
+
+
+def params_from_jax(params: dict, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
+    """A JAX ``params`` tree (or a tree of its shape, such as Adam's
+    moments) -> ``{torch parameter name: tensor}`` in torch's layouts."""
+    _check(model_name)
+    out: dict[str, torch.Tensor] = {}
+    for prefix, kind, path in _CNN2D:
+        for leaf, jleaf in _LEAVES[kind].items():
+            out[f"{prefix}.{leaf}"] = _t(_to_torch_layout(kind, leaf, _get(params, path + (jleaf,))))
+    return out
+
+
 def state_dict_from_jax(variables: dict, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` tree of numpy arrays -> state_dict."""
-    if model_name != "cnn2d":
-        raise NotImplementedError(f"no JAX -> torch mapping for '{model_name}' yet (see ROADMAP.md)")
-    params = variables["params"]
+    _check(model_name)
+    params = params_from_jax(variables["params"], model_name)
     stats = variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
     for prefix, kind, path in _CNN2D:
+        for leaf in _LEAVES[kind]:
+            sd[f"{prefix}.{leaf}"] = params[f"{prefix}.{leaf}"]
         if kind == "bn":
-            sd[f"{prefix}.weight"] = _t(_get(params, path + ("scale",)))
-            sd[f"{prefix}.bias"] = _t(_get(params, path + ("bias",)))
             sd[f"{prefix}.running_mean"] = _t(_get(stats, path + ("mean",)))
             sd[f"{prefix}.running_var"] = _t(_get(stats, path + ("var",)))
             sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
-        elif kind == "linear":
-            sd[f"{prefix}.weight"] = _t(_get(params, path + ("kernel",)).T)
-            sd[f"{prefix}.bias"] = _t(_get(params, path + ("bias",)))
-        else:  # conv2d
-            sd[f"{prefix}.weight"] = _t(np.transpose(_get(params, path + ("kernel",)), (3, 2, 0, 1)))
-            sd[f"{prefix}.bias"] = _t(_get(params, path + ("bias",)))
     return sd
+
+
+def jax_from_state_dict(state_dict: dict, model_name: str = "cnn2d") -> dict:
+    """The inverse of :func:`state_dict_from_jax`: a state_dict (tensors on
+    any device) -> JAX ``{'params', 'batch_stats'}`` of f32 numpy arrays,
+    the layout the JAX package's checkpoints hold."""
+    _check(model_name)
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items() if v.is_floating_point()}
+    params: dict = {}
+    stats: dict = {}
+    for prefix, kind, path in _CNN2D:
+        for leaf, jleaf in _LEAVES[kind].items():
+            _put(params, path + (jleaf,), np.ascontiguousarray(_to_jax_layout(kind, leaf, sd[f"{prefix}.{leaf}"])))
+        if kind == "bn":
+            _put(stats, path + ("mean",), sd[f"{prefix}.running_mean"])
+            _put(stats, path + ("var",), sd[f"{prefix}.running_var"])
+    return {"params": params, "batch_stats": stats}
+
+
+def _find_adam(node):
+    """The ``ScaleByAdamState(count, mu, nu)`` inside an optax state (a
+    NamedTuple, or the field-keeping stand-in of a checkpoint read
+    without optax), searched depth first through tuples and lists."""
+    if type(node).__name__ == "ScaleByAdamState":
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, param_names: list[str], model_name: str = "cnn2d") -> dict:
+    """optax's Adam(W) state -> ``{param index: {step, exp_avg,
+    exp_avg_sq}}``, the ``state`` of a torch Adam/AdamW ``state_dict`` for
+    parameters in the order ``param_names``.
+
+    ``opt_state`` is what ``optax.inject_hyperparams(optax.adamw)`` keeps
+    (``InjectHyperparamsState`` holding ``(ScaleByAdamState(count, mu, nu),
+    ...)``): the moments take the parameters' layout transposes, and
+    ``count`` (optax's update count) is torch's ``step``."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optimizer state")
+    count, mu, nu = tuple(adam)[:3]
+    mu_t, nu_t = params_from_jax(mu, model_name), params_from_jax(nu, model_name)
+    step = float(np.asarray(count))
+    return {
+        i: {"step": torch.tensor(step), "exp_avg": mu_t[name], "exp_avg_sq": nu_t[name]}
+        for i, name in enumerate(param_names)
+    }
