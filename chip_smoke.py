@@ -104,6 +104,27 @@ line:
             and one profiled B=512 epoch: the device's
             busy share, its largest items, and conv1's forward and
             backward kernels
+16. submission  the reference's submission path at full width (CNN2D and
+            CNN1D 180 -> 32 -> 64 -> 128, the CAE at base 32, 321 x 180,
+            weights from a seed with non-trivial BatchNorm statistics, a
+            normalizer fitted on the bonafide half of a synthetic
+            512-utterance labeled split, B=128): ``predict_scores_fast`` in
+            bf16, the CNN2D leg of ``predict_hybrid --fast``, launches K2
+            three times a batch and nothing else; the CNN1D and CAE fast
+            chains (f32 and bf16, cuDNN, no kernel of the port) against their
+            f32 eval models; ``predict_hybrid --fast`` against
+            ``predict_hybrid`` (both ``--cnn-model`` values) within the bound
+            its legs' differences give; then, as subprocesses on the split,
+            ``predict --model cnn1d --fast``, ``train --model cnn1d`` (1
+            epoch), ``evaluate_cae``, ``hybrid_ensemble``, ``ensemble
+            cnn2d:... cnn1d:...``, ``predict_hybrid`` with and without
+            ``--fast`` (concurrently), then ``generate_submission`` on the
+            ``--fast`` prediction.pkl; then utt/s of the CNN1D chain (f32,
+            bf16), the CAE chain (f32, bf16) and the two hybrid legs in
+            sequence (K2 bf16 + the CAE in bf16) over 2,048 on-device feature
+            tensors at B=128 (``chain_rates``: median of 7 with min and max),
+            and one ``torch.profiler`` pass of the CAE and CNN1D chains
+            (device ms a batch, busy share, the largest items)
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -184,6 +205,8 @@ TRAIN_UTTS, TRAIN_DEV_UTTS = 1024, 256  # the CLI runs' corpus
 TRAIN_BATCH, TRAIN_BIG_BATCH = 32, 512  # the reference recipe's batch; the probes' batch
 TRAIN_STEPS = {TRAIN_BATCH: 8, TRAIN_BIG_BATCH: 4}  # steps per timed epoch
 EER_ROWS = 200_000
+CAE_RTOL = {"float32": 1e-4, "bfloat16": 0.1}  # CAE MSE against the f32 eval model: the JAX package's
+# bounds, tests/test_fast_infer.py:205-207 (f32: BN folded, sums in another order; bf16 activations)
 REPRO_UTTS = {"train": 64, "dev": 32, "test1": 16}
 RECIPE = ["--spec-augment", "--time-mask-ratio", "0.20", "--feature-mask", "--feature-mask-ratio", "0.10",
           "--time-shift", "--time-shift-ratio", "0.10", "--channel-drop", "--channel-drop-prob", "0.05",
@@ -560,6 +583,168 @@ def train_phase(dev, card: str) -> None:
     trained = _build.launch_counts()
     require(not any(trained.values()), f"training launched kernels of the port: {trained}")
     phase("train", f"launches over the timed training runs: {trained} (cuDNN and cuBLAS only)")
+
+
+def fused_bound(alpha: float, legs_a, legs_b) -> float:
+    """The most two fusions (``ensemble.hybrid.fuse_scores``) of legs that
+    differ by ``d`` (max abs, per leg) can differ: min-max normalization
+    moves a score by at most 4 d / range of that leg."""
+    (sup_a, cae_a), (sup_b, cae_b) = legs_a, legs_b
+    bound = 0.0
+    for w, a, b in ((alpha, sup_a, sup_b), (1 - alpha, cae_a, cae_b)):
+        bound += w * 4 * float(np.abs(a - b).max()) / float(a.max() - a.min())
+    return bound
+
+
+def submission_phase(dev, card: str) -> None:
+    """Phase 16: the reference's submission path at full width (see the module docstring)."""
+    import pandas as pd
+    import torch
+
+    from dfac_tpu_torch import chain_rates
+    from dfac_tpu_torch.data.normalizer import build_normalizer
+    from dfac_tpu_torch.ensemble.hybrid import fuse_scores
+    from dfac_tpu_torch.models import build_model, fast_infer
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.profiling import profile_path
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train.cae_loop import cae_mse_scores
+    from dfac_tpu_torch.train.checkpoint import save_checkpoint
+    from dfac_tpu_torch.train.evaluate import predict_scores
+    from dfac_tpu_torch.utils.convert import jax_from_state_dict
+
+    features = TRAIN_FEATURES
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.manual_seed(SEED)
+    models = {
+        "cnn2d": build_model("cnn2d", in_features=features),
+        "cnn1d": build_model("cnn1d", in_features=features),
+        "cae": build_model("cae", base_channels=32),
+    }
+    models = {k: chain_rates.seed_batchnorm(m.to(dev).eval(), gen) for k, m in models.items()}
+    sds = {k: m.state_dict() for k, m in models.items()}
+    ds = rates.synthetic_dataset(CLI_UTTS, features, N_FRAMES, 20)
+    norm = build_normalizer(ds.features, ds.labels)
+    n_batches = -(-CLI_UTTS // BATCH)
+
+    # -- the chains against the f32 eval models, and the hybrid's legs
+    _build.reset_launch_counts()
+    sup_fast = fast_infer.predict_scores_fast(sds["cnn2d"], ds, dev, BATCH)  # the hybrid --fast CNN2D leg: K2 bf16
+    served = _build.launch_counts()
+    require(served == {**dict.fromkeys(served, 0), "conv_block": 3 * n_batches},
+            f"hybrid --fast CNN2D leg over {n_batches} batches: launches {served}")
+    phase("submission", f"hybrid --fast CNN2D leg (predict_scores_fast, bf16): launches over {n_batches} batches "
+                        f"{served}")
+    _build.reset_launch_counts()
+    legs = {"cnn2d": sup_fast}
+    for dt in (torch.float32, torch.bfloat16):
+        legs[f"cnn1d {str(dt)[6:]}"] = fast_infer.predict_scores_fast_cnn1d(sds["cnn1d"], ds, dev, BATCH,
+                                                                           compute_dtype=dt)
+        legs[f"cae {str(dt)[6:]}"] = fast_infer.cae_mse_scores_fast(sds["cae"], ds, norm, dev, BATCH, compute_dtype=dt)
+    other = _build.launch_counts()
+    require(not any(other.values()), f"the CNN1D and CAE chains launched kernels of the port: {other}")
+    plain = {name: predict_scores(models[name], ds, BATCH, apply_sigmoid=True) for name in ("cnn2d", "cnn1d")}
+    plain["cae"] = cae_mse_scores(models["cae"], ds, norm, BATCH)
+    for name, got in legs.items():
+        family, dt = (name.split() + ["bfloat16"])[:2]
+        want = plain[family]
+        require(got.shape == want.shape == (CLI_UTTS,) and np.isfinite(got).all(), f"{name}: {got.shape}")
+        if family == "cae":
+            err, tol = float((np.abs(got - want) / np.abs(want)).max()), CAE_RTOL[dt]
+        else:
+            err, tol = float(np.abs(got - want).max()), F32_SCORE_ATOL if dt == "float32" else SCORE_ATOL
+        phase("submission", f"{name} fast chain vs the f32 eval model on {CLI_UTTS} utterances: max "
+                            f"{'rel' if family == 'cae' else 'abs'} {err:.3e} (tolerance {tol}); range "
+                            f"[{got.min():.6g}, {got.max():.6g}]")
+        require(err <= tol, f"{name}: {err} > {tol}")
+    hybrid_bound = {}
+    for cnn in ("cnn2d", "cnn1d"):
+        fast_legs = (legs[cnn if cnn == "cnn2d" else "cnn1d bfloat16"], legs["cae bfloat16"])
+        plain_legs = (plain[cnn], plain["cae"])
+        d = float(np.abs(fuse_scores(*fast_legs) - fuse_scores(*plain_legs)).max())
+        bound = hybrid_bound[cnn] = fused_bound(0.80, plain_legs, fast_legs)
+        agree = float(((fuse_scores(*fast_legs) > 0.5) == (fuse_scores(*plain_legs) > 0.5)).mean())
+        phase("submission", f"predict-hybrid --fast vs without, --cnn-model {cnn}: max abs {d:.3e} (bound from "
+                            f"the legs' tolerances above: {bound:.3e}), class agreement at 0.5 {agree:.4f}")
+        require(d <= bound, f"hybrid {cnn}: {d} > {bound}")
+    del plain, legs
+
+    # -- the CLIs, as subprocesses on the split
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_submission_") as tmp:
+        fpath, lpath = write_split(tmp, "dev", ds)
+        ck = {k: os.path.join(tmp, f"{k}.ckpt") for k in sds}
+        for k, sd in sds.items():
+            save_checkpoint(ck[k], jax_from_state_dict(sd, k), config={"model": k})
+        norm_path = os.path.join(tmp, "normalizer.npz")
+        norm.save(norm_path)
+        preds = {k: os.path.join(tmp, f"{k}.pkl") for k in ("predict", "hybrid", "hybrid-f32")}
+        device = ["--device", dev.type, "--in-features", str(features)]
+        hybrid = [*cli, "dfac_tpu_torch.cli.predict_hybrid", "--features", fpath, "--cnn-checkpoint", ck["cnn2d"],
+                  "--cae-checkpoint", ck["cae"], "--normalizer", norm_path, *device]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_all({
+            "predict --model cnn1d --fast": [*cli, "dfac_tpu_torch.cli.predict", "--features", fpath, "--checkpoint",
+                                             ck["cnn1d"], "--model", "cnn1d", "--fast", "--out", preds["predict"],
+                                             *device],
+            "train --model cnn1d": [*cli, "dfac_tpu_torch.cli.train", "--model", "cnn1d", "--train-features", fpath,
+                                    "--train-labels", lpath, "--dev-features", fpath, "--dev-labels", lpath,
+                                    "--epochs", "1", "--checkpoint-dir", os.path.join(tmp, "ck"), *device],
+            "evaluate-cae": [*cli, "dfac_tpu_torch.cli.evaluate_cae", "--features", fpath, "--labels", lpath,
+                             "--checkpoint", ck["cae"], "--normalizer", norm_path, "--device", dev.type],
+            "hybrid-ensemble": [*cli, "dfac_tpu_torch.cli.hybrid_ensemble", "--features", fpath, "--labels", lpath,
+                                "--cnn-checkpoint", ck["cnn2d"], "--cae-checkpoint", ck["cae"], "--normalizer",
+                                norm_path, *device],
+            "ensemble": [*cli, "dfac_tpu_torch.cli.ensemble", "--features", fpath, "--labels", lpath, "--checkpoints",
+                         f"cnn2d:{ck['cnn2d']}", f"cnn1d:{ck['cnn1d']}", *device],
+            "predict-hybrid --fast": hybrid + ["--fast", "--out", preds["hybrid"]],
+            "predict-hybrid": hybrid + ["--out", preds["hybrid-f32"]],
+        }, env)
+        outs["generate-submission"] = subprocess.run(
+            [*cli, "dfac_tpu_torch.cli.generate_submission", fpath, preds["hybrid"], "S0", "Smoke", "Test", "card"],
+            check=True, capture_output=True, text=True, cwd=tmp, env=env).stdout
+        phase("submission", f"8 CLIs (7 concurrent, then generate-submission): {time.perf_counter() - t0:.1f}s")
+        for label, out in outs.items():
+            require(out.strip(), f"{label} printed nothing")
+            for line in out.strip().splitlines():
+                phase("submission", f"cli {label}: {line}")
+        require(os.path.exists(os.path.join(tmp, "ck", "cnn1d_best.ckpt")), "train --model cnn1d: no checkpoint")
+        require(len(re.findall(r"^  alpha=", outs["hybrid-ensemble"], re.M)) == 21, "hybrid-ensemble: no sweep")
+        sub = pd.read_pickle(os.path.join(tmp, "S0-Smoke-Test-card.pkl"))
+        cli_fused = {k: pd.read_pickle(preds[k])["predictions"].to_numpy() for k in ("hybrid", "hybrid-f32")}
+        require(np.array_equal(sub["predictions"]["predictions"].to_numpy(), cli_fused["hybrid"]),
+                "the submission's predictions are not predict-hybrid --fast's")
+        d = float(np.abs(cli_fused["hybrid"] - cli_fused["hybrid-f32"]).max())
+        phase("submission", f"CLI predict-hybrid --fast vs without: max abs {d:.3e} (bound {hybrid_bound['cnn2d']:.3e},"
+                            f" from the legs in process); the submission file holds the --fast predictions")
+        require(d <= hybrid_bound["cnn2d"], f"CLI hybrid: {d} > {hybrid_bound['cnn2d']}")
+
+    # -- rates over on-device feature tensors, and one profile of each chain
+    feats = torch.randn(F32_CORPUS // BATCH, BATCH, features, N_FRAMES, device=dev, generator=gen)  # stored (F, T)
+    mean = torch.as_tensor(norm.mean, device=dev)
+    std = torch.as_tensor(norm.std, device=dev)
+    chains = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f1 = fast_infer.on_device(fast_infer.fold_cnn1d(sds["cnn1d"]), dev, dt)
+        fc = fast_infer.on_device(fast_infer.fold_cae(sds["cae"]), dev, dt)
+        name = str(dt)[6:]
+        chains[f"cnn1d {name}"] = lambda f, f1=f1, dt=dt: fast_infer.cnn1d_fast_scores(f1, f, compute_dtype=dt)
+        chains[f"cae {name}"] = lambda f, fc=fc, dt=dt: fast_infer.cae_fast_mse(fc, f, mean, std, compute_dtype=dt)
+    f2 = {k: v.to(dev) for k, v in fast_infer.fold_cnn2d(sds["cnn2d"]).items()}
+    chains["hybrid legs bf16"] = lambda f: (fast_infer.cnn2d_fast_scores(f2, f), chains["cae bfloat16"](f))
+    _build.reset_launch_counts()
+    for name, score in chains.items():
+        r = chain_rates.rates(chain_rates.runner(score, feats), F32_CORPUS)
+        phase("submission", chain_rates.summary(name, r) + f", {F32_CORPUS} feature tensors ({features} x {N_FRAMES})"
+                                                           f" at B={BATCH}, on {card}")
+    timed = _build.launch_counts()
+    n_runs = (chain_rates.REPS + 1) * (F32_CORPUS // BATCH)
+    require(timed == {**dict.fromkeys(timed, 0), "conv_block": 3 * n_runs}, f"timed runs' launches: {timed}")
+    for name in ("cae bfloat16", "cae float32", "cnn1d float32", "cnn1d bfloat16"):
+        profile_path(f"{name} B={BATCH}", chain_rates.runner(chains[name], feats), F32_CORPUS // BATCH, dev)
+    del feats
 
 
 def kernel_phases():
@@ -1356,6 +1541,9 @@ def main() -> int:
     phase("train", f"device memory before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
                    f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     train_phase(dev, card)
+    # -- 16. submission -----------------------------------------------------
+    torch.cuda.empty_cache()
+    submission_phase(dev, card)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,22 +5,29 @@ here mirrors the path of its JAX counterpart, and the JAX package is the
 reference the port is tested against. This package imports ``torch`` and
 never ``jax``, ``flax``, ``optax`` or ``dfac_tpu``.
 
-Ported so far (the CNN2D serving slice, extraction, the probes and
-CNN2D training):
+Ported so far (the CNN2D serving slice, extraction, the probes, CNN2D
+and CNN1D training, and the submission path: CNN1D, the normalizer, the
+CAE scorer, score fusion and the ensembles):
   features  LFCC config, host constants, framing, deltas, rFFT composition
   ops       the GEMM front-end, the post-FFT kernel, the fused conv block,
             the pool and conv-probe kernels (hand-written CUDA kernels for
             sm_90a, each beside its plain PyTorch version), the nvcc/ctypes
             build, the EER on the host and on the device
-  models    CNN2D (reference state_dict names, byte-quantized dropout), BN
-            folding, serving chains
+  models    CNN2D, CNN1D, the ConvAutoencoder (reference state_dict names,
+            byte-quantized dropout), BN folding, serving chains
   utils     JAX variables <-> state_dict, optax Adam moments -> torch's
   train     the trainer, optimizer policy and plateau schedule, checkpoints
-            (read and write, the JAX package's format), evaluation, scoring
-  data      datasets, shuffled and padded batches, augmentation
-  io / obs  pickled-DataFrame contract, .npy store, prefetch; the training
-            UI contract
-  cli       train, predict, evaluate, reproduce_reference, extract_features
+            (read and write, the JAX package's format), evaluation, scoring,
+            CAE scoring and evaluation (not its trainer)
+  data      datasets, shuffled and padded batches, augmentation, the
+            bonafide-fitted feature normalizer
+  ensemble  min-max fusion of CNN and CAE scores, the alpha sweep,
+            checkpoint means
+  io / obs  pickled-DataFrame contract, .npy store, prefetch, the
+            submission artifact; the training UI contract
+  cli       train, predict, evaluate, reproduce_reference, extract_features,
+            evaluate_cae, predict_hybrid, hybrid_ensemble, ensemble,
+            generate_submission
 """
 
 __version__ = "0.1.0"

@@ -70,3 +70,12 @@ def set_seed(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def add_multihost_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' ``--multihost`` flag group; the port accepts the flags
+    and refuses ``--multihost`` ("not yet ported")."""
+    p.add_argument("--multihost", action="store_true", help="not yet ported")
+    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT", help="with --multihost")
+    p.add_argument("--num-processes", type=int, default=None, help="with --multihost")
+    p.add_argument("--process-id", type=int, default=None, help="with --multihost")

@@ -70,8 +70,6 @@ def main(argv=None):
         raise SystemExit(2)
     if not (args.features and args.labels and args.checkpoint):
         raise SystemExit("checkpoint mode needs --features, --labels, --checkpoint")
-    if args.model != "cnn2d":
-        raise SystemExit(f"--model {args.model}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
 
     from dfac_tpu_torch.data.pipeline import load_dataset
     from dfac_tpu_torch.device import resolve_device

@@ -6,10 +6,11 @@ and swap_tf on by default), strict prediction count, ``prediction.pkl``
 DataFrame {uttid, predictions}. Reads dfac_tpu pickle checkpoints and
 reference ``.pt`` files.
 
-Ported for ``--model cnn2d``: ``--fast`` (the folded chain through the
-fused kernels on CUDA, f32 or ``--bf16``), the eval model without
-``--fast`` (f32), ``--device cuda|cpu``. The other flags of the JAX CLI,
-and ``--bf16`` without ``--fast``, exit non-zero with "not yet ported".
+Ported for ``--model cnn2d`` and ``cnn1d``: ``--fast`` (the folded chain,
+f32 by default or ``--bf16``; CNN2D's through the fused kernels on CUDA,
+CNN1D's through cuDNN), the f32 eval model without ``--fast``, ``--device
+cuda|cpu``. The other flags of the JAX CLI, and ``--bf16`` without
+``--fast``, exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def _not_yet_ported(args) -> str | None:
     for flag, on in (
         ("--int8", args.int8), ("--ingest-int8", args.ingest_int8),
         ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
-        ("--model cnn1d", args.model != "cnn2d"), ("--bf16 without --fast", args.bf16 and not args.fast),
+        ("--bf16 without --fast", args.bf16 and not args.fast),
     ):
         if on:
             return flag
@@ -70,7 +71,7 @@ def main(argv=None):
     from dfac_tpu_torch.io.pickle_io import write_predictions
     from dfac_tpu_torch.io.prefetch import PrefetchStats
     from dfac_tpu_torch.models import build_model
-    from dfac_tpu_torch.models.fast_infer import predict_scores_fast
+    from dfac_tpu_torch.models.fast_infer import predict_scores_fast, predict_scores_fast_cnn1d
     from dfac_tpu_torch.train.checkpoint import load_model_variables
     from dfac_tpu_torch.train.evaluate import predict_scores
 
@@ -82,7 +83,8 @@ def main(argv=None):
     stats = PrefetchStats()
     t_run = time.perf_counter()
     if args.fast:
-        scores = predict_scores_fast(
+        fast = predict_scores_fast if args.model == "cnn2d" else predict_scores_fast_cnn1d
+        scores = fast(
             model.state_dict(), ds, device,
             batch_size=args.batch_size, swap_tf=args.swap_tf,
             apply_sigmoid=args.apply_sigmoid,

@@ -3,7 +3,7 @@
 Counterpart of ``dfac-train`` (:mod:`dfac_tpu.cli.train`), parity target
 reference ``src/train.py:94-246``: the same flags, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on the
-CPU). Trains CNN2D in f32 on one device, host-fed or
+CPU). Trains CNN2D or CNN1D in f32 on one device, host-fed or
 ``--device-resident``; ``--resume``, ``--run-name``, ``--quiet``,
 ``--debug-augment-stats`` work. Progress is one plain line per epoch
 (``--no-rich`` selects the same display: the rich and tqdm visualizers
@@ -21,11 +21,13 @@ import numpy as np
 from dfac_tpu_torch.cli.common import (
     add_augment_args,
     add_data_args,
+    add_multihost_args,
     add_swap_tf_args,
     augment_config_from_args,
     set_seed,
 )
 
+TRAINED_MODELS = ("cnn2d", "cnn1d")  # the families the port's Trainer trains
 MODELS = [
     "cnn2d", "cnn1d", "meanpool_mlp", "statspool_mlp", "cnn1d_spatial",
     "cnn1d_archive", "cnn2d_spatial", "crnn", "crnn2", "cnn2d_robust",
@@ -78,17 +80,14 @@ def parse_args(argv=None):
     p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
     p.add_argument("--train-fast", action="store_true", help="not yet ported")
     p.add_argument("--profile-dir", default=None, help="not yet ported")
-    p.add_argument("--multihost", action="store_true", help="not yet ported")
-    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT", help="with --multihost")
-    p.add_argument("--num-processes", type=int, default=None, help="with --multihost")
-    p.add_argument("--process-id", type=int, default=None, help="with --multihost")
+    add_multihost_args(p)
     add_swap_tf_args(p)
     return p.parse_args(argv)
 
 
 def _not_yet_ported(args) -> str | None:
     for flag, on in (
-        (f"--model {args.model}", args.model != "cnn2d"), ("--bf16", args.bf16),
+        (f"--model {args.model}", args.model not in TRAINED_MODELS), ("--bf16", args.bf16),
         ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
         ("--resident-chunk-batches", args.resident_chunk_batches > 0),
         ("--chunk-ingest", args.chunk_ingest != "f32"), ("--fused-fit", args.fused_fit),

@@ -7,9 +7,11 @@ from typing import Any
 
 from torch import nn
 
+from dfac_tpu_torch.models.cae import ConvAutoencoder
+from dfac_tpu_torch.models.cnn1d import CNN1D
 from dfac_tpu_torch.models.cnn2d import CNN2D
 
-MODEL_REGISTRY = {"cnn2d": CNN2D}
+MODEL_REGISTRY = {"cnn2d": CNN2D, "cnn1d": CNN1D, "cae": ConvAutoencoder}
 
 
 def build_model(name: str, **overrides: Any) -> nn.Module:

@@ -1,4 +1,4 @@
-"""Supervised training driver (CNN2D on one device).
+"""Supervised training driver (CNN2D and CNN1D on one device).
 
 Counterpart of :mod:`dfac_tpu.train.loop`; parity target reference
 ``src/train.py`` (call stack SURVEY.md §3.1). The step — swap,
@@ -58,8 +58,8 @@ from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_d
 @dataclasses.dataclass
 class TrainConfig:
     """The reference train.py flag surface (``src/train.py:94-246``) that
-    the port trains: CNN2D in f32 on one device (the JAX package's other
-    fields select paths not ported yet; see ROADMAP.md)."""
+    the port trains: CNN2D or CNN1D in f32 on one device (the JAX
+    package's other fields select paths not ported yet; see ROADMAP.md)."""
 
     model: str = "cnn2d"
     batch_size: int = 32
@@ -85,6 +85,18 @@ class TrainConfig:
     def __post_init__(self):
         if not (0.0 <= self.label_smoothing < 0.5):
             raise ValueError("label_smoothing must be in [0, 0.5)")
+
+
+def _model_kwargs(cfg: TrainConfig) -> dict:
+    """The constructor overrides the JAX trainer passes every family
+    (``dfac_tpu/train/loop.py:145-154``); :func:`build_model` keeps those
+    the family takes."""
+    return {
+        "in_features": cfg.in_features,
+        "dropout": cfg.dropout,
+        "hidden_dim": cfg.hidden_dim,
+        "in_channels": cfg.in_features,
+    }
 
 
 class Trainer:
@@ -136,7 +148,7 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             if self._module is None:
-                model = build_model(cfg.model, in_features=cfg.in_features, dropout=cfg.dropout)
+                model = build_model(cfg.model, **_model_kwargs(cfg))
             else:  # the draws of construction, in construction order
                 model = self._module
                 for m in model.modules():

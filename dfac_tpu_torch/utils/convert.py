@@ -6,6 +6,11 @@ Same layout rules as ``flax_to_torch`` / ``torch_to_flax`` in
 ``dfac_tpu``:
 
 * conv kernel HWIO ``(kh, kw, I, O)`` <-> OIHW ``(O, I, kh, kw)``;
+* conv1d kernel ``(k, I, O)`` <-> ``(O, I, k)``;
+* transposed-conv kernel ``(kh, kw, I, O)`` <-> ConvTranspose2d's
+  ``(I, O, kh, kw)`` **flipped in both spatial axes**: ``lax.conv_transpose``
+  correlates where torch's transposed conv (the gradient of a conv) flips,
+  so an unflipped copy still runs and gives plausible, wrong outputs;
 * Dense kernel ``(I, O)`` <-> Linear weight ``(O, I)``;
 * BatchNorm ``scale/bias`` params and ``mean/var`` batch stats <->
   ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``,
@@ -17,16 +22,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# (torch prefix, kind, JAX path) — the reference CNN2D Sequential indices
-_CNN2D = [
-    entry
-    for i, (ci, bi) in enumerate([(0, 1), (5, 6), (10, 11)], 1)
-    for entry in ((f"conv.{ci}", "conv2d", (f"conv{i}", "conv")), (f"conv.{bi}", "bn", (f"bn{i}",)))
-] + [("classifier", "linear", ("classifier", "dense"))]
+def _blocks(prefix: str, kind: str, pairs, conv: str, bn: str) -> list:
+    return [
+        entry
+        for i, (ci, bi) in enumerate(pairs, 1)
+        for entry in ((f"{prefix}.{ci}", kind, (f"{conv}{i}", "conv")), (f"{prefix}.{bi}", "bn", (f"{bn}{i}",)))
+    ]
 
-# torch parameter suffix -> JAX leaf name, per kind (BN statistics apart)
-_LEAVES = {"conv2d": {"weight": "kernel", "bias": "bias"}, "linear": {"weight": "kernel", "bias": "bias"},
-           "bn": {"weight": "scale", "bias": "bias"}}
+
+_CLASSIFIER = [("classifier", "linear", ("classifier", "dense"))]
+# (torch prefix, kind, JAX path) per family, in the torch module's order: the
+# reference state_dicts' Sequential indices (the JAX package's torch_import
+# tables, dfac_tpu/utils/torch_import.py:71-86)
+_MAPPINGS = {
+    "cnn2d": _blocks("conv", "conv2d", [(0, 1), (5, 6), (10, 11)], "conv", "bn") + _CLASSIFIER,
+    "cnn1d": _blocks("conv", "conv1d", [(0, 1), (4, 5), (8, 9)], "conv", "bn") + _CLASSIFIER,
+    "cae": _blocks("encoder", "conv2d", [(0, 1), (4, 5), (8, 9), (12, 13)], "enc_conv", "enc_bn")
+    + [
+        entry
+        for i, ti in enumerate([0, 3, 6, 9], 1)
+        for entry in [(f"decoder.{ti}", "convt2d", (f"dec_convt{i}",))]
+        + ([(f"decoder.{ti + 1}", "bn", (f"dec_bn{i}",))] if i < 4 else [])  # the last block has no BN
+    ],
+}
+
+# torch parameter suffix -> JAX leaf path under the entry's path, per kind
+# (BN statistics apart); a transposed conv's kernel sits one level down
+_LEAVES = {"conv2d": {"weight": ("kernel",), "bias": ("bias",)},
+           "conv1d": {"weight": ("kernel",), "bias": ("bias",)},
+           "convt2d": {"weight": ("convt", "kernel"), "bias": ("bias",)},
+           "linear": {"weight": ("kernel",), "bias": ("bias",)},
+           "bn": {"weight": ("scale",), "bias": ("bias",)}}
 
 
 def _get(tree: dict, path: tuple[str, ...]) -> np.ndarray:
@@ -47,44 +73,57 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 
 def _to_torch_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf == "weight" and kind == "conv2d":
+    if leaf != "weight":
+        return a
+    if kind == "conv2d":
         return np.transpose(a, (3, 2, 0, 1))  # HWIO -> OIHW
-    if leaf == "weight" and kind == "linear":
+    if kind == "conv1d":
+        return np.transpose(a, (2, 1, 0))  # (k, I, O) -> (O, I, k)
+    if kind == "convt2d":
+        return np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1]  # (kh, kw, I, O) -> (I, O, kh, kw), flipped
+    if kind == "linear":
         return a.T
     return a
 
 
 def _to_jax_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf == "weight" and kind == "conv2d":
+    if leaf != "weight":
+        return a
+    if kind == "conv2d":
         return np.transpose(a, (2, 3, 1, 0))  # OIHW -> HWIO
-    if leaf == "weight" and kind == "linear":
+    if kind == "conv1d":
+        return np.transpose(a, (2, 1, 0))  # (O, I, k) -> (k, I, O)
+    if kind == "convt2d":
+        return np.transpose(a[:, :, ::-1, ::-1], (2, 3, 0, 1))  # flip, then (I, O, kh, kw) -> (kh, kw, I, O)
+    if kind == "linear":
         return a.T
     return a
 
 
-def _check(model_name: str) -> None:
-    if model_name != "cnn2d":
-        raise NotImplementedError(f"no JAX <-> torch mapping for '{model_name}' yet (see ROADMAP.md)")
+def _mapping(model_name: str) -> list:
+    if model_name not in _MAPPINGS:
+        raise NotImplementedError(
+            f"no JAX <-> torch mapping for '{model_name}' yet (mapped: {sorted(_MAPPINGS)}; see ROADMAP.md)"
+        )
+    return _MAPPINGS[model_name]
 
 
 def params_from_jax(params: dict, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
     """A JAX ``params`` tree (or a tree of its shape, such as Adam's
     moments) -> ``{torch parameter name: tensor}`` in torch's layouts."""
-    _check(model_name)
     out: dict[str, torch.Tensor] = {}
-    for prefix, kind, path in _CNN2D:
+    for prefix, kind, path in _mapping(model_name):
         for leaf, jleaf in _LEAVES[kind].items():
-            out[f"{prefix}.{leaf}"] = _t(_to_torch_layout(kind, leaf, _get(params, path + (jleaf,))))
+            out[f"{prefix}.{leaf}"] = _t(_to_torch_layout(kind, leaf, _get(params, path + jleaf)))
     return out
 
 
 def state_dict_from_jax(variables: dict, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` tree of numpy arrays -> state_dict."""
-    _check(model_name)
     params = params_from_jax(variables["params"], model_name)
     stats = variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
-    for prefix, kind, path in _CNN2D:
+    for prefix, kind, path in _mapping(model_name):
         for leaf in _LEAVES[kind]:
             sd[f"{prefix}.{leaf}"] = params[f"{prefix}.{leaf}"]
         if kind == "bn":
@@ -98,13 +137,12 @@ def jax_from_state_dict(state_dict: dict, model_name: str = "cnn2d") -> dict:
     """The inverse of :func:`state_dict_from_jax`: a state_dict (tensors on
     any device) -> JAX ``{'params', 'batch_stats'}`` of f32 numpy arrays,
     the layout the JAX package's checkpoints hold."""
-    _check(model_name)
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items() if v.is_floating_point()}
     params: dict = {}
     stats: dict = {}
-    for prefix, kind, path in _CNN2D:
+    for prefix, kind, path in _mapping(model_name):
         for leaf, jleaf in _LEAVES[kind].items():
-            _put(params, path + (jleaf,), np.ascontiguousarray(_to_jax_layout(kind, leaf, sd[f"{prefix}.{leaf}"])))
+            _put(params, path + jleaf, np.ascontiguousarray(_to_jax_layout(kind, leaf, sd[f"{prefix}.{leaf}"])))
         if kind == "bn":
             _put(stats, path + ("mean",), sd[f"{prefix}.running_mean"])
             _put(stats, path + ("var",), sd[f"{prefix}.running_var"])

@@ -22,6 +22,10 @@ EXPECTED = {
     "dfac_tpu_torch.scripts.pool_kernel_probe", "dfac_tpu_torch.scripts.train_opt_probe",
     "dfac_tpu_torch.train.checkpoint",
     "dfac_tpu_torch.train.evaluate", "dfac_tpu_torch.utils.convert",
+    "dfac_tpu_torch.models.cnn1d", "dfac_tpu_torch.models.cae", "dfac_tpu_torch.data.normalizer",
+    "dfac_tpu_torch.train.cae_loop", "dfac_tpu_torch.ensemble.hybrid", "dfac_tpu_torch.ensemble.mean",
+    "dfac_tpu_torch.io.submission", "dfac_tpu_torch.cli.evaluate_cae", "dfac_tpu_torch.cli.predict_hybrid",
+    "dfac_tpu_torch.cli.hybrid_ensemble", "dfac_tpu_torch.cli.ensemble", "dfac_tpu_torch.cli.generate_submission",
 }
 
 _PROBE = """
