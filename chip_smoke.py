@@ -125,6 +125,26 @@ line:
             tensors at B=128 (``chain_rates``: median of 7 with min and max),
             and one ``torch.profiler`` pass of the CAE and CNN1D chains
             (device ms a batch, busy share, the largest items)
+17. alt-trainers  the reference's two other trainers at full width (the
+            CAE at base 32 on 180 x 321 features, the detector at hidden 256
+            on 180 channels and up to 321 frames; torch's init from a seed,
+            synthetic train / dev / test2 splits of 512 / 128 / 128
+            utterances with 160-321 valid frames): ``python -m
+            dfac_tpu_torch.cli.train_cae --no-rich`` and ``... train_detector
+            --ema --ema-decay 0.9 --specaug``, each host-fed and
+            ``--device-resident``, 2
+            epochs at B=32, all four at once (exit 0, their lines and
+            artifacts; the two CAE runs' best validation MSE within 1e-3);
+            the trained CAE through ``evaluate_cae`` (its EER as in process)
+            and ``predict_hybrid --fast`` (against the fused legs in
+            process, whose CNN2D leg launches K2 three times a batch and
+            nothing else), the trained detector through ``train_detector
+            --epochs 0`` plain, ``--fast`` (f32, atol 1e-4) and ``--fast
+            --bf16`` (logits atol 2e-2); then ms per train step and utt/s of
+            each trainer at B=32 and B=512, host-fed and device-resident
+            (median of 7 epochs of 8 / 4 steps, with min and max; no kernel
+            of the port launched), and one profiled B=512 resident epoch of
+            each (device ms a step, busy share, the largest items)
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -212,6 +232,11 @@ RECIPE = ["--spec-augment", "--time-mask-ratio", "0.20", "--feature-mask", "--fe
           "--time-shift", "--time-shift-ratio", "0.10", "--channel-drop", "--channel-drop-prob", "0.05",
           "--gaussian-jitter", "--gaussian-jitter-std", "0.005", "--label-smoothing", "0.05",
           "--lr-scheduler", "plateau", "--lr-scheduler-metric", "dev_eer"]  # the reference's robust recipe
+# the alternative trainers' phase (17)
+ALT_UTTS = {"train": 512, "dev": 128, "test2": 128}  # the CLI runs' corpus, in the detector's split layout
+ALT_MIN_FRAMES = 160  # the detector corpus's utterances hold 160..321 valid frames
+DETECTOR_HIDDEN, CAE_BASE = 256, 32  # the reference's widths
+DETECTOR_BF16_ATOL = 2e-2  # logits of the bf16 folded chain against the f32 eval model
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
                  "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
@@ -374,14 +399,17 @@ def eer_tied_minima() -> list:
 
 
 def write_split(root: str, name: str, ds, labeled: bool = True) -> tuple[str, str]:
-    """A split as the reference's pickles (torch.Tensor cells) under ``root/name``."""
+    """A split as the reference's pickles (torch.Tensor cells) under
+    ``root/name``; where ``ds`` has lengths, each cell holds its valid frames."""
     import pandas as pd
     import torch
 
     d = os.path.join(root, name)
     os.makedirs(d)
     fpath, lpath = os.path.join(d, "features.pkl"), os.path.join(d, "labels.pkl")
-    pd.DataFrame({"uttid": ds.uttids, "features": [torch.from_numpy(m) for m in ds.features]}).to_pickle(fpath)
+    lengths = ds.lengths if ds.lengths is not None else [ds.features.shape[2]] * len(ds)
+    cells = [torch.from_numpy(np.ascontiguousarray(m[:, :n])) for m, n in zip(ds.features, lengths)]
+    pd.DataFrame({"uttid": ds.uttids, "features": cells}).to_pickle(fpath)
     if labeled:
         pd.DataFrame({"uttid": ds.uttids, "label": ds.labels.astype(np.int64)}).to_pickle(lpath)
     return fpath, lpath
@@ -745,6 +773,207 @@ def submission_phase(dev, card: str) -> None:
     for name in ("cae bfloat16", "cae float32", "cnn1d float32", "cnn1d bfloat16"):
         profile_path(f"{name} B={BATCH}", chain_rates.runner(chains[name], feats), F32_CORPUS // BATCH, dev)
     del feats
+
+
+def alt_dataset(n: int, seed: int):
+    """``rates.synthetic_dataset`` at full width with 160..321 valid frames
+    an utterance (pad frames zero), as the detector's variable-length
+    corpora come."""
+    from dfac_tpu_torch.train import rates
+
+    ds = rates.synthetic_dataset(n, TRAIN_FEATURES, N_FRAMES, seed)
+    ds.lengths = np.random.default_rng(seed).integers(ALT_MIN_FRAMES, N_FRAMES + 1, size=n).astype(np.int32)
+    ds.features *= np.arange(N_FRAMES)[None, None, :] < ds.lengths[:, None, None]
+    return ds
+
+
+def alt_trainers_phase(dev, card: str) -> None:
+    """Phase 17: the CAE trainer and the detector at full width (see the module docstring)."""
+    import pandas as pd
+    import torch
+
+    from dfac_tpu_torch.data.normalizer import FeatureNormalizer, build_normalizer
+    from dfac_tpu_torch.data.pipeline import load_dataset
+    from dfac_tpu_torch.ensemble.hybrid import fuse_scores
+    from dfac_tpu_torch.models import build_model, fast_infer
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train.cae_loop import CAEConfig, CAETrainer, evaluate_cae
+    from dfac_tpu_torch.train.checkpoint import load_model_variables, save_checkpoint
+    from dfac_tpu_torch.train.detector_loop import DetectorConfig, DetectorTrainer, compute_class_weights
+    from dfac_tpu_torch.utils.convert import jax_from_state_dict
+    from dfac_tpu_torch import chain_rates
+
+    features = TRAIN_FEATURES
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_alt_") as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        paths = {name: write_split(data, name, alt_dataset(n, 30 + i)) for i, (name, n) in enumerate(ALT_UTTS.items())}
+        # -- the two training CLIs, host-fed and device-resident, at the recipe's batch
+        cae = [*cli, "dfac_tpu_torch.cli.train_cae", "--train-features", paths["train"][0], "--train-labels",
+               paths["train"][1], "--dev-features", paths["dev"][0], "--dev-labels", paths["dev"][1], "--epochs",
+               "2", "--batch-size", str(TRAIN_BATCH), "--base-channels", str(CAE_BASE), "--no-rich",
+               "--device", dev.type]
+        # EMA decay 0.9, not the recipe's 0.999: over 32 steps the checkpointed EMA weights then move
+        # away from the init, so the scoring checks below see a trained model's logits
+        det = [*cli, "dfac_tpu_torch.cli.train_detector", "--data-dir", data, "--epochs", "2", "--batch-size",
+               str(TRAIN_BATCH), "--hidden", str(DETECTOR_HIDDEN), "--ema", "--ema-decay", "0.9", "--specaug",
+               "--device", dev.type]
+        t0 = time.perf_counter()
+        outs = run_all({
+            "train_cae": cae + ["--checkpoint-dir", os.path.join(ck, "cae_host")],
+            "train_cae --device-resident": cae + ["--checkpoint-dir", os.path.join(ck, "cae_resident"),
+                                                  "--device-resident"],
+            "train_detector": det + ["--ckpt-path", os.path.join(ck, "det_host.ckpt"), "--prediction-pkl",
+                                     os.path.join(tmp, "det_host.pkl")],
+            "train_detector --device-resident": det + ["--ckpt-path", os.path.join(ck, "det_resident.ckpt"),
+                                                       "--prediction-pkl", os.path.join(tmp, "det_resident.pkl"),
+                                                       "--device-resident"],
+        }, env)
+        phase("alt-trainers", f"train_cae x2 and train_detector x2 (concurrent, 2 epochs at B={TRAIN_BATCH}, "
+                              f"{ALT_UTTS['train']} train utterances): {time.perf_counter() - t0:.1f}s")
+        best_mse, det_eer = {}, {}
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("alt-trainers", f"cli {label}: {line}")
+            if label.startswith("train_cae"):
+                run_dir = os.path.join(ck, "cae_resident" if "resident" in label else "cae_host")
+                for name in ("cae_best.ckpt", "cae_last.ckpt", "normalizer.npz"):
+                    require(os.path.exists(os.path.join(run_dir, name)), f"{label}: no {name}")
+                require(len(re.findall(r"^  epoch +\d+ ", out, re.M)) == 2, f"{label}: not 2 epoch lines")
+                best_mse[label] = float(re.search(r"^best val reconstruction MSE: (\S+)$", out, re.M).group(1))
+                require(np.isfinite(best_mse[label]) and best_mse[label] > 0, f"{label}: {best_mse[label]}")
+            else:
+                require(re.search(r"^Training done\. Best dev EER: ", out, re.M), f"{label}: no training line")
+                det_eer[label] = float(re.search(r"^EER on split 'test2': (\S+)$", out, re.M).group(1))
+                pred = pd.read_pickle(os.path.join(tmp, "det_resident.pkl" if "resident" in label else
+                                                   "det_host.pkl"))
+                require(len(pred) == ALT_UTTS["test2"] and np.isfinite(pred["predictions"]).all(), f"{label}: pred")
+        a, b = best_mse.values()
+        require(abs(a - b) <= 1e-3 * abs(a), f"train_cae host-fed {a} and resident {b} disagree")
+        phase("alt-trainers", f"train_cae best val MSE host-fed {a!r}, resident {b!r}; train_detector test2 EER "
+                              f"host-fed {det_eer['train_detector']!r}, resident "
+                              f"{det_eer['train_detector --device-resident']!r}")
+
+        # -- serve the trained CAE (evaluate_cae, predict_hybrid --fast) and score the trained detector
+        cae_dir = os.path.join(ck, "cae_host")
+        cae_ckpt, norm_path = os.path.join(cae_dir, "cae_best.ckpt"), os.path.join(cae_dir, "normalizer.npz")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.manual_seed(SEED)
+        cnn = chain_rates.seed_batchnorm(build_model("cnn2d", in_features=features).to(dev).eval(), gen)
+        cnn_ckpt = os.path.join(tmp, "cnn2d.ckpt")
+        save_checkpoint(cnn_ckpt, jax_from_state_dict(cnn.state_dict(), "cnn2d"), config={"model": "cnn2d"})
+        det_ckpt = os.path.join(ck, "det_host.ckpt")
+        score = [*cli, "dfac_tpu_torch.cli.train_detector", "--data-dir", data, "--epochs", "0", "--hidden",
+                 str(DETECTOR_HIDDEN), "--batch-size", str(BATCH), "--ckpt-path", det_ckpt, "--device", dev.type]
+        preds = {k: os.path.join(tmp, f"{k}.pkl") for k in ("plain", "fast", "bf16", "hybrid")}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_all({
+            "evaluate_cae": [*cli, "dfac_tpu_torch.cli.evaluate_cae", "--features", paths["dev"][0], "--labels",
+                             paths["dev"][1], "--checkpoint", cae_ckpt, "--normalizer", norm_path,
+                             "--base-channels", str(CAE_BASE), "--device", dev.type],
+            "predict_hybrid --fast": [*cli, "dfac_tpu_torch.cli.predict_hybrid", "--features", paths["dev"][0],
+                                      "--cnn-checkpoint", cnn_ckpt, "--cae-checkpoint", cae_ckpt, "--normalizer",
+                                      norm_path, "--base-channels", str(CAE_BASE), "--fast", "--out",
+                                      preds["hybrid"], "--device", dev.type],
+            "train_detector --epochs 0": score + ["--prediction-pkl", preds["plain"]],
+            "train_detector --epochs 0 --fast": score + ["--prediction-pkl", preds["fast"], "--fast"],
+            "train_detector --epochs 0 --fast --bf16": score + ["--prediction-pkl", preds["bf16"], "--fast",
+                                                                "--bf16"],
+        }, env)
+        phase("alt-trainers", f"evaluate_cae, predict_hybrid --fast and train_detector --epochs 0 x3 (concurrent): "
+                              f"{time.perf_counter() - t0:.1f}s")
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("alt-trainers", f"cli {label}: {line}")
+        # the trained CAE in process: its EER, and the hybrid's legs (K2 on the CNN2D leg)
+        dev_ds = load_dataset(*paths["dev"])
+        norm = FeatureNormalizer.load(norm_path)
+        cae_sd = load_model_variables(cae_ckpt, model_name="cae")
+        cae_model = build_model("cae", base_channels=CAE_BASE)
+        cae_model.load_state_dict(cae_sd)
+        rep = evaluate_cae(cae_model.to(dev), dev_ds, norm, BATCH)
+        cli_eer = float(re.search(r"^best convention: \S+  EER: (\S+)", outs["evaluate_cae"], re.M).group(1))
+        require(abs(cli_eer - rep["eer"]) <= 5e-7, f"evaluate_cae CLI eer {cli_eer}, in process {rep['eer']}")
+        n_batches = -(-ALT_UTTS["dev"] // BATCH)
+        _build.reset_launch_counts()
+        sup = fast_infer.predict_scores_fast(cnn.state_dict(), dev_ds, dev, BATCH)
+        served = _build.launch_counts()
+        require(served == {**dict.fromkeys(served, 0), "conv_block": 3 * n_batches},
+                f"hybrid --fast CNN2D leg over {n_batches} batches: launches {served}")
+        cae_fast = fast_infer.cae_mse_scores_fast(cae_sd, dev_ds, norm, dev, BATCH)
+        err = float((np.abs(cae_fast - rep["scores"]) / np.abs(rep["scores"])).max())
+        require(err <= CAE_RTOL["bfloat16"], f"trained CAE bf16 chain vs its f32 eval model: {err}")
+        d_hybrid = float(np.abs(fuse_scores(sup, cae_fast) - pd.read_pickle(preds["hybrid"])["predictions"]).max())
+        require(d_hybrid <= 1e-5, f"predict_hybrid --fast CLI vs in process: {d_hybrid}")
+        phase("alt-trainers", f"trained CAE: evaluate_cae EER {rep['eer']!r} ({rep['convention']}) in process and "
+                              f"by the CLI; bf16 chain vs f32 eval model max rel {err:.3e} (tolerance "
+                              f"{CAE_RTOL['bfloat16']}); hybrid --fast CNN2D leg launches over {n_batches} batches "
+                              f"{served}; predict_hybrid --fast CLI vs in process max abs {d_hybrid:.3e}")
+        det_scores = {k: pd.read_pickle(preds[k])["predictions"].to_numpy() for k in ("plain", "fast", "bf16")}
+        d32 = float(np.abs(det_scores["fast"] - det_scores["plain"]).max())
+        d16 = float(np.abs(det_scores["bf16"] - det_scores["plain"]).max())
+        phase("alt-trainers", f"trained detector on test2 ({ALT_UTTS['test2']} utterances, logits in "
+                              f"[{det_scores['plain'].min():.4f}, {det_scores['plain'].max():.4f}]): --fast f32 vs "
+                              f"plain max abs {d32:.3e} (tolerance {F32_SCORE_ATOL}), --fast --bf16 {d16:.3e} "
+                              f"(tolerance {DETECTOR_BF16_ATOL})")
+        require(d32 <= F32_SCORE_ATOL and d16 <= DETECTOR_BF16_ATOL, "the detector's folded chain disagrees")
+        del cnn, cae_model
+
+    # -- ms per step and utt/s, host-fed and device-resident; one profiled epoch each at B=512
+    _build.reset_launch_counts()
+    for b, steps in TRAIN_STEPS.items():
+        for name in ("cae", "detector"):
+            # the CAE's, a bonafide corpus; the detector's, of 160..321 valid frames
+            ds = rates.synthetic_dataset(b * steps, features, N_FRAMES, 40) if name == "cae" else alt_dataset(
+                b * steps, 41)
+            for resident in (False, True):
+                if name == "cae":
+                    trainer = CAETrainer(CAEConfig(batch_size=b, base_channels=CAE_BASE, device_resident=resident),
+                                         device=dev)
+                    trainer.init_state()
+                    trainer.use_normalizer(build_normalizer(ds.features, None))
+
+                    def run(i, trainer=trainer, ds=ds):
+                        return trainer.train_epoch(ds, 100 + i)
+
+                    conv_in = (b, 1, N_FRAMES, features)
+                else:
+                    trainer = DetectorTrainer(DetectorConfig(batch_size=b, hidden=DETECTOR_HIDDEN, ema=True,
+                                                             specaug=True, device_resident=resident),
+                                              in_channels=features, device=dev)
+                    trainer.init_state()
+                    pos_weight = compute_class_weights(ds.labels)[0]
+                    orders = np.random.default_rng(SEED)
+
+                    def run(i, trainer=trainer, ds=ds, pos_weight=pos_weight, orders=orders):
+                        return float(trainer.train_epoch(ds, orders.choice(len(ds), len(ds)), pos_weight)[0])
+
+                    conv_in = (b, features, N_FRAMES)
+                secs = rates.run_seconds(run)
+                ms = [1e3 * t / steps for t in secs]
+                utt = [len(ds) / t for t in secs]
+                phase("alt-trainers", f"{name} train step B={b} {'device-resident' if resident else 'host-fed'}: "
+                                      f"{statistics.median(ms):.4f} ms (median of {len(ms)} epochs of {steps} steps; "
+                                      f"min {min(ms):.4f}, max {max(ms):.4f}), {statistics.median(utt):.1f} utt/s "
+                                      f"(min {min(utt):.1f}, max {max(utt):.1f}), f32 convs, on {card}")
+                if b == TRAIN_BIG_BATCH and resident:
+                    prof = rates.profile_run(lambda: run(200), dev, steps, conv_in)
+                    share = (lambda t: t / prof["device_ms"]) if prof["device_ms"] else (lambda t: float("nan"))
+                    phase("alt-trainers", f"profile {name} B={b} device-resident: device {prof['device_ms']:.4f} ms a "
+                                          f"step, busy {prof['device_ms'] / statistics.median(ms):.1%} of the "
+                                          f"{statistics.median(ms):.4f} ms step (profiled wall {prof['wall_ms']:.4f} "
+                                          f"ms), on {card}")
+                    for k_name, k_ms, n in prof["top"]:
+                        phase("alt-trainers", f"  {k_ms:8.4f} ms {share(k_ms):6.1%} {n:5.1f}x  {k_name[:110]}")
+                del trainer
+                torch.cuda.empty_cache()
+            del ds
+    trained = _build.launch_counts()
+    require(not any(trained.values()), f"the alternative trainers launched kernels of the port: {trained}")
+    phase("alt-trainers", f"launches over the timed training runs: {trained} (cuDNN and cuBLAS only)")
 
 
 def kernel_phases():
@@ -1544,6 +1773,9 @@ def main() -> int:
     # -- 16. submission -----------------------------------------------------
     torch.cuda.empty_cache()
     submission_phase(dev, card)
+    # -- 17. the alternative trainers -------------------------------------------------
+    torch.cuda.empty_cache()
+    alt_trainers_phase(dev, card)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

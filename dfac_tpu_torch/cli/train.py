@@ -24,6 +24,7 @@ from dfac_tpu_torch.cli.common import (
     add_multihost_args,
     add_swap_tf_args,
     augment_config_from_args,
+    refuse_unported_training,
     set_seed,
 )
 
@@ -85,21 +86,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_yet_ported(args) -> str | None:
-    for flag, on in (
-        (f"--model {args.model}", args.model not in TRAINED_MODELS), ("--bf16", args.bf16),
-        ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
-        ("--resident-chunk-batches", args.resident_chunk_batches > 0),
-        ("--chunk-ingest", args.chunk_ingest != "f32"), ("--fused-fit", args.fused_fit),
-        ("--bn-freeze-after", args.bn_freeze_after > 0), ("--train-fast", args.train_fast),
-        ("--checkpoint-format orbax", args.checkpoint_format == "orbax"),
-        ("--profile-dir", args.profile_dir is not None),
-    ):
-        if on:
-            return flag
-    return None
-
-
 def _debug_augment_stats(augment_fn, feats_swapped, device) -> None:
     """First-batch before/after quantile dump (reference ``src/train.py:390-430``)."""
     import torch
@@ -126,9 +112,7 @@ def _debug_augment_stats(augment_fn, feats_swapped, device) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    missing = _not_yet_ported(args)
-    if missing:
-        raise SystemExit(f"{missing}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+    refuse_unported_training(args, (f"--model {args.model}", args.model not in TRAINED_MODELS), ("--bf16", args.bf16))
     set_seed(args.seed)
 
     from dfac_tpu_torch.data.pipeline import load_dataset

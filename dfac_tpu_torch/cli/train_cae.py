@@ -1,0 +1,89 @@
+"""``python -m dfac_tpu_torch.cli.train_cae`` — CAE anomaly-model training CLI.
+
+Counterpart of ``dfac-train-cae`` (:mod:`dfac_tpu.cli.train_cae`), parity
+target reference ``src/train_cae.py:108-163``: bonafide-only
+reconstruction training with the normalizer fitted on the training split
+(or loaded with ``--normalizer``), the rich live dashboard (plain lines
+with ``--no-rich`` or where ``rich`` is not installed, nothing with
+``--quiet``), and the ``cae_best.ckpt`` / ``cae_last.ckpt`` /
+``normalizer.npz`` artifacts. The same flags and final line, with
+``--device`` defaulting to ``cuda`` (no implicit fallback; ``--device
+cpu`` runs on the CPU). Trains in f32 on one device, host-fed or
+``--device-resident``; the flags of paths not ported yet exit non-zero
+with "not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from dfac_tpu_torch.cli.common import add_data_args, add_multihost_args, refuse_unported_training, set_seed
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train the ConvAutoencoder on bonafide-only data (PyTorch).")
+    add_data_args(p)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=80)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--lr-scheduler-patience", type=int, default=7)
+    p.add_argument("--lr-scheduler-factor", type=float, default=0.5)
+    p.add_argument("--early-stop", type=int, default=10)
+    p.add_argument("--base-channels", type=int, default=32)
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--normalizer", default=None,
+                   help="load an existing normalizer (.npz or torch .pt) instead of fitting")
+    p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device-resident", action="store_true",
+                   help="upload the bonafide corpus to the card once; gather batches there")
+    p.add_argument("--fused-fit", action="store_true", help="not yet ported")
+    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help="not yet ported")
+    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help="not yet ported")
+    p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
+    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
+    p.add_argument("--train-fast", action="store_true", help="not yet ported")
+    add_multihost_args(p)
+    p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
+                   help="checkpoint layout (orbax is not yet ported)")
+    p.add_argument("--profile-dir", default=None, help="not yet ported")
+    p.add_argument("--no-rich", action="store_true")
+    p.add_argument("--quiet", action="store_true")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unported_training(args)
+    set_seed(args.seed)
+
+    from dfac_tpu_torch.data.normalizer import FeatureNormalizer
+    from dfac_tpu_torch.data.pipeline import load_dataset
+    from dfac_tpu_torch.obs.cae_dashboard import create_cae_visualizer
+    from dfac_tpu_torch.train.cae_loop import CAEConfig, CAETrainer
+
+    train_ds = load_dataset(args.train_features, args.train_labels)
+    dev_ds = load_dataset(args.dev_features, args.dev_labels)
+    cfg = CAEConfig(
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        lr_scheduler_patience=args.lr_scheduler_patience,
+        lr_scheduler_factor=args.lr_scheduler_factor,
+        early_stop=args.early_stop,
+        base_channels=args.base_channels,
+        seed=args.seed,
+        device_resident=args.device_resident,
+    )
+    visualizer = create_cae_visualizer("noop" if args.quiet else ("plain" if args.no_rich else "rich"))
+    trainer = CAETrainer(cfg, visualizer=visualizer, device=args.device)
+    normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
+    result = trainer.fit(train_ds, dev_ds, checkpoint_dir=args.checkpoint_dir, normalizer=normalizer)
+    print(f"best val reconstruction MSE: {result['best_val_mse']:.6f}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,138 @@
+"""``python -m dfac_tpu_torch.cli.train_detector`` — dlqueen detector train + predict.
+
+Counterpart of :mod:`dfac_tpu.cli.train_detector`, parity target
+reference ``src/dlqueen_model.py:266-448`` main(): train the
+DeepfakeDetector with weighted sampling, pos_weight BCE, EMA and gradient
+clipping, then score a test split and write ``prediction.pkl`` (logits by
+default, ``--use-prob`` for sigmoid), printing the EER when the test split
+has labels. ``--epochs 0`` scores ``--ckpt-path`` without training;
+``--fast`` scores through the folded chain (f32 by default, ``--bf16``
+for bf16 activations). The same flags and lines, with ``--device``
+defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on
+the CPU). Trains in f32 on one device, host-fed or ``--device-resident``;
+``--bf16`` with training and the flags of other paths not ported yet exit
+non-zero with "not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from dfac_tpu_torch.cli.common import add_multihost_args, refuse_unported_training
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train/predict the DeepfakeDetector (dlqueen recipe, PyTorch).")
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--train-split", default="train")
+    p.add_argument("--dev-split", default="dev")
+    p.add_argument("--test-split", default="test2")
+    p.add_argument("--ckpt-path", default="best_model.ckpt")
+    p.add_argument("--prediction-pkl", default="prediction.pkl")
+    p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--grad-clip", type=float, default=5.0)
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--dropout", type=float, default=0.3)
+    p.add_argument("--encoder-dropout", type=float, default=0.2,
+                   help="per-block encoder dropout (reference ConvEncoder default)")
+    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
+    p.add_argument("--train-fast", action="store_true", help="not yet ported")
+    p.add_argument("--use-prob", action="store_true", help="save sigmoid probs instead of logits")
+    p.add_argument("--specaug", action="store_true")
+    p.add_argument("--time-mask-max", type=int, default=30)
+    p.add_argument("--time-mask-n", type=int, default=2)
+    p.add_argument("--freq-mask-max", type=int, default=24)
+    p.add_argument("--freq-mask-n", type=int, default=2)
+    p.add_argument("--ema", action="store_true")
+    p.add_argument("--ema-decay", type=float, default=0.999)
+    p.add_argument("--patience", type=int, default=6)
+    p.add_argument("--bf16", action="store_true",
+                   help="with --fast and --epochs 0: the bf16 chain (bf16 training is not yet ported)")
+    p.add_argument("--fast", action="store_true",
+                   help="score the test split through the folded-BN detector serving chain")
+    p.add_argument("--device-resident", action="store_true",
+                   help="upload the training corpus to the card once; gather batches there")
+    p.add_argument("--fused-fit", action="store_true", help="not yet ported")
+    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help="not yet ported")
+    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help="not yet ported")
+    p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
+    p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
+                   help="checkpoint layout (orbax is not yet ported)")
+    p.add_argument("--profile-dir", default=None, help="not yet ported")
+    add_multihost_args(p)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unported_training(args, ("--bf16 (training)", args.bf16 and args.epochs > 0))
+
+    import torch
+
+    from dfac_tpu_torch.data.pipeline import load_dataset
+    from dfac_tpu_torch.device import resolve_device
+    from dfac_tpu_torch.io.pickle_io import write_predictions
+    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.ops.eer import calculate_eer
+    from dfac_tpu_torch.train.checkpoint import load_model_variables
+    from dfac_tpu_torch.train.detector_loop import DetectorConfig, DetectorTrainer, dataset_lengths, detector_scores
+
+    device = resolve_device(args.device)
+    cfg = DetectorConfig(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        weight_decay=args.weight_decay, grad_clip=args.grad_clip,
+        hidden=args.hidden, dropout=args.dropout, encoder_dropout=args.encoder_dropout,
+        specaug=args.specaug, time_mask_max=args.time_mask_max, time_mask_n=args.time_mask_n,
+        freq_mask_max=args.freq_mask_max, freq_mask_n=args.freq_mask_n,
+        ema=args.ema, ema_decay=args.ema_decay, patience=args.patience,
+        seed=args.seed, device_resident=args.device_resident,
+    )
+
+    def split_paths(split):
+        return (
+            os.path.join(args.data_dir, split, "features.pkl"),
+            os.path.join(args.data_dir, split, "labels.pkl"),
+        )
+
+    test_feat, test_lab = split_paths(args.test_split)
+    has_test_labels = os.path.exists(test_lab)
+    if args.epochs > 0:
+        train_ds = load_dataset(*split_paths(args.train_split))
+        dev_ds = load_dataset(*split_paths(args.dev_split))
+        trainer = DetectorTrainer(cfg, in_channels=train_ds.features.shape[1], device=device)
+        result = trainer.fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
+        print(f"Training done. Best dev EER: {result['best_eer']:.6f}")
+    test_ds = load_dataset(test_feat, test_lab if has_test_labels else None)
+
+    if not os.path.exists(args.ckpt_path):
+        raise FileNotFoundError(f"Checkpoint not found: {args.ckpt_path}")
+    state_dict = load_model_variables(args.ckpt_path, model_name="detector")
+    lengths = dataset_lengths(test_ds)
+    if args.fast:
+        from dfac_tpu_torch.models.fast_infer import detector_scores_fast
+
+        scores = detector_scores_fast(
+            state_dict, test_ds, lengths, device, args.batch_size, apply_sigmoid=args.use_prob,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        )
+    else:
+        model = build_model("detector", in_channels=test_ds.features.shape[1], hidden=args.hidden,
+                            dropout=args.dropout)
+        model.load_state_dict(state_dict)
+        scores = detector_scores(model.to(device), test_ds, lengths, args.batch_size, apply_sigmoid=args.use_prob)
+    write_predictions(args.prediction_pkl, test_ds.uttids, scores)
+    print(f"Saved prediction file -> {args.prediction_pkl}  shape: ({len(scores)}, 2)")
+    if has_test_labels:
+        eer, _ = calculate_eer(scores, test_ds.labels)
+        print(f"EER on split '{args.test_split}': {eer:.6f}")
+    return scores
+
+
+if __name__ == "__main__":
+    main()

@@ -2,14 +2,17 @@
 
 Counterpart of :mod:`dfac_tpu.data.augment` (parity target reference
 ``src/augmentation.py:5-186``): one random draw per *batch*, not per
-sample; contiguous masked segments with ratios uniform in [min, max],
+sample (the detector's SpecAugment apart: its masks are per sample);
+contiguous masked segments with ratios uniform in [min, max],
 floor-length; a circular time shift. JAX's PRNG draws cannot be
 reproduced in torch, so each op is split in two:
 
 * a deterministic function of the draws (``time_shift(x, shift)``,
   ``channel_drop(x, keep)``, ``gaussian_jitter(x, noise, std)``,
-  ``_segment_mask(length, u, u2)``), equal to the JAX op given the draws
-  the JAX op makes from its key (the CPU tests hold them to it);
+  ``_segment_mask(length, u, u2)``, the detector's per-sample
+  ``dlqueen_spec_augment(x, time_draws, freq_draws)``), equal to the JAX
+  op given the draws the JAX op makes from its key (the CPU tests hold
+  them to it);
 * a draw layer on an explicit ``torch.Generator`` on the batch's device
   (``draw_*``). Nothing leaves the device: the shift is a tensor and the
   roll a gather, so an augmented step has no host sync.
@@ -90,6 +93,31 @@ def spec_augment(x: torch.Tensor, time_draws: tuple | None, feature_draws: tuple
     return x
 
 
+def count_mask(length: int, widths: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(..., length) keep-mask with one zero segment per mask: ``widths``
+    and ``u`` (shape (..., num_masks)) are each mask's width and its start
+    uniform in [0, 1). The start is the JAX package's f32 product ``u *
+    (length - w + 1)`` truncated to int32 (``dfac_tpu/data/augment.py:108-124``,
+    the dlqueen draw scheme of reference ``src/dlqueen_model.py:33-62``)."""
+    w = widths.to(torch.int32)
+    start = (u.float() * (length - w + 1).float()).to(torch.int32)
+    idx = torch.arange(length, device=widths.device)
+    inside = (idx >= start[..., None]) & (idx < (start + w)[..., None])  # (..., num_masks, length)
+    return ~inside.any(dim=-2)
+
+
+def dlqueen_spec_augment(x: torch.Tensor, time_draws: tuple, freq_draws: tuple) -> torch.Tensor:
+    """Per-sample time and frequency masking of (B, T, C) batches: every
+    sample has its own masks (reference ``src/dlqueen_model.py:357-364``).
+    ``time_draws`` and ``freq_draws`` are ``(widths, u)`` of shape (B,
+    num_masks) for :func:`count_mask`; :func:`draw_dlqueen_masks` makes
+    them."""
+    b, t, c = x.shape
+    tmask = count_mask(t, *time_draws).to(x.dtype)  # (B, T)
+    fmask = count_mask(c, *freq_draws).to(x.dtype)  # (B, C)
+    return x * tmask[:, :, None] * fmask[:, None, :]
+
+
 # -- draws -------------------------------------------------------------------
 
 
@@ -124,6 +152,22 @@ def draw_channel_drop(gen: torch.Generator, x: torch.Tensor, drop_prob: float) -
     if drop_prob <= 0:
         return None
     return _uniform(gen, x.device, (1, 1, x.shape[2])) >= drop_prob
+
+
+def draw_count_masks(gen: torch.Generator, batch: int, length: int, max_width: int, num_masks: int,
+                     device) -> tuple:
+    """Each sample's mask widths uniform in [0, min(max_width, length)]
+    (0: the mask is a no-op) and start uniforms, shape (batch, num_masks)."""
+    widths = torch.randint(0, min(max_width, length) + 1, (batch, num_masks), generator=gen, device=device)
+    return widths, _uniform(gen, device, (batch, num_masks))
+
+
+def draw_dlqueen_masks(gen: torch.Generator, x: torch.Tensor, time_mask_max: int = 30, time_mask_n: int = 2,
+                       freq_mask_max: int = 24, freq_mask_n: int = 2) -> tuple:
+    """The draws of :func:`dlqueen_spec_augment` for a (B, T, C) batch."""
+    b, t, c = x.shape
+    return (draw_count_masks(gen, b, t, time_mask_max, time_mask_n, x.device),
+            draw_count_masks(gen, b, c, freq_mask_max, freq_mask_n, x.device))
 
 
 def draw_jitter(gen: torch.Generator, x: torch.Tensor, std: float) -> torch.Tensor | None:

@@ -10,8 +10,9 @@ from torch import nn
 from dfac_tpu_torch.models.cae import ConvAutoencoder
 from dfac_tpu_torch.models.cnn1d import CNN1D
 from dfac_tpu_torch.models.cnn2d import CNN2D
+from dfac_tpu_torch.models.detector import DeepfakeDetector
 
-MODEL_REGISTRY = {"cnn2d": CNN2D, "cnn1d": CNN1D, "cae": ConvAutoencoder}
+MODEL_REGISTRY = {"cnn2d": CNN2D, "cnn1d": CNN1D, "cae": ConvAutoencoder, "detector": DeepfakeDetector}
 
 
 def build_model(name: str, **overrides: Any) -> nn.Module:

@@ -1,7 +1,8 @@
-"""Serving chains with folded BatchNorm: CNN2D, CNN1D and the CAE scorer.
+"""Serving chains with folded BatchNorm: CNN2D, CNN1D, the CAE scorer and
+the detector.
 
-Counterpart of :mod:`dfac_tpu.models.fast_infer` (its CNN2D, CNN1D and
-CAE parts). CNN2D:
+Counterpart of :mod:`dfac_tpu.models.fast_infer` (its CNN2D, CNN1D, CAE
+and detector parts). CNN2D:
 
 * **BatchNorm folding** — at eval BN is affine, so it folds into the conv
   kernel and bias (``W' = W * inv``, ``b' = (b - mean) * inv + shift``,
@@ -18,20 +19,22 @@ CNN2D's folded weights keep the JAX layouts (HWIO kernels, ``(128 * F,
 1)`` classifier) so the tests compare like with like; the fused kernel
 takes HWIO.
 
-CNN1D and the CAE run through XLA convolutions in the JAX package, so here
-they run through cuDNN (``F.conv1d``, ``F.conv2d``, ``F.conv_transpose2d``)
-and ATen's pools, and their folded kernels are in torch's layouts (conv1d
-``(O, I, k)``, conv ``(O, I, kh, kw)``, transposed conv ``(I, O, kh, kw)``)
-so that no call permutes them. **Where the bf16 rounding happens:** the
-JAX chains add the f32 bias to the f32 accumulator and round once; a cuDNN
-bf16 convolution rounds its output to bf16 first, and the bias is added in
-f32 to that (the convolution runs without bias, the bias add on the
-upcast), so the bf16 chains here round twice. That stays inside the JAX
-package's own bf16 tolerances (CNN1D scores atol 2e-2, CAE MSE rtol 0.1;
-``tests/test_fast_infer.py``). ATen's bf16 average pool sums in f32 and
-rounds once, as JAX's depthwise-conv pool does. f32 chains run with TF32
-off (:func:`~dfac_tpu_torch.models.common.f32_convs`), as JAX's f32 convs
-are exact.
+CNN1D, the CAE and the detector run through XLA convolutions in the JAX
+package, so here they run through cuDNN (``F.conv1d``, ``F.conv2d``,
+``F.conv_transpose2d``) and ATen's pools, and their folded kernels are in
+torch's layouts (conv1d ``(O, I, k)``, conv ``(O, I, kh, kw)``,
+transposed conv ``(I, O, kh, kw)``) so that no call permutes them.
+**Where the bf16 rounding happens:** the JAX chains add the f32 bias to
+the f32 accumulator and round once; a cuDNN bf16 convolution rounds its
+output to bf16 first, and the bias is added in f32 to that (the
+convolution runs without bias, the bias add on the upcast), so the bf16
+chains here round twice. That stays inside the JAX package's own bf16
+tolerances (CNN1D scores atol 2e-2, CAE MSE rtol 0.1;
+``tests/test_fast_infer.py``; the detector's logits atol 2e-2). ATen's
+bf16 average pool sums in f32 and rounds once, as JAX's depthwise-conv
+pool does. f32 chains run with TF32 off
+(:func:`~dfac_tpu_torch.models.common.f32_convs`), as JAX's f32 convs are
+exact.
 """
 
 from __future__ import annotations
@@ -311,4 +314,81 @@ def cae_mse_scores_fast(
             lambda feats: cae_fast_mse(folded, feats, mean, std, swap_tf, compute_dtype),
             ds, batch_size,
             prepare_batch=lambda b: ingest(b.features, torch.float32, device),
+        )
+
+
+def fold_detector(state_dict: dict) -> dict:
+    """Fold the detector's three BatchNorm1d into its encoder convs
+    (reference eval chain ``src/dlqueen_model.py:131-173``): ``{w1..w3 (O,
+    I, k), b1..b3, fc1_w (2H, H), fc1_b, fc2_w (H, 1), fc2_b}`` as f32
+    tensors. ``state_dict`` holds the eval variables (the EMA parameters
+    where the trainer kept an EMA)."""
+    sd = _f32(state_dict)
+    folded = {}
+    for i, (ci, bi) in enumerate([(0, 1), (4, 5), (8, 9)], 1):
+        folded[f"w{i}"], folded[f"b{i}"] = _fold_bn(sd, f"enc.net.{ci}", f"enc.net.{bi}", 0)
+    for j, li in ((1, 0), (2, 3)):
+        folded[f"fc{j}_w"] = sd[f"head.{li}.weight"].t().contiguous()
+        folded[f"fc{j}_b"] = sd[f"head.{li}.bias"].clone()
+    return folded
+
+
+def detector_fast_scores(
+    folded: dict,
+    feats: torch.Tensor,
+    lengths: torch.Tensor,
+    swap_tf: bool = True,
+    apply_sigmoid: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The detector's serving chain with BN folded: features -> (B,)
+    logits (or sigmoid scores), i.e. ``DeepfakeDetector`` in eval mode:
+    conv -> folded bias -> exact GELU x3, the masked mean and std over
+    time, fc1 -> GELU -> fc2. ``swap_tf=True`` means ``feats`` is
+    stored-orientation (B, C, T), ``F.conv1d``'s own layout. The convs run
+    in ``compute_dtype`` with f32 bias and GELU; the pool and the head's
+    GELU run in f32, as the JAX chain does."""
+    from dfac_tpu_torch.models.detector import stats_pool
+
+    dt = compute_dtype
+    h = (feats if swap_tf else feats.transpose(1, 2)).to(dt)  # (B, C, T)
+    with f32_convs():
+        for i in (1, 2, 3):
+            w = folded[f"w{i}"].to(dt)
+            y = F.conv1d(h, w, padding=w.shape[2] // 2)
+            h = F.gelu(y.float() + folded[f"b{i}"][:, None]).to(dt)
+    z = stats_pool(h.float().transpose(1, 2), lengths)  # (B, 2H), f32
+    z = F.gelu((z.to(dt) @ folded["fc1_w"].to(dt)).float() + folded["fc1_b"])
+    logits = (z.to(dt) @ folded["fc2_w"].to(dt)).float()[:, 0] + folded["fc2_b"]
+    return torch.sigmoid(logits) if apply_sigmoid else logits
+
+
+def detector_scores_fast(
+    state_dict: dict,
+    ds,
+    lengths: np.ndarray,
+    device: torch.device,
+    batch_size: int = 128,
+    swap_tf: bool = True,
+    apply_sigmoid: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> np.ndarray:
+    """Score a whole dataset through the folded detector chain on
+    ``device``; (N,) float32 in dataset order (the fast counterpart of
+    :func:`dfac_tpu_torch.train.detector_loop.detector_scores`; batching
+    and ingest as :func:`predict_scores_fast`). Pad rows borrow row 0's
+    length; the weight mask drops their scores."""
+    from dfac_tpu_torch.train.evaluate import collect_masked_scores
+
+    folded = on_device(fold_detector(state_dict), device, compute_dtype)
+    lengths = np.asarray(lengths)
+
+    def prepare(b):
+        lens = lengths[np.maximum(b.index, 0)]
+        return ingest(b.features, compute_dtype, device), torch.from_numpy(lens).to(device)
+
+    with torch.inference_mode():
+        return collect_masked_scores(
+            lambda fl: detector_fast_scores(folded, fl[0], fl[1], swap_tf, apply_sigmoid, compute_dtype),
+            ds, batch_size, prepare_batch=prepare,
         )

@@ -1,28 +1,50 @@
-"""CAE scoring and evaluation.
+"""CAE (anomaly) training, scoring and evaluation.
 
-Counterpart of the scoring half of :mod:`dfac_tpu.train.cae_loop`; parity
-target reference ``src/evaluation_cae.py``: per-sample reconstruction MSE
-over (T, F) of normalized, swapped spectrograms, and the **dual scoring
-convention** (the EER of -MSE and of +MSE, the better kept; on this corpus
-fakes reconstruct better, so +MSE is the bonafide score), with per-class
-mean MSE and the spoof/bonafide ratio.
+Counterpart of :mod:`dfac_tpu.train.cae_loop`. Feature-parity targets:
 
-``CAETrainer`` and the ``train_cae`` CLI are not ported yet (ROADMAP.md):
-a CAE checkpoint for the port comes from the JAX package (a pickle
-``.ckpt``) or from the reference (a ``.pt``), which
-:func:`~dfac_tpu_torch.train.checkpoint.load_model_variables` reads.
+* Trainer — reference ``src/train_cae.py``: bonafide-only MSE
+  reconstruction training on normalized, swapped (T, F) spectrograms;
+  AdamW lr=1e-4 wd=1e-4; ReduceLROnPlateau(patience=7) on the validation
+  MSE; early stop 10; best = strictly lower bonafide-dev reconstruction
+  MSE; artifacts ``cae_best.ckpt`` / ``cae_last.ckpt`` / ``normalizer.npz``
+  in the JAX package's format (the AdamW state under the port's own key,
+  ``torch_optimizer_state``). The step runs through autograd on the
+  device, convs (the transposed ones' backward included) in full f32
+  (:func:`~dfac_tpu_torch.models.common.f32_convs`). Batches come host-fed
+  (``np.random.default_rng(seed * 100003 + epoch).shuffle`` of the
+  bonafide rows, a true-size tail, gathered and uploaded by a prefetch
+  thread) or ``device_resident`` (the same order gathered on the card
+  from a corpus uploaded once; the bonafide dev split is uploaded once
+  too and each validation is one pass over it).
+* Evaluator — reference ``src/evaluation_cae.py``: per-sample
+  reconstruction MSE over (T, F) of normalized, swapped spectrograms, and
+  the **dual scoring convention** (the EER of -MSE and of +MSE, the better
+  kept; on this corpus fakes reconstruct better, so +MSE is the bonafide
+  score), with per-class mean MSE and the spoof/bonafide ratio.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
+
 import numpy as np
 import torch
 
-from dfac_tpu_torch.data.normalizer import FeatureNormalizer
-from dfac_tpu_torch.data.pipeline import ArrayDataset
+from dfac_tpu_torch.data.normalizer import FeatureNormalizer, build_normalizer
+from dfac_tpu_torch.data.pipeline import ArrayDataset, num_batches
+from dfac_tpu_torch.device import resolve_device
+from dfac_tpu_torch.models import build_model
 from dfac_tpu_torch.models.cae import reconstruction_mse
 from dfac_tpu_torch.models.common import f32_convs
+from dfac_tpu_torch.obs.base import EpochMetrics, TrainingConfig, TrainingVisualizer
+from dfac_tpu_torch.obs.noop import NoOpVisualizer
 from dfac_tpu_torch.ops.eer import eer_device
+from dfac_tpu_torch.train import checkpoint as ckpt_lib
+from dfac_tpu_torch.train.loop import resident_arrays, run_epoch, shuffled_batches
+from dfac_tpu_torch.train.optim import BETAS, EPS, PlateauScheduler, set_lr
+from dfac_tpu_torch.utils.convert import jax_from_state_dict
 
 
 def cae_mse_scores(
@@ -30,10 +52,14 @@ def cae_mse_scores(
     ds: ArrayDataset,
     normalizer: FeatureNormalizer,
     batch_size: int = 128,
+    features: torch.Tensor | None = None,
 ) -> np.ndarray:
     """Per-utterance reconstruction MSE of the eval model on its device
     (convs in full f32), dataset order; batches and uploads as
-    :func:`~dfac_tpu_torch.train.evaluate.predict_scores`."""
+    :func:`~dfac_tpu_torch.train.evaluate.predict_scores`. ``features``
+    (optional) is ``ds.features`` already on that device: the batches are
+    then its slices, the tail zero-padded to the same batch shape, and
+    nothing is uploaded."""
     from dfac_tpu_torch.models.fast_infer import ingest
     from dfac_tpu_torch.train.evaluate import collect_masked_scores, model_device
 
@@ -46,11 +72,19 @@ def cae_mse_scores(
         recon, _ = model(x)
         return reconstruction_mse(recon, x)
 
+    def resident_batch(b):
+        idx = b.index[b.index >= 0]  # consecutive: the batches are unshuffled
+        rows = features[int(idx[0]) : int(idx[-1]) + 1]
+        return torch.cat([rows, rows.new_zeros((batch_size - len(rows), *rows.shape[1:]))])
+
     was_training = model.training
     model.eval()
     with torch.inference_mode(), f32_convs():
-        mse = collect_masked_scores(score, ds, batch_size,
-                                    prepare_batch=lambda b: ingest(b.features, torch.float32, device))
+        mse = collect_masked_scores(
+            score, ds, batch_size,
+            prepare_batch=resident_batch if features is not None else (
+                lambda b: ingest(b.features, torch.float32, device)),
+        )
     model.train(was_training)
     return mse
 
@@ -82,3 +116,183 @@ def evaluate_cae(
         "spoof_bonafide_ratio": float(spoof.mean() / bona.mean()) if len(bona) and len(spoof) else None,
         "scores": mse,
     }
+
+
+@dataclasses.dataclass
+class CAEConfig:
+    """Reference train_cae.py defaults (``src/train_cae.py:114-126``), the
+    fields the port trains: f32, one device (the JAX package's other
+    fields select paths not ported yet; see ROADMAP.md)."""
+
+    batch_size: int = 32
+    epochs: int = 80
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    lr_scheduler_patience: int = 7
+    lr_scheduler_factor: float = 0.5
+    early_stop: int = 10
+    base_channels: int = 32
+    seed: int = 0
+    device_resident: bool = False  # upload the bonafide corpus once; gather batches on the card
+
+
+class CAETrainer:
+    def __init__(self, cfg: CAEConfig, visualizer: TrainingVisualizer | None = None, device=None):
+        """``device``: a ``torch.device`` or its name (default ``cuda``, no
+        fallback)."""
+        self.cfg = cfg
+        self.device = device if isinstance(device, torch.device) else resolve_device(device)
+        self.visualizer = visualizer or NoOpVisualizer()
+        self.scheduler = PlateauScheduler(factor=cfg.lr_scheduler_factor, patience=cfg.lr_scheduler_patience)
+        self.model: torch.nn.Module | None = None
+        self.optimizer: torch.optim.Optimizer | None = None
+        self.normalizer: FeatureNormalizer | None = None
+        self.history: list[EpochMetrics] = []
+        self._lr = cfg.lr
+        self._resident: dict = {}  # id(dataset) -> (dataset, features, labels on the device)
+
+    # -- state ------------------------------------------------------------
+    def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
+        """Build the CAE with torch's default init drawn from ``seed`` (the
+        process's global generator is left as it was), or load
+        ``state_dict``; then a fresh AdamW."""
+        cfg = self.cfg
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            model = build_model("cae", base_channels=cfg.base_channels)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        self.model = model.to(self.device)
+        self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=self._lr, betas=BETAS, eps=EPS,
+                                           weight_decay=cfg.weight_decay)
+        return self.model
+
+    def use_normalizer(self, normalizer: FeatureNormalizer) -> None:
+        self.normalizer = normalizer
+        self._mean = torch.as_tensor(normalizer.mean, dtype=torch.float32, device=self.device)
+        self._std = torch.as_tensor(normalizer.std, dtype=torch.float32, device=self.device)
+
+    # -- step -------------------------------------------------------------
+    def train_step(self, feats: torch.Tensor, weights: torch.Tensor):
+        """One optimizer step on a device batch of stored-orientation (B,
+        F, T) features: swap, normalize, reconstruct, the weighted mean
+        MSE, backward, AdamW. Returns ``(loss * count, count)`` as device
+        scalars."""
+        x = (feats.transpose(1, 2) - self._mean) / self._std
+        self.model.train()
+        with f32_convs():
+            recon, _ = self.model(x)
+            per = reconstruction_mse(recon, x)
+            count = weights.sum()
+            loss = (per * weights).sum() / count.clamp_min(1.0)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        self.optimizer.step()
+        return loss.detach() * count, count
+
+    def _resident_arrays(self, ds: ArrayDataset) -> tuple[torch.Tensor, torch.Tensor]:
+        """``ds``'s features and labels on the device, uploaded once per dataset."""
+        entry = self._resident.get(id(ds))
+        if entry is None or entry[0] is not ds:
+            entry = self._resident[id(ds)] = (ds, *resident_arrays(ds, self.device))
+        return entry[1:]
+
+    def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
+        """One epoch over the bonafide rows of ``ds`` (shuffle seed ``seed
+        * 100003 + epoch``, the batches of
+        :func:`~dfac_tpu_torch.train.loop.shuffled_batches`); the weighted
+        mean training MSE, or None for an empty corpus."""
+        cfg = self.cfg
+        resident = self._resident_arrays(ds) if cfg.device_resident else None
+        batches = shuffled_batches(ds, cfg.batch_size, cfg.seed * 100003 + epoch, self.device, resident)
+        return run_epoch(lambda feats, _labels, weights: self.train_step(feats, weights), batches, self.device,
+                         batch_ctx)
+
+    def validate(self, bona_dev: ArrayDataset) -> float:
+        """The bonafide-dev mean reconstruction MSE (reference ``:85-105``);
+        resident, one pass over the dev split uploaded once."""
+        features = self._resident_arrays(bona_dev)[0] if self.cfg.device_resident and len(bona_dev) else None
+        scores = cae_mse_scores(self.model, bona_dev, self.normalizer, self.cfg.batch_size, features=features)
+        return float(scores.mean()) if len(scores) else float("nan")
+
+    def _save(self, path: str, epoch: int, scheduler_state: dict | None = None) -> None:
+        ckpt_lib.save_checkpoint(
+            path, jax_from_state_dict(self.model.state_dict(), "cae"), epoch=epoch,
+            config=dataclasses.asdict(self.cfg), scheduler_state=scheduler_state,
+            torch_optimizer_state=self.optimizer.state_dict(),
+        )
+
+    # -- loop ---------------------------------------------------------------
+    def fit(
+        self,
+        train_ds: ArrayDataset,
+        dev_ds: ArrayDataset,
+        checkpoint_dir: str | None = None,
+        normalizer: FeatureNormalizer | None = None,
+    ) -> dict:
+        """``train_ds``/``dev_ds`` are full labeled datasets; bonafide-only
+        filtering and the normalizer fit happen here (reference
+        ``src/train_cae.py:176-194``). Returns ``{best_val_mse, history,
+        normalizer}``."""
+        cfg = self.cfg
+        bona_train = train_ds.filter_label(1) if train_ds.labels is not None else train_ds
+        bona_dev = dev_ds.filter_label(1) if dev_ds.labels is not None else dev_ds
+        self.use_normalizer(normalizer or build_normalizer(train_ds.features, train_ds.labels,
+                                                           lengths=train_ds.lengths))
+        if self.model is None:
+            self.init_state()
+
+        best_path = last_path = None
+        if checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            best_path = os.path.join(checkpoint_dir, "cae_best.ckpt")
+            last_path = os.path.join(checkpoint_dir, "cae_last.ckpt")
+            self.normalizer.save(os.path.join(checkpoint_dir, "normalizer.npz"))
+
+        self.visualizer.on_training_start(
+            TrainingConfig(
+                device=str(self.device), model="cae", epochs=cfg.epochs, batch_size=cfg.batch_size,
+                learning_rate=cfg.lr, weight_decay=cfg.weight_decay, early_stop_patience=cfg.early_stop,
+            )
+        )
+        best_val = None
+        epochs_no_improve = 0
+        prev: EpochMetrics | None = None
+        for epoch in range(1, cfg.epochs + 1):
+            t0 = time.perf_counter()
+            with self.visualizer.on_epoch_start(epoch, num_batches(len(bona_train), cfg.batch_size)) as batch_ctx:
+                train_loss = self.train_epoch(bona_train, epoch, batch_ctx)
+            val_loss = self.validate(bona_dev)
+            elapsed = time.perf_counter() - t0
+
+            is_best = best_val is None or val_loss < best_val
+            if is_best:
+                best_val = val_loss
+                epochs_no_improve = 0
+                if best_path:
+                    # the scheduler's state before this epoch's plateau step, as the JAX trainer saves it
+                    self._save(best_path, epoch, self.scheduler.state_dict())
+            else:
+                epochs_no_improve += 1
+
+            new_lr = self.scheduler.step(val_loss, self._lr)
+            if new_lr != self._lr:
+                self._lr = new_lr
+                set_lr(self.optimizer, new_lr)
+
+            metrics = EpochMetrics(
+                epoch=epoch, train_loss=train_loss, dev_loss=val_loss, dev_eer=None,
+                is_best=is_best, improved=is_best, epochs_no_improve=epochs_no_improve,
+                learning_rate=self._lr, epoch_seconds=elapsed,
+                throughput_utt_s=len(bona_train) / elapsed if elapsed > 0 else None,
+            )
+            self.visualizer.on_epoch_end(metrics, prev)
+            self.history.append(metrics)
+            prev = metrics
+            if cfg.early_stop and epochs_no_improve >= cfg.early_stop:
+                break
+
+        self.visualizer.on_training_end(self.history)
+        if last_path:
+            self._save(last_path, self.history[-1].epoch if self.history else 0)
+        return {"best_val_mse": best_val, "history": self.history, "normalizer": self.normalizer}

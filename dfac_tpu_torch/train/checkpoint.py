@@ -186,7 +186,11 @@ def load_checkpoint(path: str) -> dict:
 
 def load_model_variables(path: str, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
     """Load a dfac_tpu pickle checkpoint or a reference ``.pt`` file as the
-    port's ``state_dict`` (CPU tensors), auto-detected."""
+    port's ``state_dict`` (CPU tensors), auto-detected. ``model_name`` is
+    one of :mod:`dfac_tpu_torch.utils.convert`'s families (cnn2d, cnn1d,
+    cae, detector); a ``.pt`` already carries the port's names. A
+    detector checkpoint of either package holds its eval variables (the
+    EMA parameters with the live BatchNorm statistics)."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (orbax checkpoint); orbax loading is not ported yet"

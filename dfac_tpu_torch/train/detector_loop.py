@@ -1,0 +1,313 @@
+"""DeepfakeDetector ("dlqueen") training runtime on one device.
+
+Counterpart of :mod:`dfac_tpu.train.detector_loop`; parity target
+reference ``src/dlqueen_model.py:220-448``, the alternative trainer with
+its own recipe:
+
+* class-balanced **weighted sampling with replacement** (inverse class
+  frequency): each epoch draws ``rng.choice(n, n, replace=True,
+  p=sample_p)`` from one ``np.random.default_rng(seed)`` made per fit,
+  the JAX package's host calls in its order, so both packages train on the
+  same rows;
+* ``pos_weight`` BCE (neg/pos on the positive term only, torch's
+  ``BCEWithLogitsLoss`` semantics);
+* global-norm gradient clipping at 5.0 written as optax's
+  ``clip_by_global_norm`` (``t / norm * max_norm`` where ``norm >=
+  max_norm``; torch's ``clip_grad_norm_`` divides by ``norm + 1e-6``),
+  then AdamW (lr 1e-3, wd 1e-4) on every parameter;
+* per-sample SpecAugment on (T, C) (width-capped count masks);
+* an **EMA of the parameters** (decay 0.999, starting at the initial
+  parameters, updated after every step; BatchNorm statistics are not
+  averaged); the dev EER, the checkpoint and the scores use the EMA
+  parameters with the live statistics (:meth:`DetectorTrainer.eval_variables`);
+* best = strictly lower dev EER (of the logits, by
+  :func:`~dfac_tpu_torch.ops.eer.eer_device`), patience-6 early stop;
+* variable-length utterances as padded batches with a length mask.
+
+The step runs through autograd on the device, convs in full f32
+(:func:`~dfac_tpu_torch.models.common.f32_convs`). Batches come host-fed
+(a prefetch thread gathers and uploads each) or ``device_resident`` (the
+corpus uploaded once, the same order gathered on the card); the tail batch
+trains at its true size. Dropout bytes and the SpecAugment draws come
+from one ``torch.Generator`` on the device, seeded from ``seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dfac_tpu_torch.data.augment import dlqueen_spec_augment, draw_dlqueen_masks
+from dfac_tpu_torch.data.pipeline import ArrayDataset
+from dfac_tpu_torch.device import resolve_device
+from dfac_tpu_torch.io.prefetch import prefetched
+from dfac_tpu_torch.models import build_model
+from dfac_tpu_torch.models.common import FastDropout, f32_convs
+from dfac_tpu_torch.ops.eer import eer_device
+from dfac_tpu_torch.train.loop import resident_arrays
+from dfac_tpu_torch.train.optim import BETAS, EPS
+
+
+@dataclasses.dataclass
+class DetectorConfig:
+    """The reference dlqueen recipe's knobs (``src/dlqueen_model.py:266-300``)
+    that the port trains: f32, one device (the JAX package's other fields
+    select paths not ported yet; see ROADMAP.md)."""
+
+    epochs: int = 30
+    batch_size: int = 32
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    grad_clip: float = 5.0
+    hidden: int = 256
+    dropout: float = 0.3
+    encoder_dropout: float = 0.2
+    specaug: bool = False
+    time_mask_max: int = 30
+    time_mask_n: int = 2
+    freq_mask_max: int = 24
+    freq_mask_n: int = 2
+    ema: bool = False
+    ema_decay: float = 0.999
+    patience: int = 6
+    seed: int = 42
+    device_resident: bool = False  # upload the corpus once; gather batches on the card
+
+
+def compute_class_weights(labels: np.ndarray) -> tuple[float, float, float]:
+    """(pos_weight, w0, w1) per reference ``src/dlqueen_model.py:253-262``."""
+    pos = int((labels == 1).sum())
+    neg = int((labels == 0).sum())
+    return neg / max(pos, 1), 1.0 / max(neg, 1), 1.0 / max(pos, 1)
+
+
+def pos_weight_bce_per(logits: torch.Tensor, labels: torch.Tensor, pos_weight: float) -> torch.Tensor:
+    """Per-sample torch ``BCEWithLogitsLoss(pos_weight=...)`` terms."""
+    return -(pos_weight * labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def pos_weight_bce(logits: torch.Tensor, labels: torch.Tensor, pos_weight: float) -> torch.Tensor:
+    """Weight the positive term only, then the plain mean."""
+    return torch.mean(pos_weight_bce_per(logits, labels, pos_weight))
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` in place: where the global L2 norm
+    reaches ``max_norm``, every gradient becomes ``g / norm * max_norm``.
+    The choice stays on the device (no host sync); returns the norm."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def dataset_lengths(ds: ArrayDataset) -> np.ndarray:
+    """The valid frame counts, every frame where the dataset has none."""
+    if ds.lengths is not None:
+        return np.asarray(ds.lengths)
+    return np.full(len(ds), ds.features.shape[2], np.int32)
+
+
+class DetectorTrainer:
+    def __init__(self, cfg: DetectorConfig, in_channels: int = 180, device=None):
+        """``device``: a ``torch.device`` or its name (default ``cuda``, no
+        fallback)."""
+        self.cfg = cfg
+        self.in_channels = in_channels
+        self.device = device if isinstance(device, torch.device) else resolve_device(device)
+        self.generator = torch.Generator(device=self.device)  # dropout bytes and SpecAugment draws
+        self.generator.manual_seed(cfg.seed)
+        self.model: torch.nn.Module | None = None
+        self.optimizer: torch.optim.Optimizer | None = None
+        self.ema: dict[str, torch.Tensor] | None = None
+        self._eval_model: torch.nn.Module | None = None
+        self._resident: tuple | None = None  # (dataset, features, lengths, labels) on the device
+
+    def _build(self) -> torch.nn.Module:
+        cfg = self.cfg
+        return build_model("detector", in_channels=self.in_channels, hidden=cfg.hidden, dropout=cfg.dropout,
+                           encoder_dropout=cfg.encoder_dropout)
+
+    # -- state ------------------------------------------------------------
+    def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
+        """Build the model with torch's default init drawn from ``seed``
+        (the process's global generator is left as it was), or load
+        ``state_dict``; then a fresh AdamW and, with ``ema``, the EMA at
+        the initial parameters."""
+        cfg = self.cfg
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            model = self._build()
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        self.model = model.to(self.device)
+        for m in self.model.modules():
+            if isinstance(m, FastDropout):
+                m.generator = self.generator
+        self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr, betas=BETAS, eps=EPS,
+                                           weight_decay=cfg.weight_decay)
+        self.ema = (
+            {name: p.detach().clone() for name, p in self.model.named_parameters()} if cfg.ema else None
+        )
+        return self.model
+
+    def eval_variables(self) -> dict:
+        """The ``state_dict`` that scores: the EMA parameters (with
+        ``ema``) and the live BatchNorm statistics."""
+        sd = self.model.state_dict()
+        return {**sd, **self.ema} if self.ema is not None else sd
+
+    def eval_model(self) -> torch.nn.Module:
+        """A module holding :meth:`eval_variables`: the model itself, or
+        with ``ema`` a second module loaded with them."""
+        if self.ema is None:
+            return self.model
+        if self._eval_model is None:
+            self._eval_model = self._build().to(self.device)
+        self._eval_model.load_state_dict(self.eval_variables())
+        return self._eval_model
+
+    def scores(self, ds: ArrayDataset, apply_sigmoid: bool = False) -> np.ndarray:
+        return detector_scores(self.eval_model(), ds, dataset_lengths(ds), self.cfg.batch_size, apply_sigmoid)
+
+    # -- step -------------------------------------------------------------
+    def train_step(self, feats: torch.Tensor, lengths: torch.Tensor, labels: torch.Tensor,
+                   pos_weight: float) -> torch.Tensor:
+        """One optimizer step on a device batch of stored-orientation (B,
+        C, T) features; returns the batch's mean loss as a device scalar."""
+        cfg = self.cfg
+        x = feats.transpose(1, 2)  # (B, T, C)
+        if cfg.specaug:
+            x = dlqueen_spec_augment(x, *draw_dlqueen_masks(self.generator, x, cfg.time_mask_max, cfg.time_mask_n,
+                                                             cfg.freq_mask_max, cfg.freq_mask_n))
+        self.model.train()
+        with f32_convs():
+            loss = pos_weight_bce(self.model(x, lengths), labels, pos_weight)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if cfg.grad_clip > 0:
+            clip_by_global_norm_([p.grad for p in self.model.parameters()], cfg.grad_clip)
+        self.optimizer.step()
+        if self.ema is not None:
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    self.ema[name].mul_(cfg.ema_decay).add_(p, alpha=1.0 - cfg.ema_decay)
+        return loss.detach()
+
+    def _resident_arrays(self, ds: ArrayDataset):
+        if self._resident is None or self._resident[0] is not ds:
+            feats, labels = resident_arrays(ds, self.device)
+            self._resident = (ds, feats, torch.as_tensor(dataset_lengths(ds), device=self.device), labels)
+        return self._resident[1:]
+
+    def _batches(self, ds: ArrayDataset, order: np.ndarray):
+        """True-size batches of the rows ``order`` names: gathered on the
+        card from the resident corpus, or gathered on the host and uploaded
+        (pinned, ``non_blocking``) by the prefetch thread."""
+        bs = self.cfg.batch_size
+        if self.cfg.device_resident:
+            arrays = self._resident_arrays(ds)
+            order_d = torch.from_numpy(order).to(self.device)
+            for start in range(0, len(order), bs):
+                idx = order_d[start : start + bs]
+                yield tuple(a.index_select(0, idx) for a in arrays)
+            return
+        from dfac_tpu_torch.models.fast_infer import ingest
+
+        lengths = dataset_lengths(ds)
+        labels = np.asarray(ds.labels, np.float32)
+
+        def host():
+            for start in range(0, len(order), bs):
+                idx = order[start : start + bs]
+                yield (ingest(ds.features[idx], torch.float32, self.device),
+                       torch.from_numpy(lengths[idx]).to(self.device, non_blocking=True),
+                       ingest(labels[idx], torch.float32, self.device))
+
+        yield from prefetched(host(), depth=2)
+
+    def train_epoch(self, ds: ArrayDataset, order: np.ndarray, pos_weight: float) -> tuple[torch.Tensor, int]:
+        """One epoch over the rows ``order`` names; ``(sum of the batches'
+        mean losses on the device, batches)``. The loss is fetched by the
+        caller, once an epoch."""
+        total = torch.zeros((), device=self.device)
+        n_batches = 0
+        for feats, lens, labels in self._batches(ds, order):
+            total += self.train_step(feats, lens, labels, pos_weight)
+            n_batches += 1
+        return total, n_batches
+
+    # -- loop ---------------------------------------------------------------
+    def fit(self, train_ds: ArrayDataset, dev_ds: ArrayDataset, ckpt_path: str | None = None) -> dict:
+        """Train for ``epochs`` (``patience`` ends it early); write
+        :meth:`eval_variables` to ``ckpt_path`` on every strictly lower
+        dev EER. Returns ``{best_eer, history}``."""
+        from dfac_tpu_torch.train.checkpoint import save_checkpoint
+        from dfac_tpu_torch.utils.convert import jax_from_state_dict
+
+        cfg = self.cfg
+        rng = np.random.default_rng(cfg.seed)
+        labels = np.asarray(train_ds.labels)
+        pos_weight, w0, w1 = compute_class_weights(labels)
+        sample_p = np.where(labels == 1, w1, w0).astype(np.float64)
+        sample_p /= sample_p.sum()
+        if self.model is None:
+            self.init_state()
+        n = len(train_ds)
+        # inf, not 1.0: epoch 1 always counts as an improvement (and saves)
+        best_eer, bad, history = float("inf"), 0, []
+        for epoch in range(1, cfg.epochs + 1):
+            # weighted sampling with replacement, num_samples = N (reference)
+            order = rng.choice(n, size=n, replace=True, p=sample_p)
+            total, n_batches = self.train_epoch(train_ds, order, pos_weight)
+            dev_eer, _ = eer_device(self.scores(dev_ds), dev_ds.labels)
+            history.append({"epoch": epoch, "train_loss": float(total) / max(n_batches, 1), "dev_eer": dev_eer})
+            if dev_eer < best_eer:
+                best_eer, bad = dev_eer, 0
+                if ckpt_path:
+                    save_checkpoint(ckpt_path, jax_from_state_dict(self.eval_variables(), "detector"), epoch=epoch,
+                                    config=dataclasses.asdict(cfg))
+            else:
+                bad += 1
+                if bad >= cfg.patience:
+                    break
+        return {"best_eer": best_eer, "history": history}
+
+
+def detector_scores(
+    model: torch.nn.Module,
+    ds: ArrayDataset,
+    lengths: np.ndarray,
+    batch_size: int = 128,
+    apply_sigmoid: bool = False,
+) -> np.ndarray:
+    """Per-utterance logits (or sigmoid scores) of the eval model on its
+    device, convs in full f32; (N,) float32 in dataset order. Padded
+    batches (pad rows of length 1, dropped by the weight mask), f32 uploads
+    in a prefetch thread, one fetch at the end
+    (:func:`~dfac_tpu_torch.train.evaluate.collect_masked_scores`)."""
+    from dfac_tpu_torch.models.fast_infer import ingest
+    from dfac_tpu_torch.train.evaluate import collect_masked_scores, model_device
+
+    device = model_device(model)
+    lengths = np.asarray(lengths)
+
+    def prepare(b):
+        lens = np.where(b.index >= 0, lengths[np.maximum(b.index, 0)], 1)
+        return ingest(b.features, torch.float32, device), torch.from_numpy(lens).to(device)
+
+    def score(batch):
+        feats, lens = batch
+        logits = model(feats.transpose(1, 2), lens)
+        return torch.sigmoid(logits) if apply_sigmoid else logits
+
+    was_training = model.training
+    model.eval()
+    with torch.inference_mode(), f32_convs():
+        out = collect_masked_scores(score, ds, batch_size, prepare_batch=prepare)
+    model.train(was_training)
+    return out

@@ -87,6 +87,60 @@ class TrainConfig:
             raise ValueError("label_smoothing must be in [0, 0.5)")
 
 
+def resident_arrays(ds: ArrayDataset, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ds``'s features and labels (zeros where it has none) as f32 on ``device``."""
+    labels = ds.labels if ds.labels is not None else np.zeros(len(ds))
+    return (torch.as_tensor(np.asarray(ds.features, np.float32), device=device),
+            torch.as_tensor(np.asarray(labels, np.float32), device=device))
+
+
+def shuffled_batches(ds: ArrayDataset, batch_size: int, seed: int, device: torch.device, resident=None):
+    """An epoch's true-size ``(features, labels, weights)`` batches on
+    ``device`` in the order ``np.random.default_rng(seed).shuffle`` of the
+    row ids: gathered on the card from ``resident`` (:func:`resident_arrays`
+    of ``ds``), or gathered on the host and uploaded (pinned,
+    ``non_blocking``) by the prefetch thread."""
+    if resident is not None:
+        feats_all, labels_all = resident
+        order = np.arange(len(ds))
+        np.random.default_rng(seed).shuffle(order)
+        order = torch.from_numpy(order).to(device)
+        ones = torch.ones(batch_size, device=device)
+        for start in range(0, len(ds), batch_size):
+            idx = order[start : start + batch_size]
+            yield feats_all.index_select(0, idx), labels_all.index_select(0, idx), ones[: len(idx)]
+        return
+    from dfac_tpu_torch.models.fast_infer import ingest
+
+    host = (
+        tuple(ingest(a, torch.float32, device) for a in (b.features, b.labels, b.weights))
+        for b in batch_iterator(ds, batch_size, shuffle=True, seed=seed, pad_tail=False)
+    )
+    yield from prefetched(host, depth=2)
+
+
+def run_epoch(step, batches, device: torch.device, batch_ctx=None) -> float | None:
+    """``step(features, labels, weights) -> (loss * count, count)`` over
+    ``batches``; the weighted mean loss, or None for no rows. The sums stay
+    on the device and are fetched once, unless a live display asks for
+    batch updates (a float per step would sync the card every batch)."""
+    live_ui = batch_ctx is not None and getattr(batch_ctx, "wants_updates", True)
+    total_loss = torch.zeros((), device=device)
+    total_count = torch.zeros((), device=device)
+    for i, (feats, labels, weights) in enumerate(batches):
+        loss_sum, count = step(feats, labels, weights)
+        total_loss += loss_sum
+        total_count += count
+        if live_ui:
+            tc = float(total_count)
+            if tc > 0:
+                batch_ctx.update_batch(
+                    BatchMetrics(batch_idx=i, running_loss=float(total_loss) / tc, batch_size=int(count))
+                )
+    tc = float(total_count)
+    return (float(total_loss) / tc) if tc else None
+
+
 def _model_kwargs(cfg: TrainConfig) -> dict:
     """The constructor overrides the JAX trainer passes every family
     (``dfac_tpu/train/loop.py:145-154``); :func:`build_model` keeps those
@@ -193,59 +247,16 @@ class Trainer:
         self.optimizer.step()
         return loss.detach() * count, count
 
-    def _host_batches(self, ds: ArrayDataset, seed: int):
-        """Shuffled true-size batches, gathered and uploaded (pinned,
-        ``non_blocking``) by the prefetch thread."""
-        from dfac_tpu_torch.models.fast_infer import ingest
-
-        for b in batch_iterator(ds, self.cfg.batch_size, shuffle=True, seed=seed, pad_tail=False):
-            yield tuple(ingest(a, torch.float32, self.device) for a in (b.features, b.labels, b.weights))
-
     def _resident_arrays(self, ds: ArrayDataset):
         if self._resident is None or self._resident[0] is not ds:
-            labels = ds.labels if ds.labels is not None else np.zeros(len(ds))
-            self._resident = (
-                ds,
-                torch.as_tensor(np.asarray(ds.features, np.float32), device=self.device),
-                torch.as_tensor(np.asarray(labels, np.float32), device=self.device),
-            )
-        return self._resident[1], self._resident[2]
-
-    def _resident_batches(self, ds: ArrayDataset, seed: int):
-        """The same order as :meth:`_host_batches`, gathered on the card."""
-        feats_all, labels_all = self._resident_arrays(ds)
-        order = np.arange(len(ds))
-        np.random.default_rng(seed).shuffle(order)
-        order = torch.from_numpy(order).to(self.device)
-        ones = torch.ones(self.cfg.batch_size, device=self.device)
-        for start in range(0, len(ds), self.cfg.batch_size):
-            idx = order[start : start + self.cfg.batch_size]
-            yield feats_all.index_select(0, idx), labels_all.index_select(0, idx), ones[: len(idx)]
+            self._resident = (ds, *resident_arrays(ds, self.device))
+        return self._resident[1:]
 
     def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
         cfg = self.cfg
-        seed = cfg.seed * 100003 + epoch
-        # a float per step would sync the card every batch: only a live
-        # progress display pays that
-        live_ui = batch_ctx is not None and getattr(batch_ctx, "wants_updates", True)
-        total_loss = torch.zeros((), device=self.device)
-        total_count = torch.zeros((), device=self.device)
-        batches = (
-            self._resident_batches(ds, seed) if cfg.device_resident
-            else prefetched(self._host_batches(ds, seed), depth=2)
-        )
-        for i, (feats, labels, weights) in enumerate(batches):
-            loss_sum, count = self.train_step(feats, labels, weights)
-            total_loss += loss_sum
-            total_count += count
-            if live_ui:
-                tc = float(total_count)
-                if tc > 0:
-                    batch_ctx.update_batch(
-                        BatchMetrics(batch_idx=i, running_loss=float(total_loss) / tc, batch_size=int(count))
-                    )
-        tc = float(total_count)
-        return (float(total_loss) / tc) if tc else None
+        resident = self._resident_arrays(ds) if cfg.device_resident else None
+        batches = shuffled_batches(ds, cfg.batch_size, cfg.seed * 100003 + epoch, self.device, resident)
+        return run_epoch(self.train_step, batches, self.device, batch_ctx)
 
     # -- evaluation -------------------------------------------------------
     def evaluate(self, dev_ds: ArrayDataset) -> dict:

@@ -1,15 +1,17 @@
 """Training throughput on the card: the helpers ``chip_smoke.py``'s
-training phase times the trainer with.
+training phases (15 and 17) time the trainers with.
 
 * :func:`synthetic_dataset`: a labeled corpus from a seed whose classes
   overlap (dev EER well above 0), at any geometry;
-* :func:`epoch_seconds`: host seconds of whole epochs of
-  :meth:`~dfac_tpu_torch.train.loop.Trainer.train_epoch` (each ends in a
-  fetch of the epoch's loss, so the card has finished), after a warm-up;
-* :func:`profile_epoch`: one epoch under ``torch.profiler``: device time
-  per step, the largest device items, and the kernels under the forward
-  and backward of the convolution whose input has a given shape (conv1's:
-  ``(B, 1, T, F)``).
+* :func:`epoch_seconds`: host seconds of whole epochs of a trainer's
+  ``train_epoch(ds, epoch)`` (:class:`~dfac_tpu_torch.train.loop.Trainer`,
+  :class:`~dfac_tpu_torch.train.cae_loop.CAETrainer`; each ends in a fetch
+  of the epoch's loss, so the card has finished), after a warm-up;
+  :func:`run_seconds` of any such run;
+* :func:`profile_epoch` (:func:`profile_run`): one epoch under
+  ``torch.profiler``: device time per step, the largest device items, and
+  the kernels under the forward and backward of the convolution whose
+  input has a given shape (conv1's: ``(B, 1, T, F)``).
 
 There is no command line; on the CPU the profiler records no device time
 and every helper still runs (the tests rehearse them).
@@ -43,11 +45,18 @@ def synthetic_dataset(n: int, in_features: int, frames: int, seed: int):
 def epoch_seconds(trainer, ds, reps: int = REPS, first_epoch: int = 1) -> list[float]:
     """Host seconds of ``reps`` epochs after one warm-up epoch (epochs
     numbered from ``first_epoch``, so each has its own shuffle)."""
-    trainer.train_epoch(ds, first_epoch)
+    return run_seconds(lambda i: trainer.train_epoch(ds, first_epoch + i), reps)
+
+
+def run_seconds(run, reps: int = REPS) -> list[float]:
+    """Host seconds of ``run(1)`` .. ``run(reps)`` after a warm-up
+    ``run(0)``; each run must end in a fetch from the device (an epoch's
+    loss), so that the card has finished when the clock stops."""
+    run(0)
     out = []
     for r in range(reps):
         t0 = time.perf_counter()
-        trainer.train_epoch(ds, first_epoch + 1 + r)
+        run(1 + r)
         out.append(time.perf_counter() - t0)
     return out
 
@@ -91,17 +100,24 @@ def profile_epoch(trainer, ds, epoch: int, conv_input_shape) -> dict:
     ``conv`` (:func:`conv_kernels` of ``conv_input_shape``, in ms per step);
     plus ``steps`` and ``wall_ms`` (the profiled epoch's host time per step,
     the profiler's own host work included)."""
+    steps = -(-len(ds) // trainer.cfg.batch_size)
+    return profile_run(lambda: trainer.train_epoch(ds, epoch), trainer.device, steps, conv_input_shape)
+
+
+def profile_run(run, device, steps: int, conv_input_shape) -> dict:
+    """:func:`profile_epoch` of any ``run()`` of ``steps`` train steps on
+    ``device`` (the detector's epochs take a drawn order, not an epoch
+    number)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dfac_tpu_torch.profiling import device_us
 
-    cuda = trainer.device.type == "cuda"
-    steps = -(-len(ds) // trainer.cfg.batch_size)
+    cuda = device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     t0 = time.perf_counter()
     with profile(activities=activities, record_shapes=True) as prof:
-        trainer.train_epoch(ds, epoch)
+        run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = sorted(
         ((e.key, e.count, device_us(e)) for e in prof.key_averages() if e.device_type == DeviceType.CUDA),

@@ -33,7 +33,7 @@ def _blocks(prefix: str, kind: str, pairs, conv: str, bn: str) -> list:
 _CLASSIFIER = [("classifier", "linear", ("classifier", "dense"))]
 # (torch prefix, kind, JAX path) per family, in the torch module's order: the
 # reference state_dicts' Sequential indices (the JAX package's torch_import
-# tables, dfac_tpu/utils/torch_import.py:71-86)
+# tables, dfac_tpu/utils/torch_import.py:71-92)
 _MAPPINGS = {
     "cnn2d": _blocks("conv", "conv2d", [(0, 1), (5, 6), (10, 11)], "conv", "bn") + _CLASSIFIER,
     "cnn1d": _blocks("conv", "conv1d", [(0, 1), (4, 5), (8, 9)], "conv", "bn") + _CLASSIFIER,
@@ -44,6 +44,8 @@ _MAPPINGS = {
         for entry in [(f"decoder.{ti}", "convt2d", (f"dec_convt{i}",))]
         + ([(f"decoder.{ti + 1}", "bn", (f"dec_bn{i}",))] if i < 4 else [])  # the last block has no BN
     ],
+    "detector": _blocks("enc.net", "conv1d", [(0, 1), (4, 5), (8, 9)], "enc_conv", "enc_bn")
+    + [("head.0", "linear", ("head_fc1", "dense")), ("head.3", "linear", ("head_fc2", "dense"))],
 }
 
 # torch parameter suffix -> JAX leaf path under the entry's path, per kind

@@ -114,6 +114,6 @@ def test_fused_scores_match_jax_pallas_bf16():
 
 def test_build_model_names_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild("detector")
+        tbuild("statspool_mlp")  # the zoo stays unported
     model = tbuild("cnn2d", in_features=F_, base_channels=BC, hidden_dim=7)  # unknown override ignored
     assert model.classifier.in_features == 4 * BC * F_

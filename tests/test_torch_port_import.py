@@ -26,6 +26,8 @@ EXPECTED = {
     "dfac_tpu_torch.train.cae_loop", "dfac_tpu_torch.ensemble.hybrid", "dfac_tpu_torch.ensemble.mean",
     "dfac_tpu_torch.io.submission", "dfac_tpu_torch.cli.evaluate_cae", "dfac_tpu_torch.cli.predict_hybrid",
     "dfac_tpu_torch.cli.hybrid_ensemble", "dfac_tpu_torch.cli.ensemble", "dfac_tpu_torch.cli.generate_submission",
+    "dfac_tpu_torch.models.detector", "dfac_tpu_torch.train.detector_loop", "dfac_tpu_torch.cli.train_detector",
+    "dfac_tpu_torch.obs.cae_dashboard", "dfac_tpu_torch.cli.train_cae",
 }
 
 _PROBE = """
