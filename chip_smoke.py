@@ -145,6 +145,32 @@ line:
             (median of 7 epochs of 8 / 4 steps, with min and max; no kernel
             of the port launched), and one profiled B=512 resident epoch of
             each (device ms a step, busy share, the largest items)
+18. zoo     every other model ``train`` accepts, bf16 training and the
+            model-sweep CLIs at full width (the JAX defaults: the MLPs'
+            hidden 128, the archived CNN1Ds 128/128/256, CNN2DSpatial and
+            the CRNNs base 32 with a GRU of 128, CNN2DRobust base 64;
+            torch's init from a seed; synthetic train / dev / test2 splits of
+            256 / 128 / 128 utterances): fourteen CLIs at once, ``python -m
+            dfac_tpu_torch.cli.train --no-rich`` for each of the 8 zoo
+            models and ``--bf16`` for CNN2D and CNN1D (2 epochs at B=32: exit
+            0, both checkpoints, each epoch's loss finite), ``train_detector
+            --bf16``, ``compare_kernels --epochs 1`` (CNN1DVariant under the
+            four default experiments: its table, its checkpoints' metadata),
+            ``compare_normalization --epochs 1`` (its table) and ``benchmark
+            --models cnn2d,crnn+specaug --seeds 0,1 --epochs 1`` (its three
+            CSVs, its report, its plots where matplotlib is installed); then
+            ``ensemble`` over the 11 trained checkpoints (the 8 zoo models,
+            CNN1DVariant k5-3-3, CNN2D and CNN1D bf16) against each model's
+            ``evaluate_classifier`` in process (each EER, the mean within
+            1e-6) and ``predict --bf16`` against ``predict --fast --bf16`` on
+            the bf16-trained CNN2D (2e-2); then ms per train step, f32 and
+            device-resident, of each zoo model at B=32 and at B=512 or the
+            largest power of two that fits (median of 7 epochs of 4 / 2
+            steps, with min and max, every epoch's loss finite), f32 against
+            bf16 at B=512 for CNN2D, CNN1D and the detector, one profile of
+            the bf16 CNN2D step and one of the slowest zoo step (the
+            in-process runs launch no kernel of the port; ``predict --fast
+            --bf16`` runs K2 in its own process)
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -237,6 +263,13 @@ ALT_UTTS = {"train": 512, "dev": 128, "test2": 128}  # the CLI runs' corpus, in 
 ALT_MIN_FRAMES = 160  # the detector corpus's utterances hold 160..321 valid frames
 DETECTOR_HIDDEN, CAE_BASE = 256, 32  # the reference's widths
 DETECTOR_BF16_ATOL = 2e-2  # logits of the bf16 folded chain against the f32 eval model
+# the zoo's phase (18)
+ZOO = ("meanpool_mlp", "statspool_mlp", "cnn1d_spatial", "cnn1d_archive", "cnn2d_spatial", "crnn", "crnn2",
+       "cnn2d_robust")  # the archived zoo at the JAX defaults' widths; cnn1d_variant trains under compare_kernels
+ZOO_UTTS = {"train": 256, "dev": 128, "test2": 128}  # the CLI runs' corpus
+ZOO_STEPS = {TRAIN_BATCH: 4, TRAIN_BIG_BATCH: 2}  # steps per timed epoch of each zoo model
+ENSEMBLE_ATOL = 1e-6  # the ensemble CLI's mean against the in-process evaluate_classifier scores: same f32 model,
+# same batch shape (cuDNN's choice of algorithm repeats), so only the host-side mean's order may differ
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
                  "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
@@ -427,6 +460,11 @@ def run_all(commands: dict, env) -> dict:
     return {k: out for k, (out, _) in outs.items()}
 
 
+def epoch_losses(out: str) -> list[float]:
+    """The train losses of the train CLI's ``--no-rich`` epoch lines (the tqdm display)."""
+    return [float(m.group(1)) for m in re.finditer(r"^Epoch \d+: train_loss=(\S+)", out, re.M)]
+
+
 def train_phase(dev, card: str) -> None:
     """Phase 15: the training path at full width (see the module docstring)."""
     import contextlib
@@ -489,7 +527,7 @@ def train_phase(dev, card: str) -> None:
         ck = os.path.join(tmp, "ck")
         base = [*cli, "dfac_tpu_torch.cli.train", "--train-features", tf, "--train-labels", tl, "--dev-features", df,
                 "--dev-labels", dl, "--batch-size", str(TRAIN_BATCH), "--epochs", "2", "--checkpoint-dir", ck,
-                "--seed", str(SEED), "--in-features", str(features), "--device", dev.type, *RECIPE]
+                "--seed", str(SEED), "--in-features", str(features), "--device", dev.type, "--no-rich", *RECIPE]
         t0 = time.perf_counter()
         outs = run_all({"host-fed": base + ["--run-name", "host"],
                         "device-resident": base + ["--run-name", "resident", "--device-resident"],
@@ -505,7 +543,7 @@ def train_phase(dev, card: str) -> None:
         for label, out in outs.items():
             for line in out.strip().splitlines():
                 phase("train", f"cli {label}: {line}")
-            losses = [float(m.group(1)) for m in re.finditer(r"^epoch \d+: train_loss (\S+)", out, re.M)]
+            losses = epoch_losses(out)
             require(len(losses) == 2 and losses[1] < losses[0], f"{label}: epoch train losses {losses}")
             run_dir = os.path.join(ck, "host" if label == "host-fed" else "resident")
             for kind in ("best", "last"):
@@ -974,6 +1012,241 @@ def alt_trainers_phase(dev, card: str) -> None:
     trained = _build.launch_counts()
     require(not any(trained.values()), f"the alternative trainers launched kernels of the port: {trained}")
     phase("alt-trainers", f"launches over the timed training runs: {trained} (cuDNN and cuBLAS only)")
+
+
+def largest_batch(make_trainer, ds_for, start: int) -> tuple[int, list[str]]:
+    """The largest power of two up to ``start`` at which one train step of
+    ``make_trainer(b)`` fits in the card's memory, and the batches that did
+    not fit (an ``OutOfMemoryError`` at one of them is the finding, not a
+    failure)."""
+    import torch
+
+    b, refused = start, []
+    while True:
+        trainer = make_trainer(b)
+        try:
+            trainer.train_epoch(ds_for(b, 1), 0)
+            return b, refused
+        except torch.cuda.OutOfMemoryError:
+            refused.append(str(b))
+            b //= 2
+            require(b >= TRAIN_BATCH, f"not even B={2 * b} fits")
+        finally:
+            del trainer
+            torch.cuda.empty_cache()
+
+
+def zoo_phase(dev, card: str) -> None:
+    """Phase 18: the zoo, CNN1DVariant, bf16 training and the sweep CLIs at full width (see the module docstring)."""
+    import pandas as pd
+    import torch
+
+    from dfac_tpu_torch.data.pipeline import load_dataset
+    from dfac_tpu_torch.models import model_from_state_dict
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.ops.eer import calculate_eer
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train import loop as train_loop
+    from dfac_tpu_torch.train.checkpoint import load_checkpoint, load_model_variables
+    from dfac_tpu_torch.train.detector_loop import DetectorConfig, DetectorTrainer, compute_class_weights
+    from dfac_tpu_torch.train.evaluate import evaluate_classifier
+
+    features = TRAIN_FEATURES
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m"]
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_zoo_") as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        paths = {name: write_split(data, name, alt_dataset(n, 50 + i) if name == "test2" else
+                                   rates.synthetic_dataset(n, features, N_FRAMES, 50 + i))
+                 for i, (name, n) in enumerate(ZOO_UTTS.items())}
+        split = ["--train-features", paths["train"][0], "--train-labels", paths["train"][1], "--dev-features",
+                 paths["dev"][0], "--dev-labels", paths["dev"][1], "--batch-size", str(TRAIN_BATCH), "--seed",
+                 str(SEED), "--in-features", str(features), "--device", dev.type]
+        train = [*cli, "dfac_tpu_torch.cli.train", *split, "--epochs", "2", "--no-rich"]
+        commands = {f"train --model {m}": train + ["--model", m, "--checkpoint-dir", os.path.join(ck, m)] for m in ZOO}
+        for m in ("cnn2d", "cnn1d"):
+            commands[f"train --model {m} --bf16"] = train + ["--model", m, "--bf16", "--checkpoint-dir",
+                                                             os.path.join(ck, f"{m}_bf16")]
+        commands["train_detector --bf16"] = [
+            *cli, "dfac_tpu_torch.cli.train_detector", "--data-dir", data, "--epochs", "2", "--batch-size",
+            str(TRAIN_BATCH), "--hidden", str(DETECTOR_HIDDEN), "--bf16", "--ckpt-path", os.path.join(ck, "det.ckpt"),
+            "--prediction-pkl", os.path.join(tmp, "det.pkl"), "--device", dev.type]
+        commands["compare_kernels --epochs 1"] = [*cli, "dfac_tpu_torch.cli.compare_kernels", *split, "--epochs", "1",
+                                                  "--checkpoint-dir", os.path.join(ck, "kernels")]
+        commands["compare_normalization --epochs 1"] = [*cli, "dfac_tpu_torch.cli.compare_normalization", *split,
+                                                        "--epochs", "1"]
+        bench = os.path.join(tmp, "bench")
+        commands["benchmark"] = [*cli, "dfac_tpu_torch.cli.benchmark", *split, "--models", "cnn2d,crnn+specaug",
+                                 "--seeds", "0,1", "--epochs", "1", "--output-dir", bench]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_all(commands, env)
+        phase("zoo", f"{len(commands)} CLIs (concurrent: train x{len(ZOO) + 2}, train_detector --bf16, "
+                     f"compare_kernels, compare_normalization, benchmark; {ZOO_UTTS['train']} / {ZOO_UTTS['dev']} "
+                     f"utterances, B={TRAIN_BATCH}): {time.perf_counter() - t0:.1f}s")
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("zoo", f"cli {label}: {line}")
+        ckpts = {}
+        for m in (*ZOO, "cnn2d_bf16", "cnn1d_bf16"):
+            label = f"train --model {m.replace('_bf16', ' --bf16')}"
+            losses = epoch_losses(outs[label])
+            require(len(losses) == 2 and all(np.isfinite(losses)), f"{label}: epoch losses {losses}")
+            ckpts[m] = os.path.join(ck, m, f"{m.replace('_bf16', '')}_best.ckpt")
+            for kind in ("best", "last"):
+                require(os.path.exists(ckpts[m].replace("_best", f"_{kind}")), f"{label}: no {kind} checkpoint")
+        out = outs["train_detector --bf16"]
+        require(re.search(r"^Training done\. Best dev EER: ", out, re.M) and
+                re.search(r"^EER on split 'test2': ", out, re.M), "train_detector --bf16: lines")
+        require(np.isfinite(pd.read_pickle(os.path.join(tmp, "det.pkl"))["predictions"]).all(), "detector bf16: pred")
+        kernel_rows = re.findall(r"^\[(k\d-\d-\d_\w+)\] best dev EER = (\S+)$", outs["compare_kernels --epochs 1"], re.M)
+        require(len(kernel_rows) == 4, f"compare_kernels: rows {kernel_rows}")
+        for label, _ in kernel_rows:
+            cfg = load_checkpoint(os.path.join(ck, "kernels", f"{label}.ckpt"))["config"]
+            require(cfg["model"] == "cnn1d_variant" and label == f"k{'-'.join(map(str, cfg['kernel_sizes']))}_"
+                    f"{cfg['normalization']}", f"compare_kernels: {label}'s metadata {cfg}")
+        norm_rows = re.findall(r"^(raw|cmn|cvmn) +(\S+)$", outs["compare_normalization --epochs 1"], re.M)
+        require([r[0] for r in norm_rows] == ["raw", "cmn", "cvmn"], f"compare_normalization: table {norm_rows}")
+        runs = pd.read_csv(os.path.join(bench, "model_runs.csv"))
+        require(runs[["model", "seed"]].values.tolist() == [["cnn2d", 0], ["cnn2d", 1], ["crnn+specaug", 0],
+                                                            ["crnn+specaug", 1]], f"benchmark runs {runs}")
+        for name in ("model_epochs.csv", "model_ranking.csv", "benchmark_report.md"):
+            require(os.path.exists(os.path.join(bench, name)), f"benchmark: no {name}")
+        plots = sorted(os.path.relpath(os.path.join(d, f), bench) for d, _, fs in os.walk(bench) for f in fs
+                       if f.endswith(".png"))
+        phase("zoo", f"benchmark: model_runs.csv {len(runs)} rows, best dev EERs {runs['best_dev_eer'].tolist()}; "
+                     f"model_epochs.csv, model_ranking.csv, benchmark_report.md; plots: {plots or 'none (matplotlib'
+                     ' is not installed here: the harness skips them, as the JAX one does)'}")
+
+        # -- the checkpoints through ensemble, against evaluate_classifier in process; predict --bf16 plain vs --fast
+        ckpts["cnn1d_variant"] = os.path.join(ck, "kernels", "k5-3-3_raw.ckpt")
+        specs = {m: f"{'cnn2d' if m == 'cnn2d_bf16' else 'cnn1d' if m == 'cnn1d_bf16' else m}:{c}"
+                 for m, c in ckpts.items()}
+        preds = {k: os.path.join(tmp, f"{k}.pkl") for k in ("ensemble", "plain", "fast")}
+        predict = [*cli, "dfac_tpu_torch.cli.predict", "--features", paths["dev"][0], "--checkpoint",
+                   ckpts["cnn2d_bf16"], "--model", "cnn2d", "--bf16", "--batch-size", str(BATCH), "--device", dev.type]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_all({
+            "ensemble": [*cli, "dfac_tpu_torch.cli.ensemble", "--features", paths["dev"][0], "--labels",
+                         paths["dev"][1], "--checkpoints", *specs.values(), "--out", preds["ensemble"],
+                         "--device", dev.type],
+            "predict --bf16": predict + ["--out", preds["plain"]],
+            "predict --fast --bf16": predict + ["--out", preds["fast"], "--fast"],
+        }, env)
+        phase("zoo", f"ensemble of {len(specs)} checkpoints and predict --bf16 with and without --fast (concurrent): "
+                     f"{time.perf_counter() - t0:.1f}s")
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("zoo", f"cli {label}: {line}")
+        dev_ds = load_dataset(*paths["dev"])
+        in_process = []
+        for m, spec in specs.items():
+            arch = spec.split(":")[0]
+            model = model_from_state_dict(arch, load_model_variables(ckpts[m], model_name=arch)).to(dev)
+            _, scores, _ = evaluate_classifier(model, dev_ds, batch_size=BATCH, apply_sigmoid=True)
+            eer = calculate_eer(scores, dev_ds.labels)[0]
+            require(f"{spec}: EER={eer:.6f} " in outs["ensemble"], f"ensemble: {spec}'s EER, in process {eer}")
+            in_process.append(scores)
+            del model
+        d_ens = float(np.abs(np.mean(in_process, axis=0) - pd.read_pickle(preds["ensemble"])["predictions"]).max())
+        p16 = {k: pd.read_pickle(preds[k])["predictions"].to_numpy() for k in ("plain", "fast")}
+        d16 = float(np.abs(p16["plain"] - p16["fast"]).max())
+        phase("zoo", f"ensemble of the {len(specs)} trained checkpoints (8 zoo, CNN1DVariant k5-3-3, CNN2D and CNN1D "
+                     f"bf16): each EER as in process, the mean vs evaluate_classifier's in process max abs "
+                     f"{d_ens:.3e} (tolerance {ENSEMBLE_ATOL}); predict --bf16 vs predict --fast --bf16 on the "
+                     f"bf16-trained CNN2D max abs {d16:.3e} (tolerance {SCORE_ATOL})")
+        require(d_ens <= ENSEMBLE_ATOL and d16 <= SCORE_ATOL, "the ensemble or the bf16 chains disagree")
+
+    # -- ms per step and utt/s, f32, device-resident: each zoo model at B=32 and B=512 (or the largest that fits)
+    def zoo_trainer(name, b, dtype=None):
+        cfg = train_loop.TrainConfig(model=name, batch_size=b, in_features=features, seed=SEED, device_resident=True,
+                                     compute_dtype=dtype)
+        trainer = train_loop.Trainer(cfg, device=dev)
+        trainer.init_state()
+        return trainer
+
+    def steps_ds(b, steps):
+        return rates.synthetic_dataset(b * steps, features, N_FRAMES, 60)
+
+    def timed(label, trainer, ds, steps, run=None):
+        """Median ms a step over ``rates.run_seconds``' epochs; every epoch's loss must be finite."""
+        losses = []
+
+        def epoch(i):
+            losses.append(float(run(i) if run else trainer.train_epoch(ds, 1 + i)))
+
+        ms = [1e3 * t / steps for t in rates.run_seconds(epoch)]
+        utt = [trainer.cfg.batch_size * 1e3 / t for t in ms]
+        require(all(np.isfinite(losses)), f"{label}: epoch losses {losses}")
+        phase("zoo", f"{label}: {statistics.median(ms):.4f} ms a step (median of {len(ms)} epochs of {steps} steps; "
+                     f"min {min(ms):.4f}, max {max(ms):.4f}), {statistics.median(utt):.1f} utt/s, epoch losses "
+                     f"finite, on {card}")
+        return statistics.median(ms)
+
+    slowest = (0.0, None, None, None)
+    for name in ZOO:
+        for b, steps in ZOO_STEPS.items():
+            if b == TRAIN_BIG_BATCH:
+                b, refused = largest_batch(lambda bb: zoo_trainer(name, bb), lambda bb, n: steps_ds(bb, n), b)
+                if refused:
+                    phase("zoo", f"{name}: B={', '.join(refused)} does not fit in the card's memory "
+                                 f"(OutOfMemoryError); timed at B={b}, the largest power of two that fits")
+            trainer = zoo_trainer(name, b)
+            ms = timed(f"{name} train step B={b} f32 device-resident", trainer, steps_ds(b, steps), steps)
+            if steps == ZOO_STEPS[TRAIN_BIG_BATCH] and ms * TRAIN_BIG_BATCH / b > slowest[0]:
+                slowest = (ms * TRAIN_BIG_BATCH / b, name, b, ms)
+            del trainer
+            torch.cuda.empty_cache()
+
+    # -- bf16 against f32 at B=512: CNN2D, CNN1D, the detector; every epoch's loss finite
+    b, steps = TRAIN_BIG_BATCH, ZOO_STEPS[TRAIN_BIG_BATCH]
+    ds = steps_ds(b, steps)
+    for name in ("cnn2d", "cnn1d"):
+        for dtype in (None, "bfloat16"):
+            trainer = zoo_trainer(name, b, dtype)
+            ms = timed(f"{name} train step B={b} {dtype or 'float32'} device-resident", trainer, ds, steps)
+            if name == "cnn2d" and dtype:
+                zoo_profile("cnn2d bf16", b, ms, rates.profile_epoch(trainer, ds, 400, (b, 1, N_FRAMES, features)),
+                            card)
+            del trainer
+            torch.cuda.empty_cache()
+    det_ds = alt_dataset(b * steps, 61)
+    pos_weight = compute_class_weights(det_ds.labels)[0]
+    for dtype in (None, "bfloat16"):
+        trainer = DetectorTrainer(DetectorConfig(batch_size=b, hidden=DETECTOR_HIDDEN, ema=True, specaug=True,
+                                                 device_resident=True, compute_dtype=dtype),
+                                  in_channels=features, device=dev)
+        trainer.init_state()
+        orders = np.random.default_rng(SEED)
+        timed(f"detector train step B={b} {dtype or 'float32'} device-resident", trainer, det_ds, steps,
+              run=lambda i, trainer=trainer, orders=orders: trainer.train_epoch(
+                  det_ds, orders.choice(len(det_ds), len(det_ds)), pos_weight)[0])
+        del trainer
+        torch.cuda.empty_cache()
+
+    # -- one profile of the slowest zoo step
+    _, name, b, ms = slowest
+    trainer = zoo_trainer(name, b)
+    ds = steps_ds(b, ZOO_STEPS[TRAIN_BIG_BATCH])
+    trainer.train_epoch(ds, 0)
+    zoo_profile(name, b, ms, rates.profile_epoch(trainer, ds, 500, (b, 1, N_FRAMES, features)), card)
+    del trainer
+    trained = _build.launch_counts()
+    require(not any(trained.values()), f"the zoo and bf16 training launched kernels of the port: {trained}")
+    phase("zoo", f"launches over the timed training runs: {trained} (cuDNN and cuBLAS only)")
+
+
+def zoo_profile(label: str, b: int, step_ms: float, prof: dict, card: str) -> None:
+    """Phase 18's lines for one profiled epoch: device ms a step, the busy
+    share of the unprofiled step, the largest device items."""
+    share = (lambda t: t / prof["device_ms"]) if prof["device_ms"] else (lambda t: float("nan"))
+    phase("zoo", f"profile {label} B={b} device-resident: device {prof['device_ms']:.4f} ms a step, busy "
+                 f"{prof['device_ms'] / step_ms:.1%} of the {step_ms:.4f} ms step (profiled wall {prof['wall_ms']:.4f} "
+                 f"ms), on {card}")
+    for k_name, k_ms, n in prof["top"]:
+        phase("zoo", f"  {k_ms:8.4f} ms {share(k_ms):6.1%} {n:5.1f}x  {k_name[:110]}")
 
 
 def kernel_phases():
@@ -1776,6 +2049,9 @@ def main() -> int:
     # -- 17. the alternative trainers -------------------------------------------------
     torch.cuda.empty_cache()
     alt_trainers_phase(dev, card)
+    # -- 18. the zoo, bf16 training and the sweep CLIs ------------------------------
+    torch.cuda.empty_cache()
+    zoo_phase(dev, card)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

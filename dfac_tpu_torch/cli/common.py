@@ -81,14 +81,13 @@ def add_multihost_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--process-id", type=int, default=None, help="with --multihost")
 
 
-def refuse_unported_training(args, *extra: tuple[str, bool]) -> None:
+def refuse_unported_training(args) -> None:
     """Exit non-zero with "not yet ported" on the first set flag of a
     training path the training CLIs do not port yet (fused, chunked,
     data-parallel and multi-host fits, the BN freeze tail, orbax
-    checkpoints, profiler traces; ``extra``: ``(flag, is_set)`` pairs of
-    the CLI's own, checked first)."""
+    checkpoints, profiler traces)."""
     for flag, on in (
-        *extra, ("--fused-fit", args.fused_fit),
+        ("--fused-fit", args.fused_fit),
         ("--resident-chunk-batches", args.resident_chunk_batches > 0),
         ("--chunk-ingest", args.chunk_ingest != "f32"), ("--data-parallel", args.data_parallel > 1),
         ("--multihost", args.multihost), ("--bn-freeze-after", args.bn_freeze_after > 0),

@@ -4,16 +4,13 @@ Counterpart of ``dfac-ensemble`` (:mod:`dfac_tpu.cli.ensemble`), parity
 target reference ``src/ensemble.py``: N ``arch:path`` checkpoint specs, one
 unshuffled split, sigmoid scores per model from the f32 eval model, their
 mean, the EER of each and of the ensemble. The same flags and lines, with
-``--device`` (default ``cuda``, no implicit fallback). Architectures other
-than ``cnn2d`` and ``cnn1d`` exit non-zero with "not yet ported".
+``--device`` (default ``cuda``, no implicit fallback), for every
+architecture of the registry (the model's widths from its checkpoint).
 """
 
 from __future__ import annotations
 
 import argparse
-
-PORTED = ("cnn2d", "cnn1d")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate an ensemble of checkpoints by score averaging.")
@@ -37,8 +34,6 @@ def main(argv=None):
         arch, _, path = spec.partition(":")
         if not path:
             raise SystemExit(f"bad checkpoint spec '{spec}' (want arch:path)")
-        if arch not in PORTED:
-            raise SystemExit(f"{arch}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
         specs.append((arch, path))
 
     from dfac_tpu_torch.data.pipeline import load_dataset
@@ -49,7 +44,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     ds = load_dataset(args.features, args.labels)
-    per_model = score_checkpoints(specs, ds, args.batch_size, in_features=args.in_features, device=device)
+    per_model = score_checkpoints(specs, ds, args.batch_size, device=device)
     for name, scores in per_model.items():
         eer, thr = calculate_eer(scores, ds.labels)
         print(f"{name}: EER={eer:.6f} threshold={thr:.6f}")

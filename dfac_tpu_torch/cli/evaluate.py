@@ -73,7 +73,7 @@ def main(argv=None):
 
     from dfac_tpu_torch.data.pipeline import load_dataset
     from dfac_tpu_torch.device import resolve_device
-    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.train.checkpoint import load_model_variables
     from dfac_tpu_torch.train.evaluate import evaluate_classifier
 
@@ -82,9 +82,9 @@ def main(argv=None):
     # --no-check-uttid relaxes it to tolerate EXTRA labels (features
     # without labels always raise, see io/pickle_io.py align_labels)
     ds = load_dataset(args.features, args.labels, strict=args.check_uttid)
-    model = build_model(args.model, in_features=args.in_features, dropout=args.dropout,
-                        hidden_dim=args.hidden_dim)
-    model.load_state_dict(load_model_variables(args.checkpoint, model_name=args.model))
+    # the widths come from the checkpoint's weights (JAX's modules read them from the data)
+    model = model_from_state_dict(args.model, load_model_variables(args.checkpoint, model_name=args.model),
+                                  dropout=args.dropout)
     metrics, _, _ = evaluate_classifier(
         model.to(device), ds,
         batch_size=args.batch_size, swap_tf=args.swap_tf, apply_sigmoid=args.apply_sigmoid,

@@ -37,7 +37,7 @@ def main(argv=None):
     from dfac_tpu_torch.data.pipeline import load_dataset
     from dfac_tpu_torch.device import resolve_device
     from dfac_tpu_torch.ensemble.hybrid import sweep_alpha
-    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.ops.eer import calculate_eer
     from dfac_tpu_torch.train.cae_loop import cae_mse_scores
     from dfac_tpu_torch.train.checkpoint import load_model_variables
@@ -46,12 +46,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     ds = load_dataset(args.features, args.labels)
 
-    cnn = build_model(args.cnn_model, in_features=args.in_features)
-    cnn.load_state_dict(load_model_variables(args.cnn_checkpoint, model_name=args.cnn_model))
+    # the widths come from the weights
+    cnn = model_from_state_dict(args.cnn_model, load_model_variables(args.cnn_checkpoint, model_name=args.cnn_model))
     sup_scores = predict_scores(cnn.to(device), ds, args.batch_size, apply_sigmoid=True)
 
-    cae = build_model("cae", base_channels=args.base_channels)
-    cae.load_state_dict(load_model_variables(args.cae_checkpoint, model_name="cae"))
+    cae = model_from_state_dict("cae", load_model_variables(args.cae_checkpoint, model_name="cae"))
     normalizer = FeatureNormalizer.load(args.normalizer)
     cae_scores = cae_mse_scores(cae.to(device), ds, normalizer, args.batch_size)
 

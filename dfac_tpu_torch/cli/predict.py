@@ -8,9 +8,10 @@ reference ``.pt`` files.
 
 Ported for ``--model cnn2d`` and ``cnn1d``: ``--fast`` (the folded chain,
 f32 by default or ``--bf16``; CNN2D's through the fused kernels on CUDA,
-CNN1D's through cuDNN), the f32 eval model without ``--fast``, ``--device
-cuda|cpu``. The other flags of the JAX CLI, and ``--bf16`` without
-``--fast``, exit non-zero with "not yet ported".
+CNN1D's through cuDNN), the eval model without ``--fast`` (f32, or bf16
+layers with ``--bf16``, JAX ``cli/predict.py:95-104``), ``--device
+cuda|cpu``. The model's widths come from the checkpoint's weights. The
+other flags of the JAX CLI exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ def _not_yet_ported(args) -> str | None:
     for flag, on in (
         ("--int8", args.int8), ("--ingest-int8", args.ingest_int8),
         ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
-        ("--bf16 without --fast", args.bf16 and not args.fast),
     ):
         if on:
             return flag
@@ -70,14 +70,14 @@ def main(argv=None):
     from dfac_tpu_torch.device import resolve_device
     from dfac_tpu_torch.io.pickle_io import write_predictions
     from dfac_tpu_torch.io.prefetch import PrefetchStats
-    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.models.fast_infer import predict_scores_fast, predict_scores_fast_cnn1d
     from dfac_tpu_torch.train.checkpoint import load_model_variables
     from dfac_tpu_torch.train.evaluate import predict_scores
 
     device = resolve_device(args.device)
-    model = build_model(args.model, in_features=args.in_features, dropout=args.dropout)
-    model.load_state_dict(load_model_variables(args.checkpoint, model_name=args.model))
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state_dict = load_model_variables(args.checkpoint, model_name=args.model)
     ds = load_dataset(args.features)
 
     stats = PrefetchStats()
@@ -85,13 +85,15 @@ def main(argv=None):
     if args.fast:
         fast = predict_scores_fast if args.model == "cnn2d" else predict_scores_fast_cnn1d
         scores = fast(
-            model.state_dict(), ds, device,
+            state_dict, ds, device,
             batch_size=args.batch_size, swap_tf=args.swap_tf,
             apply_sigmoid=args.apply_sigmoid,
-            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            compute_dtype=dtype,
             stats=stats,
         )
     else:
+        model = model_from_state_dict(args.model, state_dict, dropout=args.dropout,
+                                      compute_dtype=dtype if args.bf16 else None)
         scores = predict_scores(
             model.to(device), ds, batch_size=args.batch_size, swap_tf=args.swap_tf,
             apply_sigmoid=args.apply_sigmoid, stats=stats,

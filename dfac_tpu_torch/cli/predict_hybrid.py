@@ -58,7 +58,7 @@ def main(argv=None):
     from dfac_tpu_torch.device import resolve_device
     from dfac_tpu_torch.ensemble.hybrid import compare_with_submission, fuse_scores, score_distribution_report
     from dfac_tpu_torch.io.pickle_io import load_predictions, write_predictions
-    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.train.checkpoint import load_model_variables
 
     device = resolve_device(args.device)
@@ -81,11 +81,9 @@ def main(argv=None):
         from dfac_tpu_torch.train.cae_loop import cae_mse_scores
         from dfac_tpu_torch.train.evaluate import predict_scores
 
-        cnn = build_model(args.cnn_model, in_features=args.in_features)
-        cnn.load_state_dict(cnn_sd)
+        cnn = model_from_state_dict(args.cnn_model, cnn_sd)  # widths from the weights
         sup = predict_scores(cnn.to(device), ds, args.batch_size, apply_sigmoid=True)
-        cae = build_model("cae", base_channels=args.base_channels)
-        cae.load_state_dict(cae_sd)
+        cae = model_from_state_dict("cae", cae_sd)
         cae_s = cae_mse_scores(cae.to(device), ds, normalizer, args.batch_size)
 
     hybrid = fuse_scores(sup, cae_s, alpha=args.alpha)

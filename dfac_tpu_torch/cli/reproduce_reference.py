@@ -5,7 +5,7 @@ checks the BASELINE contract.
 Counterpart of ``dfac-reproduce-reference``
 (:mod:`dfac_tpu.cli.reproduce_reference`): the same recipe, report and
 contract assertion, trained by the port on ``--device`` (default
-``cuda``, no implicit fallback). ``--bf16`` is not yet ported.
+``cuda``, no implicit fallback), in f32 or ``--bf16``.
 
 The reference's headline quality numbers come from its "Robust Training
 Recipe" (the reference's ``results/final_submission_report.md`` §2,
@@ -56,7 +56,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
     p.add_argument("--device-resident", action="store_true",
                    help="upload the corpus to the card once; gather batches there")
-    p.add_argument("--bf16", action="store_true", help="not yet ported")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (f32 parameters)")
     p.add_argument("--expect-dev-eer", type=float, default=REF_DEV_EER,
                    help="reference dev EER to check against (default: the "
                         "published robust-run value)")
@@ -68,9 +68,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.bf16:
-        raise SystemExit("--bf16: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
-
     from dfac_tpu_torch.data.augment import AugmentConfig
     from dfac_tpu_torch.data.pipeline import load_dataset
     from dfac_tpu_torch.io.pickle_io import write_predictions
@@ -103,6 +100,7 @@ def main(argv=None) -> int:
         label_smoothing=0.05,
         seed=args.seed,
         device_resident=args.device_resident,
+        compute_dtype="bfloat16" if args.bf16 else None,
         augment=AugmentConfig(
             spec_augment=True, time_mask_ratio=0.20,
             feature_mask=True, feature_mask_ratio=0.10,

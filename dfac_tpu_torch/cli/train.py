@@ -3,12 +3,13 @@
 Counterpart of ``dfac-train`` (:mod:`dfac_tpu.cli.train`), parity target
 reference ``src/train.py:94-246``: the same flags, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on the
-CPU). Trains CNN2D or CNN1D in f32 on one device, host-fed or
-``--device-resident``; ``--resume``, ``--run-name``, ``--quiet``,
-``--debug-augment-stats`` work. Progress is one plain line per epoch
-(``--no-rich`` selects the same display: the rich and tqdm visualizers
-are not ported). The flags of paths not ported yet exit non-zero with
-"not yet ported".
+CPU). Trains every ``--model`` choice on one device, in f32 or ``--bf16``
+(the families that take a compute dtype: CNN2D and CNN1D; the zoo trains
+in f32, as in JAX), host-fed or ``--device-resident``; ``--resume``,
+``--run-name``, ``--debug-augment-stats`` work. The display is the rich
+dashboard, ``--no-rich`` tqdm and ``--quiet`` none (the JAX CLI's
+``create_visualizer`` chain). The flags of paths not ported yet exit
+non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from dfac_tpu_torch.cli.common import (
     set_seed,
 )
 
-TRAINED_MODELS = ("cnn2d", "cnn1d")  # the families the port's Trainer trains
 MODELS = [
     "cnn2d", "cnn1d", "meanpool_mlp", "statspool_mlp", "cnn1d_spatial",
     "cnn1d_archive", "cnn2d_spatial", "crnn", "crnn2", "cnn2d_robust",
@@ -59,7 +59,7 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--run-name", default="",
                    help="optional subfolder under --checkpoint-dir for outputs")
-    p.add_argument("--no-rich", action="store_true", help="plain per-epoch lines (the only display ported)")
+    p.add_argument("--no-rich", action="store_true", help="tqdm bars instead of the rich dashboard")
     p.add_argument("--quiet", action="store_true", help="noop visualizer (CI)")
     p.add_argument("--seed", type=int, default=0)
     add_augment_args(p)
@@ -67,7 +67,7 @@ def parse_args(argv=None):
                    help="label smoothing epsilon in [0, 0.5)")
     p.add_argument("--debug-augment-stats", action="store_true",
                    help="print feature stats before/after augmentation on the first batch")
-    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (not yet ported)")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (f32 parameters)")
     p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
@@ -112,12 +112,11 @@ def _debug_augment_stats(augment_fn, feats_swapped, device) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported_training(args, (f"--model {args.model}", args.model not in TRAINED_MODELS), ("--bf16", args.bf16))
+    refuse_unported_training(args)
     set_seed(args.seed)
 
     from dfac_tpu_torch.data.pipeline import load_dataset
-    from dfac_tpu_torch.obs.lines import LineVisualizer
-    from dfac_tpu_torch.obs.noop import NoOpVisualizer
+    from dfac_tpu_torch.obs.factory import create_visualizer
     from dfac_tpu_torch.train.checkpoint import build_config_dict
     from dfac_tpu_torch.train.loop import TrainConfig, Trainer
 
@@ -148,9 +147,11 @@ def main(argv=None):
         label_smoothing=args.label_smoothing,
         swap_tf=args.swap_tf,
         augment=augment_config_from_args(args),
+        compute_dtype="bfloat16" if args.bf16 else None,
         device_resident=args.device_resident,
     )
-    trainer = Trainer(cfg, visualizer=NoOpVisualizer() if args.quiet else LineVisualizer(), device=args.device)
+    visualizer = create_visualizer("noop" if args.quiet else ("tqdm" if args.no_rich else "rich"))
+    trainer = Trainer(cfg, visualizer=visualizer, device=args.device)
 
     if args.debug_augment_stats:
         first = train_ds.features[: args.batch_size]

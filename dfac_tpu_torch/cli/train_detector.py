@@ -9,8 +9,9 @@ has labels. ``--epochs 0`` scores ``--ckpt-path`` without training;
 ``--fast`` scores through the folded chain (f32 by default, ``--bf16``
 for bf16 activations). The same flags and lines, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on
-the CPU). Trains in f32 on one device, host-fed or ``--device-resident``;
-``--bf16`` with training and the flags of other paths not ported yet exit
+the CPU). Trains on one device, in f32 or ``--bf16`` (the model in bf16,
+which then scores the test split without ``--fast``, as in JAX), host-fed
+or ``--device-resident``; the flags of other paths not ported yet exit
 non-zero with "not yet ported".
 """
 
@@ -53,7 +54,7 @@ def parse_args(argv=None):
     p.add_argument("--ema-decay", type=float, default=0.999)
     p.add_argument("--patience", type=int, default=6)
     p.add_argument("--bf16", action="store_true",
-                   help="with --fast and --epochs 0: the bf16 chain (bf16 training is not yet ported)")
+                   help="bfloat16 training; with --fast, the bf16 serving chain")
     p.add_argument("--fast", action="store_true",
                    help="score the test split through the folded-BN detector serving chain")
     p.add_argument("--device-resident", action="store_true",
@@ -71,14 +72,14 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported_training(args, ("--bf16 (training)", args.bf16 and args.epochs > 0))
+    refuse_unported_training(args)
 
     import torch
 
     from dfac_tpu_torch.data.pipeline import load_dataset
     from dfac_tpu_torch.device import resolve_device
     from dfac_tpu_torch.io.pickle_io import write_predictions
-    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.ops.eer import calculate_eer
     from dfac_tpu_torch.train.checkpoint import load_model_variables
     from dfac_tpu_torch.train.detector_loop import DetectorConfig, DetectorTrainer, dataset_lengths, detector_scores
@@ -91,7 +92,8 @@ def main(argv=None):
         specaug=args.specaug, time_mask_max=args.time_mask_max, time_mask_n=args.time_mask_n,
         freq_mask_max=args.freq_mask_max, freq_mask_n=args.freq_mask_n,
         ema=args.ema, ema_decay=args.ema_decay, patience=args.patience,
-        seed=args.seed, device_resident=args.device_resident,
+        seed=args.seed, compute_dtype="bfloat16" if args.bf16 else None,
+        device_resident=args.device_resident,
     )
 
     def split_paths(split):
@@ -122,9 +124,11 @@ def main(argv=None):
             compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         )
     else:
-        model = build_model("detector", in_channels=test_ds.features.shape[1], hidden=args.hidden,
-                            dropout=args.dropout)
-        model.load_state_dict(state_dict)
+        # the trained model scores in its own dtype (bf16 after --bf16
+        # training); a checkpoint scored alone, with the f32 eval model
+        trained_bf16 = args.bf16 and args.epochs > 0
+        model = model_from_state_dict("detector", state_dict,
+                                      compute_dtype=torch.bfloat16 if trained_bf16 else None)
         scores = detector_scores(model.to(device), test_ds, lengths, args.batch_size, apply_sigmoid=args.use_prob)
     write_predictions(args.prediction_pkl, test_ds.uttids, scores)
     print(f"Saved prediction file -> {args.prediction_pkl}  shape: ({len(scores)}, 2)")

@@ -103,6 +103,11 @@ class ConvAutoencoder(nn.Module):
                 h = layer(h)
         return fit_time(h, t_orig)[:, 0], latent
 
+    @staticmethod
+    def widths(sd: dict) -> dict:
+        """The constructor's widths that ``sd`` (a state_dict) was made with."""
+        return {"base_channels": sd["encoder.0.weight"].shape[0]}
+
 
 def reconstruction_mse(reconstruction: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Per-sample mean squared reconstruction error over (T, F), the CAE's

@@ -12,8 +12,15 @@ Parameter names are the reference ``state_dict``'s (``conv.0/.1``,
 files load with ``load_state_dict``. In ``train()`` mode BatchNorm uses
 batch statistics and updates its running ones, and the byte-quantized
 :class:`~.common.FastDropout` (in ``nn.Dropout``'s place) is active; in
-``eval()`` mode this is the f32 eval model. The serving path is the
-folded chain in :mod:`.fast_infer`.
+``eval()`` mode this is the f32 eval model. ``compute_dtype=torch.bfloat16``
+runs the layers in bf16 with f32 parameters, BatchNorm statistics and
+logits (:mod:`.common`; JAX ``dfac_tpu/models/cnn2d.py:37-71``). The
+serving path is the folded chain in :mod:`.fast_infer`.
+
+``in_features`` is the width of the model-view input's last axis (F with
+``swap_tf``, T without), which sizes the classifier; the JAX module reads
+it from the data, so the port's callers pass the data's
+(:func:`~dfac_tpu_torch.models.model_width`).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dfac_tpu_torch.models.common import FastDropout, conv_bn_relu, time_pool
+from dfac_tpu_torch.models.common import FastDropout, Linear, conv_bn_relu, time_pool
 
 
 class CNN2D(nn.Module):
@@ -30,18 +37,26 @@ class CNN2D(nn.Module):
         in_features: int = 180,
         base_channels: int = 32,
         dropout: float = 0.2,
+        compute_dtype: torch.dtype | None = None,
     ):
         super().__init__()
         bc = base_channels
         self.in_features = in_features
+        self.compute_dtype = compute_dtype
         self.conv = nn.Sequential(
             *conv_bn_relu(1, bc), time_pool(), FastDropout(dropout),
             *conv_bn_relu(bc, bc * 2), time_pool(), FastDropout(dropout),
             *conv_bn_relu(bc * 2, bc * 4),
         )
-        self.classifier = nn.Linear(bc * 4 * in_features, 1)
+        self.classifier = Linear(bc * 4 * in_features, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, F) in model-view orientation -> logits (B, 1)."""
-        h = self.conv(x.unsqueeze(1))  # (B, C, T', F)
-        return self.classifier(h.mean(dim=2).flatten(1))  # channel-major: c * F + f
+        """x: (B, T, F) in model-view orientation -> f32 logits (B, 1)."""
+        h = self.conv(x.unsqueeze(1).to(self.compute_dtype or x.dtype))  # (B, C, T', F)
+        return self.classifier(h.mean(dim=2).flatten(1)).float()  # channel-major: c * F + f
+
+    @staticmethod
+    def widths(sd: dict) -> dict:
+        """The constructor's widths that ``sd`` (a state_dict) was made with."""
+        bc = sd["conv.0.weight"].shape[0]
+        return {"base_channels": bc, "in_features": sd["classifier.weight"].shape[1] // (4 * bc)}

@@ -1,4 +1,4 @@
-"""Shared building blocks (the CNN2D subset of :mod:`dfac_tpu.models.common`).
+"""Shared building blocks (counterpart of :mod:`dfac_tpu.models.common`).
 
 torch's own layers already carry the reference semantics that the JAX
 package had to write out:
@@ -11,7 +11,23 @@ package had to write out:
 Dropout is the JAX package's byte-quantized :class:`FastDropout`: one
 ``uint8`` draw per element compared against ``round(rate * 256)``, kept
 values rescaled by the true quantized keep probability (rate 0.2 keeps
-205/256). It has no parameters, so the ``state_dict`` is the reference's.
+205/256); channel dropout is :class:`ChannelDropout`, torch's
+``Dropout1d``/``Dropout2d`` rule. Neither has parameters, so the
+``state_dict`` is the reference's.
+
+**bf16 compute** (the JAX package's ``compute_dtype``, its ``Conv``,
+``Dense`` and ``TorchBatchNorm`` with ``dtype=bfloat16``): a model built
+with ``compute_dtype=torch.bfloat16`` casts its input to bf16 and its
+logits to f32; in between, the layers here follow the dtype of what they
+are handed. :class:`Conv1d`, :class:`Conv2d` and :class:`Linear` keep f32
+parameters and, on a bf16 input, run the conv or matmul on bf16 copies of
+the weight (bf16 out) and then add the bias cast to bf16, as flax's
+layers do; :class:`BatchNorm1d` and :class:`BatchNorm2d` take their
+statistics (and update the running ones) in f32 from the bf16 input and
+cast the result back to bf16. Pools, ReLU, GELU and dropout then run in
+bf16. On an f32 input every layer is torch's own. The casts are written
+out, not left to ``torch.autocast``, which keeps BatchNorm's and
+softmax's outputs in f32.
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
@@ -41,14 +58,64 @@ def f32_convs():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d``; on an input of another dtype than its f32 weight,
+    the conv on the weight cast to that dtype, then the bias in it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight.to(x.dtype), None) + self.bias.to(x.dtype)[:, None]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with :class:`Conv1d`'s rule for a bf16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight.to(x.dtype), None) + self.bias.to(x.dtype)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with :class:`Conv1d`'s rule for a bf16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (eps 1e-5, momentum 0.1) computed in f32 from
+    its input, the result in the input's dtype."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """:class:`BatchNorm1d`'s rule over NCHW."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
 def conv_bn_relu(c_in: int, c_out: int) -> list[nn.Module]:
     """Conv 3x3 SAME -> BatchNorm -> ReLU, as the reference ``Sequential``
     lays them out (so state_dict indices match)."""
-    return [
-        nn.Conv2d(c_in, c_out, 3, padding=1),
-        nn.BatchNorm2d(c_out, eps=BN_EPS, momentum=BN_MOMENTUM),
-        nn.ReLU(),
-    ]
+    return [Conv2d(c_in, c_out, 3, padding=1), BatchNorm2d(c_out), nn.ReLU()]
+
+
+def conv1d_bn_relu(c_in: int, c_out: int, k: int = 3) -> list[nn.Module]:
+    """Conv1d k SAME (odd k) -> BatchNorm1d -> ReLU, in the reference's order."""
+    return [Conv1d(c_in, c_out, k, padding=k // 2), BatchNorm1d(c_out), nn.ReLU()]
 
 
 def time_pool() -> nn.Module:
@@ -76,17 +143,31 @@ def apply_byte_dropout(x: torch.Tensor, bits: torch.Tensor, thresh: int) -> torc
     return torch.where(bits >= thresh, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class FastDropout(nn.Module):
-    """Element dropout from one random byte per element (the JAX package's
-    ``FastDropout``). Inert in eval mode. The bytes come from
-    ``self.generator`` when one is set (a ``torch.Generator`` on the
-    input's device; the trainer sets one from its seed), else from torch's
-    default generator of that device."""
+def random_bytes(shape, device: torch.device, generator: torch.Generator | None) -> torch.Tensor:
+    """:class:`FastDropout`'s draw: one uniform ``uint8`` per element."""
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=generator)
+
+
+def keep_draws(shape, keep: float, device: torch.device, generator: torch.Generator | None) -> torch.Tensor:
+    """:class:`ChannelDropout`'s draw: True with probability ``keep``."""
+    return torch.rand(shape, device=device, generator=generator) < keep
+
+
+class _Dropout(nn.Module):
+    """A dropout rule that draws from ``self.generator`` when one is set (a
+    ``torch.Generator`` on the input's device; the trainers set theirs,
+    seeded from their seed), else from torch's default generator of that
+    device. Inert in eval mode."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+
+
+class FastDropout(_Dropout):
+    """Element dropout from one random byte per element (the JAX package's
+    ``FastDropout``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         thresh = byte_dropout_thresh(self.rate)
@@ -94,8 +175,31 @@ class FastDropout(nn.Module):
             return x
         if thresh >= 256:
             return torch.zeros_like(x)
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device, generator=self.generator)
-        return apply_byte_dropout(x, bits, thresh)
+        return apply_byte_dropout(x, random_bytes(x.shape, x.device, self.generator), thresh)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}, keep={256 - byte_dropout_thresh(self.rate)}/256"
+
+
+class ChannelDropout(_Dropout):
+    """torch ``Dropout1d``/``Dropout2d`` (the JAX package's
+    ``ChannelDropout``): each sample drops whole channels of its (B, C,
+    ...) activation, one keep draw per (sample, channel), the kept values
+    scaled by ``1 / (1 - rate)`` in the activation's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = keep_draws((x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2), keep, x.device, self.generator)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Point every dropout of ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, _Dropout):
+            m.generator = generator

@@ -11,8 +11,10 @@ Batches are padded to one T with a length mask, as in the JAX package;
 BatchNorm's batch statistics cover every frame, pad frames included, as
 there. Parameter names are the reference ``state_dict``'s (``enc.net.{0,
 1,4,5,8,9}``, ``head.0``, ``head.3``), so reference ``.pt`` files load
-with ``load_state_dict``. The serving path is the folded chain in
-:mod:`.fast_infer`.
+with ``load_state_dict``. ``compute_dtype=torch.bfloat16`` runs the
+encoder and the head in bf16 as :class:`~.cnn2d.CNN2D` does; the stats
+pool stays in f32 (JAX ``dfac_tpu/models/detector.py:47-83``). The
+serving path is the folded chain in :mod:`.fast_infer`.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dfac_tpu_torch.models.common import BN_EPS, BN_MOMENTUM, FastDropout
+from dfac_tpu_torch.models.common import BatchNorm1d, Conv1d, FastDropout, Linear
 
 
 def stats_pool(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -45,8 +47,8 @@ class ConvEncoder(nn.Module):
         layers: list[nn.Module] = []
         for c_in, k in ((in_channels, 5), (hidden, 3), (hidden, 3)):
             layers += [
-                nn.Conv1d(c_in, hidden, k, padding=k // 2),
-                nn.BatchNorm1d(hidden, eps=BN_EPS, momentum=BN_MOMENTUM),
+                Conv1d(c_in, hidden, k, padding=k // 2),
+                BatchNorm1d(hidden),
                 nn.GELU(approximate="none"),
                 FastDropout(dropout),
             ]
@@ -60,14 +62,16 @@ class DeepfakeDetector(nn.Module):
         hidden: int = 256,
         dropout: float = 0.3,
         encoder_dropout: float = 0.2,
+        compute_dtype: torch.dtype | None = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.enc = ConvEncoder(in_channels, hidden, encoder_dropout)
         self.head = nn.Sequential(
-            nn.Linear(2 * hidden, hidden),
+            Linear(2 * hidden, hidden),
             nn.GELU(approximate="none"),
             FastDropout(dropout),
-            nn.Linear(hidden, 1),
+            Linear(hidden, 1),
         )
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
@@ -75,6 +79,13 @@ class DeepfakeDetector(nn.Module):
         f32 logits."""
         if lengths is None:
             lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
-        h = self.enc.net(x.transpose(1, 2))  # (B, hidden, T)
-        z = stats_pool(h.transpose(1, 2).float(), lengths)  # (B, 2 * hidden)
-        return self.head(z)[:, 0].float()
+        dt = self.compute_dtype or x.dtype
+        h = self.enc.net(x.transpose(1, 2).to(dt))  # (B, hidden, T)
+        z = stats_pool(h.transpose(1, 2).float(), lengths)  # (B, 2 * hidden), f32
+        return self.head(z.to(dt))[:, 0].float()
+
+    @staticmethod
+    def widths(sd: dict) -> dict:
+        """The constructor's widths that ``sd`` (a state_dict) was made with."""
+        w = sd["enc.net.0.weight"]
+        return {"in_channels": w.shape[1], "hidden": w.shape[0]}

@@ -24,7 +24,8 @@ its own recipe:
   :func:`~dfac_tpu_torch.ops.eer.eer_device`), patience-6 early stop;
 * variable-length utterances as padded batches with a length mask.
 
-The step runs through autograd on the device, convs in full f32
+The step runs through autograd on the device, convs in full f32 (or bf16
+with ``compute_dtype``)
 (:func:`~dfac_tpu_torch.models.common.f32_convs`). Batches come host-fed
 (a prefetch thread gathers and uploads each) or ``device_resident`` (the
 corpus uploaded once, the same order gathered on the card); the tail batch
@@ -45,7 +46,7 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.io.prefetch import prefetched
 from dfac_tpu_torch.models import build_model
-from dfac_tpu_torch.models.common import FastDropout, f32_convs
+from dfac_tpu_torch.models.common import f32_convs, set_dropout_generator
 from dfac_tpu_torch.ops.eer import eer_device
 from dfac_tpu_torch.train.loop import resident_arrays
 from dfac_tpu_torch.train.optim import BETAS, EPS
@@ -54,8 +55,9 @@ from dfac_tpu_torch.train.optim import BETAS, EPS
 @dataclasses.dataclass
 class DetectorConfig:
     """The reference dlqueen recipe's knobs (``src/dlqueen_model.py:266-300``)
-    that the port trains: f32, one device (the JAX package's other fields
-    select paths not ported yet; see ROADMAP.md)."""
+    that the port trains: one device, f32 or ``compute_dtype="bfloat16"``
+    (JAX ``detector_loop.py:56``; the JAX package's other fields select
+    paths not ported yet; see ROADMAP.md)."""
 
     epochs: int = 30
     batch_size: int = 32
@@ -74,6 +76,7 @@ class DetectorConfig:
     ema_decay: float = 0.999
     patience: int = 6
     seed: int = 42
+    compute_dtype: str | None = None  # None (f32) | "bfloat16"
     device_resident: bool = False  # upload the corpus once; gather batches on the card
 
 
@@ -130,7 +133,8 @@ class DetectorTrainer:
     def _build(self) -> torch.nn.Module:
         cfg = self.cfg
         return build_model("detector", in_channels=self.in_channels, hidden=cfg.hidden, dropout=cfg.dropout,
-                           encoder_dropout=cfg.encoder_dropout)
+                           encoder_dropout=cfg.encoder_dropout,
+                           compute_dtype=getattr(torch, cfg.compute_dtype) if cfg.compute_dtype else None)
 
     # -- state ------------------------------------------------------------
     def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
@@ -145,9 +149,7 @@ class DetectorTrainer:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device)
-        for m in self.model.modules():
-            if isinstance(m, FastDropout):
-                m.generator = self.generator
+        set_dropout_generator(self.model, self.generator)
         self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr, betas=BETAS, eps=EPS,
                                            weight_decay=cfg.weight_decay)
         self.ema = (

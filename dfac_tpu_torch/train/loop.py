@@ -1,4 +1,4 @@
-"""Supervised training driver (CNN2D and CNN1D on one device).
+"""Supervised training driver (every classifier of the registry, on one device).
 
 Counterpart of :mod:`dfac_tpu.train.loop`; parity target reference
 ``src/train.py`` (call stack SURVEY.md §3.1). The step — swap,
@@ -28,8 +28,15 @@ epoch).shuffle`` of the row ids, the JAX package's host loop's: host-fed
 (a prefetch thread gathers each batch and uploads it from pinned memory)
 or ``device_resident`` (the corpus uploaded once, each batch gathered on
 the card). The epoch's loss is summed on the device and fetched once.
-Dropout bytes and augmentation draws come from one ``torch.Generator`` on
-the device, seeded from ``seed``.
+Dropout draws (bytes and channel masks) and augmentation draws come from
+one ``torch.Generator`` on the device, seeded from ``seed``.
+
+The model is built for the width of the model-view input (F with
+``swap_tf``, T without) of the first training batch, as the JAX
+``Trainer.init_state(example_batch)`` initialises from a sample batch;
+``compute_dtype="bfloat16"`` trains the families that take it (CNN2D,
+CNN1D, ``cnn1d_variant``) in bf16 with f32 parameters
+(:mod:`~dfac_tpu_torch.models.common`), as the JAX package's ``--bf16``.
 """
 
 from __future__ import annotations
@@ -46,8 +53,8 @@ from dfac_tpu_torch.data.augment import AugmentConfig, build_augment_fn
 from dfac_tpu_torch.data.pipeline import ArrayDataset, batch_iterator, num_batches
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.io.prefetch import prefetched
-from dfac_tpu_torch.models import build_model
-from dfac_tpu_torch.models.common import FastDropout, f32_convs
+from dfac_tpu_torch.models import MODEL_REGISTRY, build_model, model_width, width_overrides
+from dfac_tpu_torch.models.common import f32_convs, set_dropout_generator
 from dfac_tpu_torch.obs.base import BatchMetrics, EpochMetrics, TrainingConfig, TrainingVisualizer
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
 from dfac_tpu_torch.train import checkpoint as ckpt_lib
@@ -58,8 +65,10 @@ from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_d
 @dataclasses.dataclass
 class TrainConfig:
     """The reference train.py flag surface (``src/train.py:94-246``) that
-    the port trains: CNN2D or CNN1D in f32 on one device (the JAX
-    package's other fields select paths not ported yet; see ROADMAP.md)."""
+    the port trains: every registry classifier on one device, f32 or
+    ``compute_dtype="bfloat16"`` (the JAX package's other fields select
+    paths not ported yet; see ROADMAP.md). ``in_features`` is the input
+    width of a model built without a sample batch."""
 
     model: str = "cnn2d"
     batch_size: int = 32
@@ -80,11 +89,14 @@ class TrainConfig:
     label_smoothing: float = 0.0
     swap_tf: bool = True
     augment: AugmentConfig = dataclasses.field(default_factory=AugmentConfig)
+    compute_dtype: str | None = None  # None (f32) | "bfloat16"
     device_resident: bool = False  # upload the corpus once; gather batches on the card
 
     def __post_init__(self):
         if not (0.0 <= self.label_smoothing < 0.5):
             raise ValueError("label_smoothing must be in [0, 0.5)")
+        if self.compute_dtype not in (None, "bfloat16"):
+            raise ValueError("compute_dtype must be None (f32) or 'bfloat16'")
 
 
 def resident_arrays(ds: ArrayDataset, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,12 +157,10 @@ def _model_kwargs(cfg: TrainConfig) -> dict:
     """The constructor overrides the JAX trainer passes every family
     (``dfac_tpu/train/loop.py:145-154``); :func:`build_model` keeps those
     the family takes."""
-    return {
-        "in_features": cfg.in_features,
-        "dropout": cfg.dropout,
-        "hidden_dim": cfg.hidden_dim,
-        "in_channels": cfg.in_features,
-    }
+    kw = {**width_overrides(cfg.in_features), "dropout": cfg.dropout, "hidden_dim": cfg.hidden_dim}
+    if cfg.compute_dtype:
+        kw["compute_dtype"] = getattr(torch, cfg.compute_dtype)
+    return kw
 
 
 class Trainer:
@@ -194,15 +204,22 @@ class Trainer:
         self._dev_resident: tuple | None = None  # (dataset, features)
 
     # -- state ------------------------------------------------------------
-    def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
+    def init_state(self, state_dict: dict | None = None, example_batch=None) -> torch.nn.Module:
         """Build the model with torch's default init drawn from ``seed``
         (the process's global generator is left as it was), or load
-        ``state_dict``; then a fresh optimizer."""
+        ``state_dict``; then a fresh optimizer. The model's input width is
+        ``example_batch``'s (stored-orientation features, (N, F, T)), else
+        ``state_dict``'s weights', else ``cfg.in_features``."""
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             if self._module is None:
-                model = build_model(cfg.model, **_model_kwargs(cfg))
+                kw = _model_kwargs(cfg)
+                if example_batch is not None:
+                    kw.update(width_overrides(model_width(np.shape(example_batch), cfg.swap_tf)))
+                elif state_dict is not None:
+                    kw.update(MODEL_REGISTRY[cfg.model].widths(state_dict))
+                model = build_model(cfg.model, **kw)
             else:  # the draws of construction, in construction order
                 model = self._module
                 for m in model.modules():
@@ -211,9 +228,7 @@ class Trainer:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device)
-        for m in self.model.modules():
-            if isinstance(m, FastDropout):
-                m.generator = self.generator
+        set_dropout_generator(self.model, self.generator)
         self.optimizer = build_optimizer(cfg.model, self.model.parameters(), self._lr, cfg.weight_decay)
         return self.model
 
@@ -348,7 +363,7 @@ class Trainer:
             start_epoch = restored["epoch"] + 1
             resumed_ts = restored["trainer_state"]
         if self.model is None:
-            self.init_state()
+            self.init_state(example_batch=train_ds.features[:1])
 
         self.visualizer.on_training_start(
             TrainingConfig(

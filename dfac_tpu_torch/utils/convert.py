@@ -14,7 +14,14 @@ Same layout rules as ``flax_to_torch`` / ``torch_to_flax`` in
 * Dense kernel ``(I, O)`` <-> Linear weight ``(O, I)``;
 * BatchNorm ``scale/bias`` params and ``mean/var`` batch stats <->
   ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``,
-  which JAX does not keep: momentum is fixed, so it is never read).
+  which JAX does not keep: momentum is fixed, so it is never read);
+* GRU: flax's ``GRUCell`` (``ir/iz/in`` Dense kernels with biases,
+  ``hr/hz`` without, ``hn`` with) <-> ``weight_ih_l{k}`` / ``weight_hh_l{k}``
+  row blocks ``[r; z; n]`` and ``bias_ih_l{k}`` / ``bias_hh_l{k}``. flax
+  has no recurrent bias on r and z, so JAX -> torch puts ``[b_ir, b_iz,
+  b_in]`` on the input side and ``[0, 0, b_hn]`` on the recurrent one;
+  torch -> JAX folds ``bias_hh``'s r and z parts into the input biases
+  (an exact reparametrization, as ``torch_import``'s).
 """
 
 from __future__ import annotations
@@ -31,12 +38,37 @@ def _blocks(prefix: str, kind: str, pairs, conv: str, bn: str) -> list:
 
 
 _CLASSIFIER = [("classifier", "linear", ("classifier", "dense"))]
+_CNN2D = _blocks("conv", "conv2d", [(0, 1), (5, 6), (10, 11)], "conv", "bn") + _CLASSIFIER
+_CNN1D = _blocks("conv", "conv1d", [(0, 1), (4, 5), (8, 9)], "conv", "bn") + _CLASSIFIER
+_MLP = [(f"feature_extractor.{ti}", "linear", (f"fc{i}", "dense")) for i, ti in enumerate((0, 3, 6), 1)]
+
+
+def _crnn(num_layers: int) -> list:
+    return (_blocks("conv", "conv2d", [(0, 1), (5, 6)], "conv", "bn")
+            + [(f"rnn#{k}", "gru", (f"gru{k + 1}", "cell")) for k in range(num_layers)] + _CLASSIFIER)
+
 # (torch prefix, kind, JAX path) per family, in the torch module's order: the
 # reference state_dicts' Sequential indices (the JAX package's torch_import
 # tables, dfac_tpu/utils/torch_import.py:71-92)
 _MAPPINGS = {
-    "cnn2d": _blocks("conv", "conv2d", [(0, 1), (5, 6), (10, 11)], "conv", "bn") + _CLASSIFIER,
-    "cnn1d": _blocks("conv", "conv1d", [(0, 1), (4, 5), (8, 9)], "conv", "bn") + _CLASSIFIER,
+    "cnn2d": _CNN2D,
+    "cnn2d_spatial": _CNN2D,
+    "cnn1d": _CNN1D,
+    "cnn1d_variant": _CNN1D,
+    "cnn1d_spatial": _CNN1D,
+    "cnn1d_archive": _CNN1D,
+    "meanpool_mlp": _MLP,
+    "statspool_mlp": _MLP,
+    "crnn": _crnn(1),
+    "crnn2": _crnn(2),
+    "cnn2d_robust": [
+        entry
+        for b in (1, 2, 3)
+        for entry in _blocks(f"block{b}", "conv2d", [(0, 1), (3, 4)], f"block{b}_conv", f"block{b}_bn")
+    ]
+    + [("se.1", "conv2d", ("se_fc1", "conv")), ("se.3", "conv2d", ("se_fc2", "conv")),
+       ("attention_pool", "linear", ("attention_pool", "dense")),
+       ("classifier.1", "linear", ("head_fc1", "dense")), ("classifier.4", "linear", ("head_fc2", "dense"))],
     "cae": _blocks("encoder", "conv2d", [(0, 1), (4, 5), (8, 9), (12, 13)], "enc_conv", "enc_bn")
     + [
         entry
@@ -50,7 +82,8 @@ _MAPPINGS = {
 
 # torch parameter suffix -> JAX leaf path under the entry's path, per kind
 # (BN statistics apart); a transposed conv's kernel sits one level down
-_LEAVES = {"conv2d": {"weight": ("kernel",), "bias": ("bias",)},
+_GATES = (("r", "ir", "hr"), ("z", "iz", "hz"), ("n", "in", "hn"))
+_LEAVES = {"gru": {}, "conv2d": {"weight": ("kernel",), "bias": ("bias",)},
            "conv1d": {"weight": ("kernel",), "bias": ("bias",)},
            "convt2d": {"weight": ("convt", "kernel"), "bias": ("bias",)},
            "linear": {"weight": ("kernel",), "bias": ("bias",)},
@@ -104,9 +137,7 @@ def _to_jax_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
 
 def _mapping(model_name: str) -> list:
     if model_name not in _MAPPINGS:
-        raise NotImplementedError(
-            f"no JAX <-> torch mapping for '{model_name}' yet (mapped: {sorted(_MAPPINGS)}; see ROADMAP.md)"
-        )
+        raise ValueError(f"no JAX <-> torch mapping for model '{model_name}' (mapped: {sorted(_MAPPINGS)})")
     return _MAPPINGS[model_name]
 
 
@@ -115,9 +146,42 @@ def params_from_jax(params: dict, model_name: str = "cnn2d") -> dict[str, torch.
     moments) -> ``{torch parameter name: tensor}`` in torch's layouts."""
     out: dict[str, torch.Tensor] = {}
     for prefix, kind, path in _mapping(model_name):
+        if kind == "gru":
+            out.update(_gru_from_jax(params, prefix, path))
         for leaf, jleaf in _LEAVES[kind].items():
             out[f"{prefix}.{leaf}"] = _t(_to_torch_layout(kind, leaf, _get(params, path + jleaf)))
     return out
+
+
+def _gru_from_jax(params: dict, prefix: str, path: tuple) -> dict[str, torch.Tensor]:
+    """One ``GRUCell``'s tree (or a tree of its shape) -> layer k's four
+    torch tensors, ``prefix`` ``"rnn#k"``."""
+    base, k = prefix.split("#")
+    kernel = {name: _get(params, path + (name, "kernel")).T for _, i, h in _GATES for name in (i, h)}
+    b_in = {i: _get(params, path + (i, "bias")) for _, i, _ in _GATES}
+    b_hn = _get(params, path + ("hn", "bias"))
+    zeros = np.zeros_like(b_hn)
+    return {
+        f"{base}.weight_ih_l{k}": _t(np.concatenate([kernel[i] for _, i, _ in _GATES], 0)),
+        f"{base}.weight_hh_l{k}": _t(np.concatenate([kernel[h] for _, _, h in _GATES], 0)),
+        f"{base}.bias_ih_l{k}": _t(np.concatenate([b_in[i] for _, i, _ in _GATES])),
+        f"{base}.bias_hh_l{k}": _t(np.concatenate([zeros, zeros, b_hn])),
+    }
+
+
+def _gru_to_jax(sd: dict, prefix: str, path: tuple, params: dict) -> None:
+    """The inverse of :func:`_gru_from_jax`, folding ``bias_hh``'s r and z
+    parts into the input-side biases."""
+    base, k = prefix.split("#")
+    blocks = {n: np.split(sd[f"{base}.{n}_l{k}"], 3) for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+    for g, (gate, i, h) in enumerate(_GATES):
+        _put(params, path + (i, "kernel"), np.ascontiguousarray(blocks["weight_ih"][g].T))
+        _put(params, path + (h, "kernel"), np.ascontiguousarray(blocks["weight_hh"][g].T))
+        if gate == "n":
+            _put(params, path + (i, "bias"), blocks["bias_ih"][g])
+            _put(params, path + (h, "bias"), blocks["bias_hh"][g])
+        else:
+            _put(params, path + (i, "bias"), blocks["bias_ih"][g] + blocks["bias_hh"][g])
 
 
 def state_dict_from_jax(variables: dict, model_name: str = "cnn2d") -> dict[str, torch.Tensor]:
@@ -126,6 +190,10 @@ def state_dict_from_jax(variables: dict, model_name: str = "cnn2d") -> dict[str,
     stats = variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
     for prefix, kind, path in _mapping(model_name):
+        if kind == "gru":
+            base, k = prefix.split("#")
+            for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                sd[f"{base}.{n}_l{k}"] = params[f"{base}.{n}_l{k}"]
         for leaf in _LEAVES[kind]:
             sd[f"{prefix}.{leaf}"] = params[f"{prefix}.{leaf}"]
         if kind == "bn":
@@ -138,17 +206,20 @@ def state_dict_from_jax(variables: dict, model_name: str = "cnn2d") -> dict[str,
 def jax_from_state_dict(state_dict: dict, model_name: str = "cnn2d") -> dict:
     """The inverse of :func:`state_dict_from_jax`: a state_dict (tensors on
     any device) -> JAX ``{'params', 'batch_stats'}`` of f32 numpy arrays,
-    the layout the JAX package's checkpoints hold."""
+    the layout the JAX package's checkpoints hold (no ``batch_stats`` for
+    a model without BatchNorm, as the JAX trainer's ``variables()``)."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items() if v.is_floating_point()}
     params: dict = {}
     stats: dict = {}
     for prefix, kind, path in _mapping(model_name):
+        if kind == "gru":
+            _gru_to_jax(sd, prefix, path, params)
         for leaf, jleaf in _LEAVES[kind].items():
             _put(params, path + jleaf, np.ascontiguousarray(_to_jax_layout(kind, leaf, sd[f"{prefix}.{leaf}"])))
         if kind == "bn":
             _put(stats, path + ("mean",), sd[f"{prefix}.running_mean"])
             _put(stats, path + ("var",), sd[f"{prefix}.running_var"])
-    return {"params": params, "batch_stats": stats}
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
 
 
 def _find_adam(node):

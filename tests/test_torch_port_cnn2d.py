@@ -12,9 +12,11 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from dfac_tpu import models as jmodels
 from dfac_tpu.models import build_model as jbuild
 from dfac_tpu.models import fast_infer as jfast
 from dfac_tpu.ops.pallas import conv_block as jcb
+from dfac_tpu_torch import models as tmodels
 from dfac_tpu_torch.models import build_model as tbuild
 from dfac_tpu_torch.models import fast_infer as tfast
 from dfac_tpu_torch.ops import conv_block as tcb
@@ -113,7 +115,12 @@ def test_fused_scores_match_jax_pallas_bf16():
 
 
 def test_build_model_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild("statspool_mlp")  # the zoo stays unported
+    """An unknown name raises the JAX registry's ValueError; every JAX name builds."""
+    with pytest.raises(ValueError, match="unknown model 'cnn3d'; choose from"):
+        tbuild("cnn3d")
+    with pytest.raises(ValueError, match="unknown model 'cnn3d'"):
+        jbuild("cnn3d")
+    assert sorted(tmodels.MODEL_REGISTRY) == sorted(jmodels.MODEL_REGISTRY)
+    assert isinstance(tbuild("statspool_mlp", in_features=F_, hidden_dim=8), torch.nn.Module)
     model = tbuild("cnn2d", in_features=F_, base_channels=BC, hidden_dim=7)  # unknown override ignored
     assert model.classifier.in_features == 4 * BC * F_

@@ -28,6 +28,9 @@ EXPECTED = {
     "dfac_tpu_torch.cli.hybrid_ensemble", "dfac_tpu_torch.cli.ensemble", "dfac_tpu_torch.cli.generate_submission",
     "dfac_tpu_torch.models.detector", "dfac_tpu_torch.train.detector_loop", "dfac_tpu_torch.cli.train_detector",
     "dfac_tpu_torch.obs.cae_dashboard", "dfac_tpu_torch.cli.train_cae",
+    "dfac_tpu_torch.models.zoo", "dfac_tpu_torch.obs.factory", "dfac_tpu_torch.obs.rich_visualizer",
+    "dfac_tpu_torch.obs.tqdm_visualizer", "dfac_tpu_torch.train.benchmark_harness", "dfac_tpu_torch.cli.benchmark",
+    "dfac_tpu_torch.cli.compare_kernels", "dfac_tpu_torch.cli.compare_normalization",
 }
 
 _PROBE = """

@@ -145,15 +145,13 @@ def test_load_features_refuses_a_pickle_with_no_rows(tmp_path):
         t_load(str(fpath))
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--ingest-int8"], ["--data-parallel", "2"], ["--multihost"],
-                                  ["--bf16"]])
+@pytest.mark.parametrize("flag", [["--int8"], ["--ingest-int8"], ["--data-parallel", "2"], ["--multihost"]])
 def test_predict_cli_refuses_what_is_not_ported(flag, tmp_path):
     from dfac_tpu_torch.cli import predict as tpredict
 
     base = ["--features", "f.pkl", "--checkpoint", "c.ckpt", "--model", "cnn2d", "--out", "p.pkl"]
-    fast = [] if flag == ["--bf16"] else ["--fast"]  # --bf16 without --fast: the bf16 eval model is not ported
     with pytest.raises(SystemExit, match="not yet ported"):
-        tpredict.main(base + fast + flag)
+        tpredict.main(base + ["--fast"] + flag)
 
 
 def test_evaluate_cli_matches_jax(tmp_path, capsys):

@@ -101,7 +101,7 @@ def test_ensemble_scores_equal_jax():
 
 def test_score_checkpoints_keeps_duplicates_and_matches_jax(world):
     specs = [("cnn2d", world["cnn2d"]), ("cnn1d", world["cnn1d"]), ("cnn2d", world["cnn2d"])]
-    got = tmean.score_checkpoints(specs, load_dataset(world["features"]), batch_size=8, in_features=F_,
+    got = tmean.score_checkpoints(specs, load_dataset(world["features"]), batch_size=8,
                                   device="cpu")
     want = jmean.score_checkpoints(specs, jload_dataset(world["features"]), batch_size=8, in_features=F_)
     assert list(got) == list(want) == [f"cnn2d:{world['cnn2d']}", f"cnn1d:{world['cnn1d']}",
@@ -251,8 +251,12 @@ def test_ensemble_cli_prints_the_jax_report(world, tmp_path, capsys):
         assert abs(float(g_thr) - float(w_thr)) <= 1e-5
     np.testing.assert_allclose(pd.read_pickle(tmp_path / "t.pkl")["predictions"],
                                pd.read_pickle(tmp_path / "j.pkl")["predictions"], atol=1e-5)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tensemble_cli.main(["--features", "f", "--labels", "l", "--checkpoints", "crnn:x.ckpt"])
+    # every registry architecture is scored (the zoo's in test_torch_port_zoo_cli.py); an unknown
+    # one is refused by name, as by the JAX CLI
+    for cli in (tensemble_cli, jensemble_cli):
+        with pytest.raises(ValueError, match="unknown model 'cnn3d'"):
+            cli.main(["--features", world["features"], "--labels", world["labels"], "--checkpoints",
+                      "cnn3d:x.ckpt", "--device", "cpu"])
     with pytest.raises(SystemExit, match="want arch:path"):
         tensemble_cli.main(["--features", "f", "--labels", "l", "--checkpoints", "cnn2d"])
 

@@ -64,10 +64,12 @@ def trained(corpus, tmp_path_factory):
 
 
 def test_train_cli_writes_both_checkpoints_and_prints_each_epoch(corpus, tmp_path, capsys):
-    result = ttrain.main(_train_args(corpus, tmp_path, "--epochs", "2", "--debug-augment-stats", *RECIPE))
+    result = ttrain.main(_train_args(corpus, tmp_path, "--epochs", "2", "--debug-augment-stats", "--no-rich",
+                                     *RECIPE))
     out = capsys.readouterr().out
     assert "[augment-stats] before:" in out and "[augment-stats] after: " in out
-    assert len(re.findall(r"^epoch \d: train_loss \S+ dev_loss \S+ dev_eer \S+ lr \S+ best", out, re.M)) == 2
+    # --no-rich: the tqdm visualizer's epoch lines, as the JAX CLI prints them
+    assert len(re.findall(r"^Epoch \d: train_loss=\S+ dev_loss=\S+ dev_eer=\S+", out, re.M)) == 2
     assert f"best dev EER: {result['best_eer']:.6f}" in out
     assert (tmp_path / "cnn2d_best.ckpt").exists() and (tmp_path / "cnn2d_last.ckpt").exists()
     h = result["history"]
@@ -119,10 +121,10 @@ def test_resume_trains_only_the_remaining_epochs(corpus, trained, tmp_path):
     assert [m.epoch for m in result["history"]] == [3]
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--data-parallel", "2"], ["--multihost"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--multihost"],
                                   ["--resident-chunk-batches", "4"], ["--chunk-ingest", "bf16"], ["--fused-fit"],
                                   ["--bn-freeze-after", "0.5"], ["--train-fast"], ["--checkpoint-format", "orbax"],
-                                  ["--profile-dir", "p"], ["--model", "crnn"]])
+                                  ["--profile-dir", "p"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         ttrain.main(flag)
@@ -145,5 +147,3 @@ def test_reproduce_reference_contract_can_fail(reference_shaped_data, tmp_path, 
     rc = trepro.main(["--data-dir", str(reference_shaped_data), "--out-dir", str(tmp_path / "repro_fail"),
                       "--epochs", "1", "--batch-size", "8", "--expect-dev-eer", "0.40", "--device", "cpu"])
     assert rc == 1 and "CONTRACT FAILED" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not yet ported"):
-        trepro.main(["--data-dir", str(reference_shaped_data), "--bf16"])
