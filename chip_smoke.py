@@ -171,21 +171,49 @@ line:
             the bf16 CNN2D step and one of the slowest zoo step (the
             in-process runs launch no kernel of the port; ``predict --fast
             --bf16`` runs K2 in its own process)
+19. int8 + tools  w8a8 serving, int8 ingest and the data tools at full
+            width (CNN2D and CNN1D 180 -> 32 -> 64 -> 128, weights from a
+            seed with non-trivial BatchNorm statistics, a synthetic
+            512-utterance split and its ``.npy`` store, B=128): in process,
+            ``predict_scores_w8a8`` (2 ``conv_block_w8a8`` launches a batch
+            and nothing else) and ``predict_scores_fast(ingest_int8=True)``
+            (3 K2 launches a batch) against the f32 ``--fast`` chain (5e-2);
+            ``conv_block_w8a8`` against its plain version bit for bit at
+            both serving shapes (blocks 2 and 3 of a batch of the chain) and
+            an odd H, a second call equal; each block's ms in turns and on
+            the device beside its bound and a ``torch._int_mm`` control over
+            the 9-tap patch matrix; utt/s of the w8a8 chain (f32, bf16)
+            beside K2's f32 and bf16 chains over 2,048 on-device feature
+            tensors (``chain_rates``: median of 7) and one profile of each
+            w8a8 chain; anomaly embeddings on the card against the CPU eval
+            model (256 utterances, 1e-4; the scikit-learn fits where it is
+            installed); eleven CLIs at once: ``predict --fast`` with
+            ``--int8``, ``--int8 --bf16``, ``--ingest-int8`` (cnn2d and
+            cnn1d, on the store) and ``--int8 --ingest-int8`` (each within
+            5e-2 of the f32 chain), the five ``data_tools`` subcommands
+            (their lines; the bonafide store ``convert-to-npy --filter-label
+            1`` writes) and ``train --profile-dir`` (1 epoch at B=32, a trace
+            holding CUDA kernel events); then the host's ``quant_i8``
+            against ``cast_bf16`` on a batch of 128 and ``predict_scores_fast``
+            with int8 against bf16 ingest from a 2,048-utterance store, in
+            turns
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
 ``conv_block`` are their bf16 modes on the slice, ``gemm_frontend_f32`` K1's
 f32 mode on the ``gemm`` extraction, ``conv_block_f32`` K2's on ``predict
---fast``'s f32 chain; for ``conv_block``, ``conv_block_f32``, ``time_pool``,
-``conv_probe``, ``conv1_pass``, ``conv_forms``, ``conv_chunked`` and
-``conv_trailing``, ``ms``, ``plain_ms``,
+--fast``'s f32 chain; ``conv_block_w8a8``, phase 19's int8 kernel, has no
+Pallas counterpart; for ``conv_block``, ``conv_block_f32``, ``time_pool``,
+``conv_probe``, ``conv1_pass``, ``conv_forms``, ``conv_chunked``,
+``conv_trailing`` and ``conv_block_w8a8``, ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over the shapes or cases of one
 batch) and ``{"ok": true, "device": {...}}``. ``bound_ms`` is the least time the card could take for the same
 work: the larger of the bytes each call must move (inputs read once,
 outputs written once) over 3.35 TB/s and its operations of each type over
 the dense peak for that type (989 TFLOP/s bf16 on the tensor cores, 67
-TFLOP/s f32 on the CUDA cores; NVIDIA's H100 SXM data sheet; the two units
-run at once, so the larger time counts). A probe case's operations count
+TFLOP/s f32 on the CUDA cores, 1,979 TOP/s int8 on the tensor cores;
+NVIDIA's H100 SXM data sheet; the two units run at once, so the larger
+time counts). A probe case's operations count
 at the rate of the unit it runs on: v1 and d (and v0) on the CUDA cores at
 the f32 rate, with their bf16-rate bound printed beside it; the rest on the
 tensor cores. The script imports nothing of JAX.
@@ -218,7 +246,7 @@ EXTRACT_CORPUS = 2048  # utterances per timed extraction run
 PROBE_BATCH = 512  # the probes' default batch
 POOL_SHAPES = [(PROBE_BATCH, 321, 180, 32), (PROBE_BATCH, 160, 180, 64)]  # the pool probe's two pools
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense, H100 SXM
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}  # dense, H100 SXM (int8: operations a second)
 
 # tolerances, with their reasons
 K1_ATOL, K1_RTOL = 1e-3, 1e-3  # same operands; only the f32 summation order of
@@ -270,6 +298,20 @@ ZOO_UTTS = {"train": 256, "dev": 128, "test2": 128}  # the CLI runs' corpus
 ZOO_STEPS = {TRAIN_BATCH: 4, TRAIN_BIG_BATCH: 2}  # steps per timed epoch of each zoo model
 ENSEMBLE_ATOL = 1e-6  # the ensemble CLI's mean against the in-process evaluate_classifier scores: same f32 model,
 # same batch shape (cuDNN's choice of algorithm repeats), so only the host-side mean's order may differ
+# the int8 and tools phase (19)
+W8A8_SCORE_ATOL = 5e-2  # w8a8 and int8-ingest scores against the f32 --fast chain: the JAX package's bound for
+# int8 weights and activations, tests/test_fast_infer_int8.py
+EMBED_ATOL = 1e-4  # anomaly embeddings on the card against the CPU eval model: f32 convs, sums in other orders
+EMBED_UTTS = 256
+INT8_TRAIN_UTTS = 128  # train --profile-dir's train and dev splits
+INT8_STORE_UTTS = 2048  # the store of the ingest comparison
+PREDICT_INT8 = {  # predict --fast's int8 variants: label -> (model, on the .npy store, flags)
+    "--int8": ("cnn2d", False, ["--int8"]),
+    "--int8 --bf16": ("cnn2d", False, ["--int8", "--bf16"]),
+    "--ingest-int8": ("cnn2d", True, ["--ingest-int8"]),
+    "--model cnn1d --ingest-int8": ("cnn1d", True, ["--ingest-int8"]),
+    "--int8 --ingest-int8": ("cnn2d", True, ["--int8", "--ingest-int8"]),
+}
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
                  "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
@@ -325,7 +367,7 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
 
 def bound(n_bytes: float, **flops: float) -> tuple[float, str]:
     """(ms, limiter): the largest of ``n_bytes`` over the HBM rate and the
-    operations of each type over its peak rate (``bf16=``, ``f32=``; the
+    operations of each type over its peak rate (``bf16=``, ``f32=``, ``int8=``; the
     tensor cores and the CUDA cores work at the same time)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max((n / PEAK_FLOPS[kind] for kind, n in flops.items()), default=0.0)
@@ -1249,6 +1291,268 @@ def zoo_profile(label: str, b: int, step_ms: float, prof: dict, card: str) -> No
         phase("zoo", f"  {k_ms:8.4f} ms {share(k_ms):6.1%} {n:5.1f}x  {k_name[:110]}")
 
 
+def rows(ds, a: int, b: int):
+    """Rows ``a:b`` of an ArrayDataset (views of its arrays)."""
+    return type(ds)(uttids=ds.uttids[a:b], features=ds.features[a:b],
+                    labels=None if ds.labels is None else ds.labels[a:b])
+
+
+def int8_tools_phase(dev, card: str) -> dict:
+    """Phase 19: w8a8 serving, int8 ingest, the host quantizer, anomaly embeddings, the data tools and
+    ``--profile-dir`` (see the module docstring); returns ``conv_block_w8a8``'s entry of the kernels line."""
+    import copy
+
+    import pandas as pd
+    import torch
+
+    from dfac_tpu_torch import chain_rates
+    from dfac_tpu_torch.ensemble import anomaly
+    from dfac_tpu_torch.io import fastcast
+    from dfac_tpu_torch.io.npy_store import load_npy_dataset, save_npy_dataset
+    from dfac_tpu_torch.io.pickle_io import write_predictions
+    from dfac_tpu_torch.io.prefetch import PrefetchStats
+    from dfac_tpu_torch.io.submission import generate_submission
+    from dfac_tpu_torch.models import build_model, fast_infer
+    from dfac_tpu_torch.models import fast_infer_int8 as w8
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8, reference_conv_block_w8a8
+    from dfac_tpu_torch.profiling import kernel_device_ms, profile_path
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train.checkpoint import save_checkpoint
+    from dfac_tpu_torch.utils.convert import jax_from_state_dict
+
+    features = TRAIN_FEATURES
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.manual_seed(SEED)
+    models = {k: chain_rates.seed_batchnorm(build_model(k, in_features=features).to(dev).eval(), gen)
+              for k in ("cnn2d", "cnn1d")}
+    sds = {k: m.state_dict() for k, m in models.items()}
+    ds = rates.synthetic_dataset(CLI_UTTS, features, N_FRAMES, 20)
+    n_batches = -(-CLI_UTTS // BATCH)
+
+    # -- the w8a8 chain and int8 ingest in process: launches, and scores against the f32 --fast chain
+    f32_ref = {"cnn2d": fast_infer.predict_scores_fast(sds["cnn2d"], ds, dev, BATCH, compute_dtype=torch.float32),
+               "cnn1d": fast_infer.predict_scores_fast_cnn1d(sds["cnn1d"], ds, dev, BATCH,
+                                                             compute_dtype=torch.float32)}
+    served = {}
+    for name, run in (
+        ("w8a8 f32", lambda: w8.predict_scores_w8a8(sds["cnn2d"], ds, dev, BATCH, compute_dtype=torch.float32)),
+        ("ingest-int8 cnn2d f32", lambda: fast_infer.predict_scores_fast(sds["cnn2d"], ds, dev, BATCH,
+                                                                          compute_dtype=torch.float32,
+                                                                          ingest_int8=True)),
+    ):
+        _build.reset_launch_counts()
+        got = run()
+        served[name] = _build.launch_counts()
+        want = {**dict.fromkeys(served[name], 0),
+                **({"conv_block_w8a8": 2 * n_batches} if name.startswith("w8a8") else {"conv_block": 3 * n_batches})}
+        require(served[name] == want, f"{name} over {n_batches} batches: launches {served[name]}")
+        d = float(np.abs(got - f32_ref["cnn2d"]).max())
+        phase("int8", f"{name} (in process) over {n_batches} batches: launches {served[name]}; scores vs the f32 "
+                      f"--fast chain max abs {d:.3e} (tolerance {W8A8_SCORE_ATOL})")
+        require(got.shape == (CLI_UTTS,) and np.isfinite(got).all() and d <= W8A8_SCORE_ATOL, f"{name}: {d}")
+    w8a8_launches = served["w8a8 f32"]["conv_block_w8a8"]
+
+    # -- conv_block_w8a8 against its plain version at the serving shapes, from a batch of the chain
+    feats = torch.randn(F32_CORPUS // BATCH, BATCH, features, N_FRAMES, device=dev, generator=gen)  # stored (F, T)
+    f8 = w8.fold_cnn2d_w8a8({k: v.to(dev) for k, v in sds["cnn2d"].items()}, feats[0].cpu().numpy())
+    q1 = w8.block1_w8a8(f8, feats[0].transpose(1, 2), torch.float32)
+    blocks = [(q1, f8["w2q"], f8["deq2"], f8["b2"], f8["inv_s2"])]
+    blocks.append((conv_block_w8a8(*blocks[0]), f8["w3q"], f8["deq3"], f8["b3"], None))
+    odd = (q1[:, : q1.shape[1] - 1].contiguous(), *blocks[0][1:])  # an odd H: 159 conv rows
+    w8_err = 0.0
+    for args in (*blocks, odd):
+        got = conv_block_w8a8(*args)
+        torch.cuda.synchronize()
+        want = reference_conv_block_w8a8(*args)
+        err = float((got.float() - want.float()).abs().max())
+        w8_err = max(w8_err, err)
+        phase("int8", f"conv_block_w8a8 {'int8 pooled' if args[4] is not None else 'f32'} x{tuple(args[0].shape)} "
+                      f"-> {tuple(got.shape)} {str(got.dtype)[6:]}: max abs against the plain version {err!r}")
+        require(torch.equal(got, want), f"conv_block_w8a8 x{tuple(args[0].shape)}: not bit for bit")
+        require(torch.equal(conv_block_w8a8(*args), got), "conv_block_w8a8: a second call differs")
+        del got, want
+    del odd
+    phase("int8", "conv_block_w8a8: bit for bit at both serving shapes and an odd H; a second call equal")
+
+    # -- each block's ms in turns and on the device, its bound, and torch._int_mm over the 9-tap patches
+    w8_ms = w8_plain = w8_lib = 0.0
+    w8_parts = []
+    for i, (x, w, deq, b, inv_s) in enumerate(blocks, 2):
+        batch, h, width, c_in = x.shape
+        c_out = w.shape[-1]
+        conv_rows = 2 * (h // 2) if inv_s is not None else h  # the pool drops an odd last row
+        out_bytes = batch * (h // 2) * width * c_out if inv_s is not None else batch * h * width * c_out * 4
+        bnd = bound(x.numel() + w.numel() + 8 * c_out + out_bytes,
+                    int8=2 * batch * conv_rows * width * c_out * 9 * c_in)
+        w8_parts.append(bnd)
+        ms, plain_ms = in_turns(lambda: reference_conv_block_w8a8(x, w, deq, b, inv_s),
+                                lambda: conv_block_w8a8(x, w, deq, b, inv_s), reps=5)
+        found = kernel_device_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s), "conv_block_w8a8", 10)
+        if found is not None:
+            require(found[1] == 10, f"torch.profiler: {found[1]} conv_block_w8a8 launches over 10 calls")
+            dev_ms, dev_how = found[0], "torch.profiler's kernel records"
+        else:  # the profiler kept no kernel record in this process: CUDA events over back-to-back launches,
+            # which time the device alone, as the kernel outlasts its wrapper's host work
+            dev_ms, dev_how = cuda_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s), 20), "CUDA events, 20 launches"
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+        patches = torch.cat([xp[:, dy:dy + h, dx:dx + width] for dy in range(3) for dx in range(3)], -1)
+        patches = patches.reshape(-1, 9 * c_in)
+        wm = w.reshape(9 * c_in, c_out).contiguous()
+        del xp
+        lib_ms = statistics.mean(cuda_ms(lambda: torch._int_mm(patches, wm), 10) for _ in range(2))
+        del patches
+        w8_ms, w8_plain, w8_lib = w8_ms + ms, w8_plain + plain_ms, w8_lib + lib_ms
+        phase("timing", f"conv_block_w8a8 block {i} x{tuple(x.shape)} -> {c_out}"
+                        f"{' int8 pooled' if inv_s is not None else ' f32'}: kernel {ms:.4f} ms in turns, device "
+                        f"{dev_ms:.4f} ms a launch ({dev_how}), bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                        f"{bnd[0] / dev_ms:.1%} of the bound's rate on the device; plain {plain_ms:.4f} ms; control "
+                        f"torch._int_mm over the 9-tap "
+                        f"patch matrix ({batch * h * width} x {9 * c_in} int8, no epilogue; computes less) "
+                        f"{lib_ms:.4f} ms, on {card}")
+    w8_bound = bound_sum(w8_parts)
+
+    # -- chain rates: w8a8 against K2's f32 and bf16 chains, and one profile of the w8a8 chain
+    f2 = {k: v.to(dev) for k, v in fast_infer.fold_cnn2d(sds["cnn2d"]).items()}
+    chains = {
+        "w8a8 f32": lambda f: w8.cnn2d_w8a8_scores(f8, f, compute_dtype=torch.float32),
+        "w8a8 bf16": lambda f: w8.cnn2d_w8a8_scores(f8, f, compute_dtype=torch.bfloat16),
+        "K2 f32 (predict --fast)": lambda f: fast_infer.cnn2d_fast_scores(f2, f, compute_dtype=torch.float32),
+        "K2 bf16 (predict --fast --bf16)": lambda f: fast_infer.cnn2d_fast_scores(f2, f),
+    }
+    n_runs = (chain_rates.REPS + 1) * (F32_CORPUS // BATCH)
+    for name, score in chains.items():
+        _build.reset_launch_counts()
+        r = chain_rates.rates(chain_rates.runner(score, feats), F32_CORPUS)
+        timed = _build.launch_counts()
+        key, per = ("conv_block_w8a8", 2) if name.startswith("w8a8") else ("conv_block", 3)
+        require(timed == {**dict.fromkeys(timed, 0), key: per * n_runs}, f"{name} timed runs' launches: {timed}")
+        phase("int8", chain_rates.summary(name, r) + f", {F32_CORPUS} feature tensors ({features} x {N_FRAMES}) at "
+                                                     f"B={BATCH}, on {card}")
+    for name in ("w8a8 f32", "w8a8 bf16"):
+        profile_path(f"{name} B={BATCH}", chain_rates.runner(chains[name], feats), F32_CORPUS // BATCH, dev)
+    del feats, blocks, q1
+
+    # -- anomaly embeddings on the card against the CPU eval model
+    emb_ds = rows(ds, 0, EMBED_UTTS)
+    t0 = time.perf_counter()
+    emb = anomaly.extract_embeddings(models["cnn2d"], emb_ds, BATCH)
+    emb_cpu = anomaly.extract_embeddings(copy.deepcopy(models["cnn2d"]).cpu(), emb_ds, BATCH)
+    d = float(np.abs(emb - emb_cpu).max())
+    phase("int8", f"anomaly embeddings {emb.shape} on the card vs the CPU eval model: max abs {d:.3e} (tolerance "
+                  f"{EMBED_ATOL}), {time.perf_counter() - t0:.1f}s")
+    require(emb.shape == (EMBED_UTTS, 128 * features) and d <= EMBED_ATOL, f"embeddings: {emb.shape}, {d}")
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        phase("int8", "anomaly OC-SVM / GMM fits: not run (scikit-learn is not installed here; the CPU tests "
+                      "cover them)")
+    else:
+        rep = anomaly.embedding_anomaly_report(models["cnn2d"], emb_ds, emb_ds, BATCH)
+        phase("int8", f"anomaly report: OC-SVM EER {rep['ocsvm']['eer']!r}, GMM EER {rep['gmm']['eer']!r}")
+
+    # -- the CLIs, as subprocesses: predict's int8 variants, the data tools, train --profile-dir
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_int8_") as tmp:
+        fpath, lpath = write_split(tmp, "all", ds)
+        store = os.path.join(tmp, "store")
+        save_npy_dataset(ds, store)
+        small = {k: write_split(tmp, k, rows(ds, a, b))
+                 for k, (a, b) in (("train", (0, INT8_TRAIN_UTTS)), ("dev", (INT8_TRAIN_UTTS, 2 * INT8_TRAIN_UTTS)))}
+        ck = {k: os.path.join(tmp, f"{k}.ckpt") for k in sds}
+        for k, sd in sds.items():
+            save_checkpoint(ck[k], jax_from_state_dict(sd, k), config={"model": k})
+        pred = os.path.join(tmp, "f32.pkl")
+        write_predictions(pred, ds.uttids, f32_ref["cnn2d"])
+        sub = generate_submission(fpath, pred, "S0", "Smoke", "Int8", "card", output_dir=tmp)
+        outs = {k: os.path.join(tmp, f"{k.replace(' ', '_')}.pkl") for k in PREDICT_INT8}
+        commands = {}
+        for label, (model, on_store, flags) in PREDICT_INT8.items():
+            commands[f"predict {label}"] = [
+                *cli, "dfac_tpu_torch.cli.predict", "--features", store if on_store else fpath, "--checkpoint",
+                ck[model], "--model", model, "--fast", *flags, "--out", outs[label], "--device", dev.type,
+                "--in-features", str(features)]
+        tools = [*cli, "dfac_tpu_torch.cli.data_tools"]
+        npy_out = os.path.join(tmp, "bona_store")
+        commands.update({
+            "data_tools analyze-pickles": [*tools, "analyze-pickles", fpath, lpath],
+            "data_tools check-shape": [*tools, "check-shape", fpath],
+            "data_tools score-distributions": [*tools, "score-distributions", pred],
+            "data_tools submission-stats": [*tools, "submission-stats", sub],
+            "data_tools convert-to-npy": [*tools, "convert-to-npy", fpath, npy_out, "--labels", lpath,
+                                          "--filter-label", "1"],
+            "train --profile-dir": [*cli, "dfac_tpu_torch.cli.train", "--train-features", small["train"][0],
+                                    "--train-labels", small["train"][1], "--dev-features", small["dev"][0],
+                                    "--dev-labels", small["dev"][1], "--epochs", "1", "--batch-size",
+                                    str(TRAIN_BATCH), "--quiet", "--checkpoint-dir", os.path.join(tmp, "ck"),
+                                    "--profile-dir", os.path.join(tmp, "prof"), "--device", dev.type,
+                                    "--in-features", str(features)],
+        })
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli_out = run_all(commands, env)
+        phase("int8", f"{len(commands)} CLIs (concurrent): {time.perf_counter() - t0:.1f}s")
+        for label, out in cli_out.items():
+            for line in out.strip().splitlines():
+                phase("int8", f"cli {label}: {line}")
+        for label, (model, _, _) in PREDICT_INT8.items():
+            got = pd.read_pickle(outs[label])
+            require(got["uttid"].tolist() == ds.uttids, f"predict {label}: uttids")
+            d = float(np.abs(got["predictions"].to_numpy() - f32_ref[model]).max())
+            phase("int8", f"CLI predict {label} vs the f32 --fast chain ({model}): max abs {d:.3e} (tolerance "
+                          f"{W8A8_SCORE_ATOL})")
+            require(d <= W8A8_SCORE_ATOL, f"predict {label}: {d}")
+        shape_out = cli_out["data_tools check-shape"]
+        require(f"Shape: ({features}, {N_FRAMES})" in shape_out and "Dtype: float32" in shape_out, shape_out)
+        require("protocol:" in cli_out["data_tools analyze-pickles"], "analyze-pickles: no report")
+        require(len(cli_out["data_tools score-distributions"].strip().splitlines()) == 2, "score-distributions")
+        n1 = int((f32_ref["cnn2d"] > 0.5).sum())
+        require(f"Class 1 count: {n1}" in cli_out["data_tools submission-stats"], "submission-stats")
+        bona = load_npy_dataset(npy_out)
+        require(len(bona) == CLI_UTTS // 2 and (np.asarray(bona.labels) == 1).all()
+                and np.array_equal(np.asarray(bona.features), ds.features[ds.labels == 1]),
+                "convert-to-npy --filter-label 1: the store does not hold the bonafide rows")
+        require(os.path.exists(os.path.join(tmp, "ck", "cnn2d_best.ckpt")), "train --profile-dir: no checkpoint")
+        (trace_file,) = os.listdir(os.path.join(tmp, "prof"))
+        with open(os.path.join(tmp, "prof", trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        phase("int8", f"train --profile-dir: {trace_file}, {len(events)} events, {kernels} CUDA kernel events")
+        require(kernels > 0, "train --profile-dir: the trace holds no CUDA kernel event")
+
+        # -- the host quantizer against the bf16 cast, and int8 against bf16 ingest end to end from a store
+        big = os.path.join(tmp, "big_store")
+        save_npy_dataset(rates.synthetic_dataset(INT8_STORE_UTTS, features, N_FRAMES, 21), big)
+        big_ds = load_npy_dataset(big)
+        host = np.ascontiguousarray(big_ds.features[:BATCH])
+        for name, fn in (("cast_bf16", fastcast.cast_bf16), ("quant_i8", fastcast.quant_i8)):
+            fn(host)
+            ms = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                fn(host)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            phase("int8", f"host {name} of a batch of {BATCH} ({host.nbytes / 1e6:.1f} MB f32): "
+                          f"{statistics.median(ms):.4f} ms (median of 7; min {min(ms):.4f}, max {max(ms):.4f}), "
+                          f"{torch.get_num_threads()} threads")
+        e2e = {}
+        for ingest_int8 in (False, True, True, False):
+            stats = PrefetchStats()
+            t0 = time.perf_counter()
+            fast_infer.predict_scores_fast(sds["cnn2d"], big_ds, dev, BATCH, stats=stats, ingest_int8=ingest_int8)
+            dt = time.perf_counter() - t0
+            e2e.setdefault(ingest_int8, []).append(INT8_STORE_UTTS / dt)
+            phase("int8", f"predict_scores_fast bf16 from a {INT8_STORE_UTTS}-utterance store, "
+                          f"{'int8' if ingest_int8 else 'bf16'} ingest: {INT8_STORE_UTTS / dt:.1f} utt/s (host-wait "
+                          f"{stats.host_wait_s:.3f}s, device-wait {stats.device_wait_s:.3f}s), on {card}")
+    phase("int8", f"end to end, bf16 ingest {e2e[False]} against int8 ingest {e2e[True]} utt/s")
+    return {"name": "conv_block_w8a8", "route": "cuda", "source": "dfac_tpu_torch/csrc/conv_block_w8a8.cu",
+            "replaces": "dfac_tpu/models/fast_infer_int8.py:188 (an XLA int8 conv; no Pallas counterpart)",
+            "launches": w8a8_launches, "max_abs_err": w8_err, "ms": w8_ms, "plain_ms": w8_plain,
+            "bound_ms": w8_bound[0], "bound_by": w8_bound[1], "library_ms": w8_lib}
+
+
 def kernel_phases():
     """Phases 1-14; returns ``(kernels, kind, card, dev)``, or None without a GPU."""
     import torch
@@ -1314,6 +1618,8 @@ def kernel_phases():
         "conv2_checksum j4": lib.dfac_conv_chunk_smem(2, 192, 176, 64),
         "conv2_checksum j5": lib.dfac_conv_chunk_smem(3, 192, 176, 128),
         "conv1_tc c2": lib.dfac_conv_chunk_smem(4, 182, 65536, 32),
+        "conv_block_w8a8 32->64": lib.dfac_conv_block_w8a8_smem(32, 64),
+        "conv_block_w8a8 64->128": lib.dfac_conv_block_w8a8_smem(64, 128),
     }
     phase("build", "dynamic shared memory per block: " + ", ".join(f"{k} {v:,} B" for k, v in smem.items()))
     name, spills = None, "0"
@@ -1322,7 +1628,8 @@ def kernel_phases():
         if m:  # a kernel of ours, with its template arguments (mangled), or None
             k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_f32|conv_block_direct|"
                           r"conv_block_cin1_tc|conv_block_cin1_f32|conv_block_cin1|fb_log_dct_kernel|"
-                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_tc|conv1_emit)"
+                          r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_tc|conv1_emit|"
+                          r"conv_block_w8a8)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name, spills = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""), "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -1332,7 +1639,8 @@ def kernel_phases():
         if m and name:  # spills shown where there are any, and always for the probe kernels and K4
             shown = (f", {spills} bytes spill stores"
                      if spills != "0" or name.startswith(("conv2_checksum", "conv1_tc", "conv1_checksum",
-                                                          "conv1_emit", "fb_log_dct_kernel")) else "")
+                                                          "conv1_emit", "fb_log_dct_kernel", "conv_block_w8a8"))
+                     else "")
             phase("build", f"ptxas {name}: {m.group(1)} registers{shown}")
     check_units(lib_path)
 
@@ -2052,6 +2360,9 @@ def main() -> int:
     # -- 18. the zoo, bf16 training and the sweep CLIs ------------------------------
     torch.cuda.empty_cache()
     zoo_phase(dev, card)
+    # -- 19. int8 serving and the data tools ------------------------------------------
+    torch.cuda.empty_cache()
+    kernels.append(int8_tools_phase(dev, card))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -85,14 +85,13 @@ def refuse_unported_training(args) -> None:
     """Exit non-zero with "not yet ported" on the first set flag of a
     training path the training CLIs do not port yet (fused, chunked,
     data-parallel and multi-host fits, the BN freeze tail, orbax
-    checkpoints, profiler traces)."""
+    checkpoints)."""
     for flag, on in (
         ("--fused-fit", args.fused_fit),
         ("--resident-chunk-batches", args.resident_chunk_batches > 0),
         ("--chunk-ingest", args.chunk_ingest != "f32"), ("--data-parallel", args.data_parallel > 1),
         ("--multihost", args.multihost), ("--bn-freeze-after", args.bn_freeze_after > 0),
         ("--train-fast", args.train_fast), ("--checkpoint-format orbax", args.checkpoint_format == "orbax"),
-        ("--profile-dir", args.profile_dir is not None),
     ):
         if on:
             raise SystemExit(f"{flag}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")

@@ -8,10 +8,14 @@ reference ``.pt`` files.
 
 Ported for ``--model cnn2d`` and ``cnn1d``: ``--fast`` (the folded chain,
 f32 by default or ``--bf16``; CNN2D's through the fused kernels on CUDA,
-CNN1D's through cuDNN), the eval model without ``--fast`` (f32, or bf16
+CNN1D's through cuDNN), ``--fast --ingest-int8`` (int8 rows and
+per-group scales uploaded, dequantized on the device), ``--fast --int8``
+for cnn2d (the w8a8 chain: blocks 2 and 3 on the int8 kernel; composes
+with ``--ingest-int8``), the eval model without ``--fast`` (f32, or bf16
 layers with ``--bf16``, JAX ``cli/predict.py:95-104``), ``--device
 cuda|cpu``. The model's widths come from the checkpoint's weights. The
-other flags of the JAX CLI exit non-zero with "not yet ported".
+JAX CLI's refusals keep its messages; ``--data-parallel`` and
+``--multihost`` exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -33,9 +37,15 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", help="bfloat16 activations, f32 accumulation")
     p.add_argument("--fast", action="store_true", help="folded-BatchNorm fused serving chain")
     p.add_argument("--data-parallel", type=int, default=0)
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--ingest-int8", action="store_true")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="w8a8 int8 device compute for the folded cnn2d chain: blocks 2-3 run int8 x int8 -> "
+                        "int32 on the int8 conv-block kernel (per-output-channel weight scales, calibrated "
+                        "static activation scales). Requires --fast, cnn2d, single device")
+    p.add_argument("--ingest-int8", action="store_true",
+                   help="quantize feature rows to int8 (a scale per utterance x feature dim) on the host and "
+                        "dequantize on the device: half the host->device bytes of bf16 ingest; scores shift "
+                        "by ~amax/254 per group. Requires --fast")
+    p.add_argument("--multihost", action="store_true", help="not yet ported")
     sig = p.add_mutually_exclusive_group()
     sig.add_argument("--apply-sigmoid", dest="apply_sigmoid", action="store_true", default=True)
     sig.add_argument("--no-apply-sigmoid", dest="apply_sigmoid", action="store_false")
@@ -48,21 +58,19 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_yet_ported(args) -> str | None:
-    for flag, on in (
-        ("--int8", args.int8), ("--ingest-int8", args.ingest_int8),
-        ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
-    ):
-        if on:
-            return flag
-    return None
-
-
 def main(argv=None):
     args = parse_args(argv)
-    missing = _not_yet_ported(args)
-    if missing:
-        raise SystemExit(f"{missing}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+    if args.ingest_int8 and not args.fast:
+        raise SystemExit("--ingest-int8 rides the folded fast chain — add --fast")
+    if args.int8 and (not args.fast or args.model != "cnn2d" or args.multihost or args.data_parallel > 1):
+        raise SystemExit(
+            "--int8 (w8a8 device compute) runs the folded cnn2d chain on a "
+            "single device — use with --fast --model cnn2d and without "
+            "--multihost/--data-parallel"
+        )
+    for flag, on in (("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost)):
+        if on:
+            raise SystemExit(f"{flag}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
 
     import torch
 
@@ -83,13 +91,16 @@ def main(argv=None):
     stats = PrefetchStats()
     t_run = time.perf_counter()
     if args.fast:
-        fast = predict_scores_fast if args.model == "cnn2d" else predict_scores_fast_cnn1d
+        if args.int8:
+            from dfac_tpu_torch.models.fast_infer_int8 import predict_scores_w8a8 as fast
+        else:
+            fast = predict_scores_fast if args.model == "cnn2d" else predict_scores_fast_cnn1d
         scores = fast(
             state_dict, ds, device,
             batch_size=args.batch_size, swap_tf=args.swap_tf,
             apply_sigmoid=args.apply_sigmoid,
             compute_dtype=dtype,
-            stats=stats,
+            stats=stats, ingest_int8=args.ingest_int8,
         )
     else:
         model = model_from_state_dict(args.model, state_dict, dropout=args.dropout,

@@ -6,7 +6,8 @@ defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on the
 CPU). Trains every ``--model`` choice on one device, in f32 or ``--bf16``
 (the families that take a compute dtype: CNN2D and CNN1D; the zoo trains
 in f32, as in JAX), host-fed or ``--device-resident``; ``--resume``,
-``--run-name``, ``--debug-augment-stats`` work. The display is the rich
+``--run-name``, ``--debug-augment-stats`` and ``--profile-dir`` (a
+``torch.profiler`` Chrome trace of the fit) work. The display is the rich
 dashboard, ``--no-rich`` tqdm and ``--quiet`` none (the JAX CLI's
 ``create_visualizer`` chain). The flags of paths not ported yet exit
 non-zero with "not yet ported".
@@ -80,7 +81,8 @@ def parse_args(argv=None):
                    help="resume training from a checkpoint (model+optimizer+scheduler+epoch)")
     p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
     p.add_argument("--train-fast", action="store_true", help="not yet ported")
-    p.add_argument("--profile-dir", default=None, help="not yet ported")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the fit into this directory")
     add_multihost_args(p)
     add_swap_tf_args(p)
     return p.parse_args(argv)
@@ -158,11 +160,14 @@ def main(argv=None):
         feats = np.transpose(first, (0, 2, 1)) if args.swap_tf else first
         _debug_augment_stats(trainer.augment_fn, np.ascontiguousarray(feats, np.float32), trainer.device)
 
-    result = trainer.fit(
-        train_ds, dev_ds, checkpoint_dir=checkpoint_root,
-        config_snapshot=build_config_dict(args),
-        resume_from=args.resume,
-    )
+    from dfac_tpu_torch.obs.profiling import trace
+
+    with trace(args.profile_dir):
+        result = trainer.fit(
+            train_ds, dev_ds, checkpoint_dir=checkpoint_root,
+            config_snapshot=build_config_dict(args),
+            resume_from=args.resume,
+        )
     if result["best_eer"] is not None:
         print(f"best dev EER: {result['best_eer']:.6f}")
     return result

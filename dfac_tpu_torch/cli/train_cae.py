@@ -9,7 +9,7 @@ with ``--no-rich`` or where ``rich`` is not installed, nothing with
 ``normalizer.npz`` artifacts. The same flags and final line, with
 ``--device`` defaulting to ``cuda`` (no implicit fallback; ``--device
 cpu`` runs on the CPU). Trains in f32 on one device, host-fed or
-``--device-resident``; the flags of paths not ported yet exit non-zero
+``--device-resident``, ``--profile-dir`` tracing the fit; the flags of paths not ported yet exit non-zero
 with "not yet ported".
 """
 
@@ -47,7 +47,8 @@ def parse_args(argv=None):
     add_multihost_args(p)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
-    p.add_argument("--profile-dir", default=None, help="not yet ported")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the fit into this directory")
     p.add_argument("--no-rich", action="store_true")
     p.add_argument("--quiet", action="store_true")
     return p.parse_args(argv)
@@ -80,7 +81,10 @@ def main(argv=None):
     visualizer = create_cae_visualizer("noop" if args.quiet else ("plain" if args.no_rich else "rich"))
     trainer = CAETrainer(cfg, visualizer=visualizer, device=args.device)
     normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
-    result = trainer.fit(train_ds, dev_ds, checkpoint_dir=args.checkpoint_dir, normalizer=normalizer)
+    from dfac_tpu_torch.obs.profiling import trace
+
+    with trace(args.profile_dir):
+        result = trainer.fit(train_ds, dev_ds, checkpoint_dir=args.checkpoint_dir, normalizer=normalizer)
     print(f"best val reconstruction MSE: {result['best_val_mse']:.6f}")
     return result
 

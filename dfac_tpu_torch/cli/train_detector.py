@@ -11,8 +11,8 @@ for bf16 activations). The same flags and lines, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on
 the CPU). Trains on one device, in f32 or ``--bf16`` (the model in bf16,
 which then scores the test split without ``--fast``, as in JAX), host-fed
-or ``--device-resident``; the flags of other paths not ported yet exit
-non-zero with "not yet ported".
+or ``--device-resident``, ``--profile-dir`` tracing the fit; the flags of
+other paths not ported yet exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ def parse_args(argv=None):
     p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
-    p.add_argument("--profile-dir", default=None, help="not yet ported")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the fit into this directory")
     add_multihost_args(p)
     return p.parse_args(argv)
 
@@ -108,7 +109,10 @@ def main(argv=None):
         train_ds = load_dataset(*split_paths(args.train_split))
         dev_ds = load_dataset(*split_paths(args.dev_split))
         trainer = DetectorTrainer(cfg, in_channels=train_ds.features.shape[1], device=device)
-        result = trainer.fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
+        from dfac_tpu_torch.obs.profiling import trace
+
+        with trace(args.profile_dir):
+            result = trainer.fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
         print(f"Training done. Best dev EER: {result['best_eer']:.6f}")
     test_ds = load_dataset(test_feat, test_lab if has_test_labels else None)
 

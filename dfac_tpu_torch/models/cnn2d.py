@@ -50,10 +50,15 @@ class CNN2D(nn.Module):
         )
         self.classifier = Linear(bc * 4 * in_features, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, F) in model-view orientation -> f32 logits (B, 1)."""
+    def forward(self, x: torch.Tensor, return_embedding: bool = False):
+        """x: (B, T, F) in model-view orientation -> f32 logits (B, 1); with
+        ``return_embedding``, ``(logits, embedding)``, the embedding the
+        classifier reads (the mean over time, channel-major: c * F + f,
+        128 * F wide) in f32 (JAX ``dfac_tpu/models/cnn2d.py:66-71``)."""
         h = self.conv(x.unsqueeze(1).to(self.compute_dtype or x.dtype))  # (B, C, T', F)
-        return self.classifier(h.mean(dim=2).flatten(1)).float()  # channel-major: c * F + f
+        embedding = h.mean(dim=2).flatten(1)
+        logits = self.classifier(embedding).float()
+        return (logits, embedding.float()) if return_embedding else logits
 
     @staticmethod
     def widths(sd: dict) -> dict:

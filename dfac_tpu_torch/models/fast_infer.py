@@ -126,10 +126,49 @@ def ingest(feats_np: np.ndarray, compute_dtype: torch.dtype, device: torch.devic
     batch is staged in pinned memory and copied with ``non_blocking``, so
     the upload of batch k+1 overlaps the scoring of batch k. A batch of a
     memory-mapped store is read-only; the tensor over it is only read."""
-    t = torch.from_numpy(np.ascontiguousarray(feats_np)).to(compute_dtype)
+    return _upload(torch.from_numpy(np.ascontiguousarray(feats_np)).to(compute_dtype), device)
+
+
+def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def ingest_q8(feats_np: np.ndarray, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 host -> device upload (``--ingest-int8``): the rows are
+    quantized per (utterance, group of the last axis) on the host
+    (:func:`dfac_tpu_torch.io.fastcast.quant_i8`), and ``(q, scales)`` go
+    up as :func:`ingest` sends a batch, from pinned memory with
+    ``non_blocking``: half the link bytes of bf16."""
+    from dfac_tpu_torch.io.fastcast import quant_i8
+
+    q, scales = quant_i8(feats_np)
+    return _upload(q, device), _upload(scales, device)
+
+
+def dequant8(q: torch.Tensor, scales: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """int8 rows and per-group scales -> ``dt`` features on the device: an
+    f32 multiply broadcast over the group (last) axis, then one cast."""
+    return (q.float() * scales[..., None].float()).to(dt)
+
+
+def cnn2d_fast_scores_q8(
+    folded: dict,
+    q: torch.Tensor,
+    scales: torch.Tensor,
+    swap_tf: bool = True,
+    apply_sigmoid: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """int8-quantized features -> (B,) scores through the folded chain.
+    ``swap_tf=True``: rows stored (B, F, T), one scale per (utterance,
+    feature dim), turned to (T, F) once at entry as in
+    :func:`cnn2d_fast_scores`; False: (B, T, F) rows, one scale per frame.
+    The dequantize is one eager pass before K2's block 1."""
+    feats = dequant8(q, scales, compute_dtype)
+    score = cnn2d_fast_scores if swap_tf else cnn2d_fast_scores_tf
+    return score(folded, feats, apply_sigmoid, compute_dtype)
 
 
 def predict_scores_fast(
@@ -141,24 +180,38 @@ def predict_scores_fast(
     apply_sigmoid: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
     stats=None,
+    ingest_int8: bool = False,
 ) -> np.ndarray:
     """Score a whole :class:`~dfac_tpu_torch.data.pipeline.ArrayDataset`
     through the folded chain on ``device``; (N,) float32 in dataset order.
 
     ``swap_tf`` follows the reference predict CLI (``src/predict.py:100-111``):
     True means the features are stored (F, T) and the model sees the
-    transposed grid."""
+    transposed grid. ``ingest_int8`` uploads int8 rows and their scales
+    (:func:`ingest_q8`) and dequantizes on the device; scores shift by the
+    quantization step."""
+    folded = {k: v.to(device) for k, v in fold_cnn2d(state_dict).items()}
+    chain = cnn2d_fast_scores if swap_tf else cnn2d_fast_scores_tf
+    return score_dataset(
+        lambda feats: chain(folded, feats, apply_sigmoid, compute_dtype),
+        lambda q, s: cnn2d_fast_scores_q8(folded, q, s, swap_tf, apply_sigmoid, compute_dtype),
+        ds, device, batch_size, compute_dtype, stats, ingest_int8,
+    )
+
+
+def score_dataset(score, score_q8, ds, device, batch_size, compute_dtype, stats=None, ingest_int8=False):
+    """Run a fast chain over a dataset, batch by batch, with host ingest in
+    the prefetch thread: ``score(feats)`` on :func:`ingest`'s batches, or
+    with ``ingest_int8`` ``score_q8(q, scales)`` on :func:`ingest_q8`'s;
+    (N,) float32 in dataset order."""
     from dfac_tpu_torch.train.evaluate import collect_masked_scores
 
-    folded = {k: v.to(device) for k, v in fold_cnn2d(state_dict).items()}
-    score = cnn2d_fast_scores if swap_tf else cnn2d_fast_scores_tf
+    if ingest_int8:
+        run, prepare = (lambda qs: score_q8(*qs)), (lambda b: ingest_q8(b.features, device))
+    else:
+        run, prepare = score, (lambda b: ingest(b.features, compute_dtype, device))
     with torch.inference_mode():
-        return collect_masked_scores(
-            lambda feats: score(folded, feats, apply_sigmoid, compute_dtype),
-            ds, batch_size,
-            prepare_batch=lambda b: ingest(b.features, compute_dtype, device),
-            stats=stats,
-        )
+        return collect_masked_scores(run, ds, batch_size, prepare_batch=prepare, stats=stats)
 
 
 def fold_cnn1d(state_dict: dict) -> dict:
@@ -202,6 +255,19 @@ def cnn1d_fast_scores(
     return _cnn1d_chain_scores(folded, h.to(compute_dtype), apply_sigmoid, compute_dtype)
 
 
+def cnn1d_fast_scores_q8(
+    folded: dict,
+    q: torch.Tensor,
+    scales: torch.Tensor,
+    swap_tf: bool = True,
+    apply_sigmoid: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """int8-quantized features -> (B,) scores through the folded CNN1D
+    chain: the dequantize in the quantized orientation, then the chain."""
+    return cnn1d_fast_scores(folded, dequant8(q, scales, compute_dtype), swap_tf, apply_sigmoid, compute_dtype)
+
+
 def predict_scores_fast_cnn1d(
     state_dict: dict,
     ds,
@@ -211,20 +277,17 @@ def predict_scores_fast_cnn1d(
     apply_sigmoid: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
     stats=None,
+    ingest_int8: bool = False,
 ) -> np.ndarray:
     """Score a whole dataset through the folded CNN1D chain on ``device``;
-    (N,) float32 in dataset order (batching and ingest as
+    (N,) float32 in dataset order (batching, ingest and ``ingest_int8`` as
     :func:`predict_scores_fast`)."""
-    from dfac_tpu_torch.train.evaluate import collect_masked_scores
-
     folded = on_device(fold_cnn1d(state_dict), device, compute_dtype)
-    with torch.inference_mode():
-        return collect_masked_scores(
-            lambda feats: cnn1d_fast_scores(folded, feats, swap_tf, apply_sigmoid, compute_dtype),
-            ds, batch_size,
-            prepare_batch=lambda b: ingest(b.features, compute_dtype, device),
-            stats=stats,
-        )
+    return score_dataset(
+        lambda feats: cnn1d_fast_scores(folded, feats, swap_tf, apply_sigmoid, compute_dtype),
+        lambda q, s: cnn1d_fast_scores_q8(folded, q, s, swap_tf, apply_sigmoid, compute_dtype),
+        ds, device, batch_size, compute_dtype, stats, ingest_int8,
+    )
 
 
 def fold_cae(state_dict: dict) -> dict:

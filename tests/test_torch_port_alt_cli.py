@@ -28,7 +28,6 @@ REFUSED = [
     ("--bn-freeze-after", "0.5"),
     ("--train-fast",),
     ("--checkpoint-format", "orbax"),
-    ("--profile-dir", "trace"),
 ]
 
 

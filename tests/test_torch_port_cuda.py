@@ -21,7 +21,10 @@ that are not multiples of v3's group of 8, every output against the plain
 version; for stages 14 and 15's cases every output at small odd sizes,
 F not a multiple of 8, h2's clamped second window, c2's partly and wholly
 clamped last chunks and chunks longer than a block, j5 at 64 -> 128
-channels, and at the stages' own widths at B=2). On the card, without the JAX
+channels, and at the stages' own widths at B=2; for the w8a8 int8 block
+both modes bit for bit at odd H, W not a multiple of its 64-column tile,
+B=1, saturating codes, C_in 32 and 64 (blocks 2 and 3), fewer tiles than SMs, more tiles
+than a wave, misaligned input, a second call equal to the first). On the card, without the JAX
 package's conftest (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
@@ -36,6 +39,7 @@ from dfac_tpu_torch.ops import _build
 from dfac_tpu_torch.ops import conv_block as tcb
 from dfac_tpu_torch.ops import conv_probe
 from dfac_tpu_torch.ops.conv_block import fused_conv_block, reference_conv_block
+from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8, reference_conv_block_w8a8
 from dfac_tpu_torch.ops.gemm_frontend import cepstra_plain, gemm_lfcc_cepstra
 from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
 from dfac_tpu_torch.ops.pool import time_pool, time_pool_plain
@@ -759,3 +763,73 @@ def test_conv1_checksum_repeats_and_does_not_depend_on_the_batch(cuda, name, bat
     assert torch.equal(case.kernel(inp.flip(0), w), out.flip(0))
     for i in range(batch):
         assert torch.equal(case.kernel(inp[i : i + 1], w), out[i : i + 1])
+
+
+# -- the w8a8 int8 conv block -------------------------------------------------------------------------------------
+
+W8A8_CASES = [  # (B, H, W, C_in, C_out)
+    (1, 2, 1, 32, 64), (1, 3, 7, 32, 64), (2, 9, 65, 32, 64), (3, 16, 64, 32, 64), (1, 33, 180, 32, 64),
+    (2, 5, 63, 64, 128), (1, 4, 129, 64, 128), (2, 17, 180, 64, 128), (3, 8, 20, 64, 128), (2, 7, 70, 64, 128),
+    (64, 20, 180, 32, 64), (40, 20, 180, 64, 128),  # many tiles a block: the halo ring wraps
+]
+
+
+def _w8a8_inputs(dev, b, h, w, cin, cout, seed=0, lo=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randint(lo, 128, (b, h, w, cin), generator=g, dtype=torch.int8)
+    wq = torch.randint(-128, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8)
+    deq = torch.rand(cout, generator=g) * 2e-4 + 1e-5
+    bias = torch.rand(cout, generator=g) - 0.5
+    return (t.to(dev) for t in (x, wq, deq, bias))
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("b,h,w,cin,cout", W8A8_CASES)
+def test_conv_block_w8a8_matches_plain_bit_for_bit(cuda, b, h, w, cin, cout, quantized):
+    x, wq, deq, bias = _w8a8_inputs(cuda, b, h, w, cin, cout)
+    inv_s = 1.0 / 0.05 if quantized else None
+    before = _build.launch_counts()["conv_block_w8a8"]
+    got = conv_block_w8a8(x, wq, deq, bias, inv_s)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["conv_block_w8a8"] == before + (1 if got.numel() else 0)
+    want = reference_conv_block_w8a8(x, wq, deq, bias, inv_s)
+    assert got.dtype == want.dtype == (torch.int8 if quantized else torch.float32)
+    assert got.shape == want.shape == (b, h // 2 if quantized else h, w, cout)
+    assert torch.equal(got, want)
+    assert torch.equal(conv_block_w8a8(x, wq, deq, bias, inv_s), got)  # a second call, bit for bit
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128)])
+def test_conv_block_w8a8_saturates(cuda, cin, cout):
+    """Every code 127 or -128 and the largest weights: |acc| at its bound;
+    the quantized mode clips at 127 and the pool stays in range."""
+    x = torch.full((2, 6, 70, cin), 127, dtype=torch.int8, device=cuda)
+    x[1] = -128
+    wq = torch.full((3, 3, cin, cout), -128, dtype=torch.int8, device=cuda)
+    wq[..., ::2] = 127
+    deq = torch.full((cout,), 1e-3, device=cuda)
+    bias = torch.zeros(cout, device=cuda)
+    for inv_s in (1.0, None):
+        got = conv_block_w8a8(x, wq, deq, bias, inv_s)
+        assert torch.equal(got, reference_conv_block_w8a8(x, wq, deq, bias, inv_s))
+    assert int(conv_block_w8a8(x, wq, deq, bias, 1.0).max()) == 127
+
+
+def test_conv_block_w8a8_misaligned_input(cuda):
+    x, wq, deq, bias = _w8a8_inputs(cuda, 2, 6, 33, 32, 64, seed=1)
+    base = torch.zeros(x.numel() + 8, dtype=torch.int8, device=cuda)
+    xm = base[8:].view(x.shape)  # 8 bytes past a 16-byte boundary
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 8
+    assert torch.equal(conv_block_w8a8(xm, wq, deq, bias, 20.0), reference_conv_block_w8a8(x, wq, deq, bias, 20.0))
+
+
+def test_conv_block_w8a8_refuses_what_it_does_not_take(cuda):
+    x, wq, deq, bias = _w8a8_inputs(cuda, 1, 4, 8, 32, 64)
+    with pytest.raises(TypeError):
+        conv_block_w8a8(x.float(), wq, deq, bias)
+    with pytest.raises(ValueError):
+        conv_block_w8a8(x[..., :16].contiguous(), wq[:, :, :16].contiguous(), deq, bias)  # C_in 16
+    with pytest.raises(ValueError):
+        conv_block_w8a8(x, wq, deq[:32], bias)
+    assert _build.library().dfac_conv_block_w8a8_smem(32, 64) > 48 * 1024

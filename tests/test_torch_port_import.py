@@ -31,6 +31,8 @@ EXPECTED = {
     "dfac_tpu_torch.models.zoo", "dfac_tpu_torch.obs.factory", "dfac_tpu_torch.obs.rich_visualizer",
     "dfac_tpu_torch.obs.tqdm_visualizer", "dfac_tpu_torch.train.benchmark_harness", "dfac_tpu_torch.cli.benchmark",
     "dfac_tpu_torch.cli.compare_kernels", "dfac_tpu_torch.cli.compare_normalization",
+    "dfac_tpu_torch.io.fastcast", "dfac_tpu_torch.models.fast_infer_int8", "dfac_tpu_torch.ops.conv_block_w8a8",
+    "dfac_tpu_torch.ensemble.anomaly", "dfac_tpu_torch.cli.data_tools", "dfac_tpu_torch.obs.profiling",
 }
 
 _PROBE = """
@@ -76,6 +78,10 @@ arrs = {"x": x, "w9": w.reshape(9, 8), "p9": torch.zeros(1, 9, 5, 6, dtype=torch
         "xf": torch.zeros(1, 2, 40, dtype=torch.bfloat16), "wt": torch.zeros(8, 16, dtype=torch.bfloat16)}
 for case in {**conv_probe.STAGE14_CASES, **conv_probe.STAGE15_CASES}.values():
     case.kernel(arrs[case.inp], arrs[case.weights])
+from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8
+for inv_s in (1.0, None):
+    conv_block_w8a8(torch.zeros(1, 4, 4, 32, dtype=torch.int8), torch.zeros(3, 3, 32, 64, dtype=torch.int8),
+                    torch.ones(64), torch.zeros(64), inv_s)
 print(json.dumps({"mods": mods, "bad": bad, "launches": _build.launch_counts(), "scores": list(scores.shape)}))
 """
 
@@ -91,7 +97,7 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     # CPU tensors: plain versions only
     assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0,
                                   "conv_probe": 0, "conv1_pass": 0, "conv_forms": 0, "conv_chunked": 0,
-                                  "conv_trailing": 0}
+                                  "conv_trailing": 0, "conv_block_w8a8": 0}
     assert report["scores"] == [2]
 
 

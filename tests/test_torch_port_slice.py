@@ -145,7 +145,7 @@ def test_load_features_refuses_a_pickle_with_no_rows(tmp_path):
         t_load(str(fpath))
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--ingest-int8"], ["--data-parallel", "2"], ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--multihost"]])
 def test_predict_cli_refuses_what_is_not_ported(flag, tmp_path):
     from dfac_tpu_torch.cli import predict as tpredict
 

@@ -123,8 +123,7 @@ def test_resume_trains_only_the_remaining_epochs(corpus, trained, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--multihost"],
                                   ["--resident-chunk-batches", "4"], ["--chunk-ingest", "bf16"], ["--fused-fit"],
-                                  ["--bn-freeze-after", "0.5"], ["--train-fast"], ["--checkpoint-format", "orbax"],
-                                  ["--profile-dir", "p"]])
+                                  ["--bn-freeze-after", "0.5"], ["--train-fast"], ["--checkpoint-format", "orbax"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         ttrain.main(flag)
