@@ -197,6 +197,35 @@ line:
             against ``cast_bf16`` on a batch of 128 and ``predict_scores_fast``
             with int8 against bf16 ingest from a 2,048-utterance store, in
             turns
+20. train-rest  the remainder of single-device training at full width
+            (CNN2D 1 -> 32 -> 64 -> 128 on 180 x 321, the CAE at base 32, the
+            detector at hidden 256; synthetic splits of 1,024 / 256 / 128
+            utterances with 160-321 valid frames): six CLIs at once, 2 epochs
+            at B=32 (``train --resident-chunk-batches 4 --chunk-ingest int8
+            --train-fast``, ``train --fused-fit``, ``train_cae --fused-fit
+            --train-fast``, ``train_cae --resident-chunk-batches 4
+            --chunk-ingest bf16``, ``train_detector --fused-fit --train-fast
+            --ema``, ``train_detector --resident-chunk-batches 4``: exit 0,
+            their lines and artifacts), beside them in process ``fit_fused``
+            against the per-epoch resident ``fit`` for CNN2D (plateau, early
+            stop) and the detector (EMA, SpecAugment, patience) at B=32 for 3
+            epochs with cuDNN's deterministic algorithms (the same best epoch,
+            the histories within rel 1e-3, the best snapshot's BatchNorm
+            statistics) and the freeze tail (epoch 3 of 3 at frac 0.5 leaves
+            the statistics bit for bit, resident and chunked; a fused run
+            frozen from the start keeps them at their init); then the
+            chunk-trained CNN2D checkpoint served by ``predict_scores_fast``
+            (K2 f32, 3 launches a batch) against ``predict_scores`` (1e-4);
+            then, alone on the card, ms per step and utt/s of the chunked
+            epoch (G=4) per ingest mode beside the resident epoch on the same
+            orders at B=512 (4,096 utterances) and B=32 (1,024), median of 3
+            epochs with min and max and the host-wait share
+            (``PrefetchStats``), the f32 losses within rel 1e-3 of the
+            resident ones; the wall time of ``fit_fused`` against ``fit``
+            for 3 epochs at B=32 and B=512, in turns after a warm-up fit; a
+            fused B=32 detector run traced (CUDA activity only) after three
+            runs on the same trainer (busy share of its own wall, largest
+            items)
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -312,6 +341,13 @@ PREDICT_INT8 = {  # predict --fast's int8 variants: label -> (model, on the .npy
     "--model cnn1d --ingest-int8": ("cnn1d", True, ["--ingest-int8"]),
     "--int8 --ingest-int8": ("cnn2d", True, ["--int8", "--ingest-int8"]),
 }
+# the remainder of single-device training (20)
+REST_UTTS, REST_BIG_BATCH, REST_CHUNK = 4096, 512, 4  # the chunked epoch at B=512: 8 batches in 2 chunks of G=4
+REST_SMALL_UTTS = 1024  # the chunked epoch at B=32: 32 batches in 8 chunks
+REST_CLI_UTTS = {"train": 1024, "dev": 256, "test2": 128}  # the CLIs' and the B=32 fused fits' corpus
+REST_FUSED_BIG_UTTS = 2048  # the fused and per-epoch fits at B=512: 4 steps an epoch
+REST_EPOCHS, REST_REPS = 3, 3  # epochs of a fused / per-epoch fit; timed epochs of a chunked feed
+REST_RTOL = 1e-3  # card runs of one computation in two feeds (cuDNN need not be deterministic)
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
                  "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
@@ -493,8 +529,18 @@ def write_split(root: str, name: str, ds, labeled: bool = True) -> tuple[str, st
 def run_all(commands: dict, env) -> dict:
     """Start every command at once; wait for all; stdout of each, or fail
     with the first non-zero exit and its stderr."""
-    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
-             for k, cmd in commands.items()}
+    return finish_all(start_all(commands, env))
+
+
+def start_all(commands: dict, env) -> dict:
+    """Start every command at once (:func:`finish_all` collects them)."""
+    return {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+            for k, cmd in commands.items()}
+
+
+def finish_all(procs: dict) -> dict:
+    """Wait for every process of :func:`start_all`; stdout of each, or fail
+    with the first non-zero exit and its stderr."""
     outs = {k: p.communicate() for k, p in procs.items()}
     for k, p in procs.items():
         if p.returncode != 0:
@@ -1553,6 +1599,286 @@ def int8_tools_phase(dev, card: str) -> dict:
             "bound_ms": w8_bound[0], "bound_by": w8_bound[1], "library_ms": w8_lib}
 
 
+def train_rest_phase(dev, card: str) -> None:
+    """Phase 20: chunked streaming, the fused fits and the BatchNorm freeze tail (see the module docstring)."""
+    import pandas as pd
+    import torch
+
+    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models.fast_infer import predict_scores_fast
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train.checkpoint import load_model_variables
+    from dfac_tpu_torch.train.detector_loop import DetectorConfig, DetectorTrainer
+    from dfac_tpu_torch.train.evaluate import predict_scores
+    from dfac_tpu_torch.train.loop import TrainConfig, Trainer
+
+    features = TRAIN_FEATURES
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m"]
+
+    def bn_stats(state: dict) -> dict:
+        return {k: v.detach().clone() for k, v in state.items() if "running" in k or "num_batches" in k}
+
+    def close(a, b) -> bool:
+        return bool(np.allclose(a, b, rtol=REST_RTOL, atol=0.0))
+
+    def cnn2d_cfg(**kw):
+        return TrainConfig(**{**dict(batch_size=TRAIN_BATCH, epochs=REST_EPOCHS, in_features=features, seed=SEED,
+                                     label_smoothing=0.05, lr_scheduler="plateau", lr_scheduler_patience=0,
+                                     early_stop=2), **kw})
+
+    def det_cfg(**kw):
+        return DetectorConfig(**{**dict(batch_size=TRAIN_BATCH, epochs=REST_EPOCHS, hidden=DETECTOR_HIDDEN, ema=True,
+                                        specaug=True, patience=1, seed=SEED), **kw})
+
+    def best_epoch(history) -> int:
+        return max(m.epoch for m in history if m.is_best)
+
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_rest_") as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        splits = {name: alt_dataset(n, 50 + i) for i, (name, n) in enumerate(REST_CLI_UTTS.items())}
+        paths = {name: write_split(data, name, ds) for name, ds in splits.items()}
+        train_ds, dev_ds = splits["train"], splits["dev"]
+        # -- the six CLIs, started now and collected after the checks in process below
+        common = ["--batch-size", str(TRAIN_BATCH), "--epochs", "2", "--device", dev.type]
+        split_flags = ["--train-features", paths["train"][0], "--train-labels", paths["train"][1],
+                       "--dev-features", paths["dev"][0], "--dev-labels", paths["dev"][1]]
+        train = [*cli, "dfac_tpu_torch.cli.train", *split_flags, *common, "--in-features", str(features), "--no-rich"]
+        cae = [*cli, "dfac_tpu_torch.cli.train_cae", *split_flags, *common, "--base-channels", str(CAE_BASE),
+               "--no-rich"]
+        det = [*cli, "dfac_tpu_torch.cli.train_detector", "--data-dir", data, *common, "--hidden",
+               str(DETECTOR_HIDDEN)]
+        chunk = ["--resident-chunk-batches", str(REST_CHUNK)]
+        runs = {
+            "train --resident-chunk-batches 4 --chunk-ingest int8 --train-fast":
+                train + ["--checkpoint-dir", os.path.join(ck, "chunked"), *chunk, "--chunk-ingest", "int8",
+                         "--train-fast"],
+            "train --fused-fit": train + ["--checkpoint-dir", os.path.join(ck, "fused"), "--fused-fit"],
+            "train_cae --fused-fit --train-fast":
+                cae + ["--checkpoint-dir", os.path.join(ck, "cae_fused"), "--fused-fit", "--train-fast"],
+            "train_cae --resident-chunk-batches 4 --chunk-ingest bf16":
+                cae + ["--checkpoint-dir", os.path.join(ck, "cae_chunked"), *chunk, "--chunk-ingest", "bf16"],
+            "train_detector --fused-fit --train-fast --ema":
+                det + ["--ckpt-path", os.path.join(ck, "det_fused.ckpt"), "--prediction-pkl",
+                       os.path.join(tmp, "det_fused.pkl"), "--fused-fit", "--train-fast", "--ema"],
+            "train_detector --resident-chunk-batches 4":
+                det + ["--ckpt-path", os.path.join(ck, "det_chunked.ckpt"), "--prediction-pkl",
+                       os.path.join(tmp, "det_chunked.pkl"), *chunk],
+        }
+        t_cli = time.perf_counter()
+        procs = start_all(runs, env)
+
+        # -- fit_fused against the per-epoch resident fit at B=32 (correctness; the CLIs share the card). cuDNN's
+        # deterministic algorithms for these four fits: with its default ones two per-epoch fits part by 2e-3 in
+        # the dev loss within 3 epochs on the card, where the fused and per-epoch fits then agree bit for bit
+        torch.backends.cudnn.deterministic = True
+        ref_t, got_t = Trainer(cnn2d_cfg(device_resident=True), device=dev), Trainer(cnn2d_cfg(), device=dev)
+        ref, got = ref_t.fit(train_ds, dev_ds), got_t.fit_fused(train_ds, dev_ds)
+
+        def rows(history):
+            return [(m.train_loss, m.dev_loss, m.dev_eer, m.learning_rate) for m in history]
+
+        require(len(got["history"]) == len(ref["history"]) and close(rows(got["history"]), rows(ref["history"])),
+                f"CNN2D fused {rows(got['history'])} vs per-epoch {rows(ref['history'])}")
+        require(got["best_epoch"] == best_epoch(ref["history"]), f"best epochs {got['best_epoch']} / {ref['history']}")
+        bs_got, bs_ref = bn_stats(got_t.best_variables()), bn_stats(ref_t.best_variables())
+        require(all(np.allclose(bs_got[k].cpu(), bs_ref[k].cpu(), rtol=REST_RTOL, atol=1e-5) for k in bs_ref),
+                "the fused best snapshot's BatchNorm statistics are not the best epoch's")
+        same = rows(got["history"]) == rows(ref["history"])
+        phase("train-rest", f"CNN2D fit_fused vs per-epoch resident fit, B={TRAIN_BATCH}, {len(train_ds)} / "
+                            f"{len(dev_ds)} utterances, plateau and early stop, cuDNN deterministic: "
+                            f"history (train loss, dev loss, EER, lr) {rows(got['history'])} vs "
+                            f"{rows(ref['history'])} ({'equal' if same else f'rtol {REST_RTOL}'}); best epoch "
+                            f"{got['best_epoch']} both; the best snapshot's BatchNorm statistics the best epoch's")
+        det_ref_t = DetectorTrainer(det_cfg(device_resident=True), in_channels=features, device=dev)
+        det_got_t = DetectorTrainer(det_cfg(), in_channels=features, device=dev)
+        det_ref = det_ref_t.fit(train_ds, dev_ds, ckpt_path=os.path.join(tmp, "det_ref.ckpt"))
+        det_got = det_got_t.fit_fused(train_ds, dev_ds, ckpt_path=os.path.join(tmp, "det_got.ckpt"))
+        torch.backends.cudnn.deterministic = False
+        h_ref = [(h["train_loss"], h["dev_eer"]) for h in det_ref["history"]]
+        h_got = [(h["train_loss"], h["dev_eer"]) for h in det_got["history"]]
+        require(len(h_got) == len(h_ref) and close(h_got, h_ref), f"detector fused {h_got} vs per-epoch {h_ref}")
+        ck_ref, ck_got = (load_model_variables(os.path.join(tmp, f"det_{n}.ckpt"), "detector") for n in ("ref", "got"))
+        require(all(np.allclose(ck_got[k], ck_ref[k], rtol=REST_RTOL, atol=1e-5) for k in bn_stats(ck_ref)),
+                "the detector's best checkpoints hold other BatchNorm statistics")
+        phase("train-rest", f"detector fit_fused vs per-epoch resident fit, B={TRAIN_BATCH}, EMA, SpecAugment, "
+                            f"patience 1, cuDNN deterministic: history (train loss, dev EER) {h_got} vs {h_ref} "
+                            f"({'equal' if h_got == h_ref else f'rtol {REST_RTOL}'}); best "
+                            f"dev EER {det_got['best_eer']!r} / {det_ref['best_eer']!r}; the best checkpoints' "
+                            f"BatchNorm statistics agree")
+        del ref_t, got_t, det_ref_t, det_got_t
+
+        # -- the freeze boundary: epoch 3 of 3 at frac 0.5 (round(1.5) = 2) leaves the statistics as they were
+        for label, kw in (("resident", dict(device_resident=True)), ("chunked f32", dict(resident_chunk_batches=4))):
+            t = Trainer(cnn2d_cfg(bn_freeze_after_frac=0.5, early_stop=0, **kw), device=dev)
+            t.init_state(example_batch=train_ds.features[:1])
+            t.train_epoch(train_ds, 1)
+            t.train_epoch(train_ds, 2)
+            before, params = bn_stats(t.model.state_dict()), t.model.conv[0].weight.detach().clone()
+            t.train_epoch(train_ds, 3)
+            after = bn_stats(t.model.state_dict())
+            require(all(torch.equal(after[k], v) for k, v in before.items()), f"{label}: epoch 3 moved the statistics")
+            require(not torch.equal(params, t.model.conv[0].weight), f"{label}: epoch 3 trained nothing")
+            phase("train-rest", f"freeze tail, CNN2D {label} B={TRAIN_BATCH}: epoch 3 of 3 at frac 0.5 leaves the "
+                                f"{len(before)} BatchNorm buffers bit for bit, conv1 trains on")
+        for name, t in (
+                ("CNN2D", Trainer(cnn2d_cfg(bn_freeze_after_frac=1e-9, early_stop=0), device=dev)),
+                ("detector", DetectorTrainer(det_cfg(bn_freeze_after_frac=1e-9, patience=REST_EPOCHS),
+                                             in_channels=features, device=dev))):
+            t.fit_fused(train_ds, dev_ds)
+            for k, v in bn_stats(t.model.state_dict()).items():
+                want = 1.0 if "running_var" in k else 0.0
+                require(bool((v == want).all()), f"fused {name}: {k} left its init")
+            phase("train-rest", f"freeze tail, {name} fit_fused with every epoch frozen: every BatchNorm buffer at its "
+                                f"init, bit for bit")
+
+        # -- the CLIs
+        outs = finish_all(procs)
+        phase("train-rest", f"{len(runs)} CLIs (concurrent, 2 epochs at B={TRAIN_BATCH}, {len(train_ds)} / "
+                            f"{len(dev_ds)} utterances, beside the checks above): {time.perf_counter() - t_cli:.1f}s")
+        for label, out in outs.items():
+            for line in out.strip().splitlines():
+                phase("train-rest", f"cli {label}: {line}")
+            if label.startswith("train "):
+                run_dir = os.path.join(ck, "chunked" if "chunk" in label else "fused")
+                for kind in ("best", "last"):
+                    require(os.path.exists(os.path.join(run_dir, f"cnn2d_{kind}.ckpt")), f"{label}: no {kind} ckpt")
+                require(re.search(r"^best dev EER: ", out, re.M), f"{label}: no final line")
+                losses = epoch_losses(out)
+                require(len(losses) == (0 if "fused" in label else 2) and np.isfinite(losses).all(),
+                        f"{label}: epoch lines {losses}")
+            elif label.startswith("train_cae"):
+                run_dir = os.path.join(ck, "cae_fused" if "fused" in label else "cae_chunked")
+                for name in ("cae_best.ckpt", "cae_last.ckpt", "normalizer.npz"):
+                    require(os.path.exists(os.path.join(run_dir, name)), f"{label}: no {name}")
+                mse = float(re.search(r"^best val reconstruction MSE: (\S+)$", out, re.M).group(1))
+                require(np.isfinite(mse) and mse > 0, f"{label}: {mse}")
+            else:
+                require(re.search(r"^Training done\. Best dev EER: ", out, re.M), f"{label}: no training line")
+                require(re.search(r"^EER on split 'test2': ", out, re.M), f"{label}: no test2 EER")
+                pred = pd.read_pickle(os.path.join(tmp, "det_fused.pkl" if "fused" in label else "det_chunked.pkl"))
+                require(len(pred) == REST_CLI_UTTS["test2"] and np.isfinite(pred["predictions"]).all(), f"{label}")
+
+        # -- the chunk-trained CNN2D checkpoint served as predict --fast (f32) and predict serve it
+        best = os.path.join(ck, "chunked", "cnn2d_best.ckpt")
+        model = build_model("cnn2d", in_features=features)
+        model.load_state_dict(load_model_variables(best))
+        trained = _build.launch_counts()
+        _build.reset_launch_counts()
+        fast = predict_scores_fast(model.state_dict(), dev_ds, dev, batch_size=BATCH, compute_dtype=torch.float32)
+        served = _build.launch_counts()
+        n_served = -(-len(dev_ds) // BATCH)
+        require(served == {**dict.fromkeys(served, 0), "conv_block": 3 * n_served}, f"served: {served}")
+        plain = predict_scores(model.to(dev), dev_ds, batch_size=BATCH, apply_sigmoid=True)
+        d_in = float(np.abs(fast - plain).max())
+        phase("train-rest", f"the chunk-trained (int8 ingest, --train-fast) CNN2D's best checkpoint: "
+                            f"predict_scores_fast (predict --fast, K2 f32) vs predict_scores (predict) on "
+                            f"{len(dev_ds)} utterances: max abs {d_in:.3e} (tolerance {F32_SCORE_ATOL}), launches over "
+                            f"{n_served} batches {served}")
+        require(d_in <= F32_SCORE_ATOL, "predict and predict --fast disagree")
+        require(not any(trained.values()), f"training launched kernels of the port: {trained}")
+
+    # -- timing, alone on the card: the chunked feed per ingest mode beside the resident epoch
+    _build.reset_launch_counts()
+    for b, n in ((REST_BIG_BATCH, REST_UTTS), (TRAIN_BATCH, REST_SMALL_UTTS)):
+        ds = rates.synthetic_dataset(n, features, N_FRAMES, 60)
+        steps = n // b
+        losses = {}
+        for mode in ("resident", "f32", "bf16", "int8"):
+            kw = dict(device_resident=True) if mode == "resident" else dict(resident_chunk_batches=REST_CHUNK,
+                                                                            chunk_ingest=mode)
+            t = Trainer(TrainConfig(batch_size=b, in_features=features, seed=SEED, label_smoothing=0.05, **kw),
+                        device=dev)
+            t.init_state(example_batch=ds.features[:1])
+            losses[mode], wait = [], []
+
+            def run(i, t=t, mode=mode, wait=wait):
+                losses[mode].append(t.train_epoch(ds, 1 + i))
+                wait.append(t.chunk_feed.stats.host_wait_s if t.chunk_feed.stats is not None else 0.0)
+
+            secs = rates.run_seconds(run, reps=REST_REPS)
+            ms = [1e3 * s / steps for s in secs]
+            utt = [n / s for s in secs]
+            waited = [w / s for w, s in zip(wait[1:], secs)]
+            require(np.isfinite(losses[mode]).all(), f"B={b} {mode}: losses {losses[mode]}")
+            phase("train-rest", f"CNN2D B={b} {'resident' if mode == 'resident' else f'chunked G={REST_CHUNK} {mode}'}"
+                                f" on {n} utterances: {statistics.median(ms):.4f} ms a step (median of {len(ms)} "
+                                f"epochs of {steps} steps; min {min(ms):.4f}, max {max(ms):.4f}), "
+                                f"{statistics.median(utt):.1f} utt/s (min {min(utt):.1f}, max {max(utt):.1f}), "
+                                f"host-wait {statistics.median(waited):.1%} of the epoch (max {max(waited):.1%}); "
+                                f"losses {losses[mode]}, on {card}")
+            del t
+            torch.cuda.empty_cache()
+        require(close(losses["f32"], losses["resident"]),
+                f"B={b} chunked f32 losses {losses['f32']} vs resident {losses['resident']}")
+        del ds
+    # -- fused against per-epoch, 3 epochs, host clock: a 1-epoch warm-up fit at each batch size (cuDNN's
+    # autotuning and the allocator's first blocks), then the two in turns; one profiled fused detector run at B=32
+    for b, n in ((TRAIN_BATCH, REST_CLI_UTTS["train"]), (REST_BIG_BATCH, REST_FUSED_BIG_UTTS)):
+        tr, dv = rates.synthetic_dataset(n, features, N_FRAMES, 61), rates.synthetic_dataset(n // 4, features, N_FRAMES,
+                                                                                             62)
+        Trainer(cnn2d_cfg(batch_size=b, epochs=1, device_resident=True), device=dev).fit(tr, dv)
+        walls = {"per-epoch": [], "fused": []}
+        for kind in ("per-epoch", "fused", "fused", "per-epoch"):
+            t = Trainer(cnn2d_cfg(batch_size=b, device_resident=True), device=dev)
+            t.init_state(example_batch=tr.features[:1])
+            t0 = time.perf_counter()
+            (t.fit if kind == "per-epoch" else t.fit_fused)(tr, dv)
+            walls[kind].append(time.perf_counter() - t0)
+            del t
+        phase("train-rest", f"CNN2D fit B={b}, {REST_EPOCHS} epochs on {n} / {n // 4} utterances, after a warm-up fit: "
+                            f"per-epoch resident {', '.join(f'{w:.3f}' for w in walls['per-epoch'])} s, fused "
+                            f"{', '.join(f'{w:.3f}' for w in walls['fused'])} s (in turns: per-epoch, fused, fused, "
+                            f"per-epoch), on {card}")
+        torch.cuda.empty_cache()
+    tr, dv = train_ds, dev_ds
+    t = DetectorTrainer(det_cfg(patience=REST_EPOCHS), in_channels=features, device=dev)
+    t.init_state()
+    walls = []
+    for _ in range(3):  # the first run uploads the corpus (kept by the trainer) and warms cuDNN
+        t0 = time.perf_counter()
+        t.fit_fused(tr, dv)
+        walls.append(time.perf_counter() - t0)
+    # a fourth run on the same trainer traced with CUDA activity only (recording the CPU-side ops as well lengthens
+    # this launch-bound run's wall ~7x, the trace alone ~2x); busy: the union of its kernel and copy intervals over
+    # its own wall, and over the untraced warm runs' wall (the same work)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t.fit_fused(tr, dv)
+    traced = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    require(events, "the traced detector run recorded no device event")
+    busy_us, end, per_name = 0.0, float("-inf"), {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + b - a, n + 1)
+    steps = -(-len(tr) // TRAIN_BATCH) * REST_EPOCHS
+    device_ms = sum(us for us, _ in per_name.values()) / 1e3
+    phase("train-rest", f"detector fit_fused B={TRAIN_BATCH}, {REST_EPOCHS} epochs on {len(tr)} / {len(dv)} "
+                        f"utterances: wall {', '.join(f'{w:.3f}' for w in walls)} s (the first uploads the corpus); "
+                        f"the fourth traced (CUDA activity only): wall {traced:.3f} s, device {device_ms / steps:.4f} "
+                        f"ms a step (kernels and copies, {steps} steps with the dev passes), busy "
+                        f"{busy_us / 1e6 / traced:.1%} of the traced wall, "
+                        f"{busy_us / 1e6 / statistics.median(walls[1:]):.1%} of the untraced warm runs' median wall, "
+                        f"on {card}")
+    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        phase("train-rest", f"  {us / 1e3 / steps:8.4f} ms {us / 1e3 / device_ms:6.1%} {n / steps:5.1f}x  {name[:110]}")
+    timed = _build.launch_counts()
+    require(not any(timed.values()), f"the timed training runs launched kernels of the port: {timed}")
+    phase("train-rest", f"launches over the timed training runs: {timed} (cuDNN and cuBLAS only)")
+
+
 def kernel_phases():
     """Phases 1-14; returns ``(kernels, kind, card, dev)``, or None without a GPU."""
     import torch
@@ -2363,6 +2689,9 @@ def main() -> int:
     # -- 19. int8 serving and the data tools ------------------------------------------
     torch.cuda.empty_cache()
     kernels.append(int8_tools_phase(dev, card))
+    # -- 20. the remainder of single-device training ------------------------------------
+    torch.cuda.empty_cache()
+    train_rest_phase(dev, card)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -83,15 +83,41 @@ def add_multihost_args(p: argparse.ArgumentParser) -> None:
 
 def refuse_unported_training(args) -> None:
     """Exit non-zero with "not yet ported" on the first set flag of a
-    training path the training CLIs do not port yet (fused, chunked,
-    data-parallel and multi-host fits, the BN freeze tail, orbax
-    checkpoints)."""
+    training path the training CLIs do not port yet (data-parallel and
+    multi-host fits, orbax checkpoints)."""
     for flag, on in (
-        ("--fused-fit", args.fused_fit),
-        ("--resident-chunk-batches", args.resident_chunk_batches > 0),
-        ("--chunk-ingest", args.chunk_ingest != "f32"), ("--data-parallel", args.data_parallel > 1),
-        ("--multihost", args.multihost), ("--bn-freeze-after", args.bn_freeze_after > 0),
-        ("--train-fast", args.train_fast), ("--checkpoint-format orbax", args.checkpoint_format == "orbax"),
+        ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
+        ("--checkpoint-format orbax", args.checkpoint_format == "orbax"),
     ):
         if on:
             raise SystemExit(f"{flag}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+
+
+CHUNK_HELP = ("stream the epoch in chunks of G batches through pinned memory (the upload overlapped with the "
+              "previous chunk's steps) — for corpora larger than the card's memory; same batches and generator "
+              "draws as the default per-batch loop")
+INGEST_HELP = ("compress the chunked-streaming host->device upload: bf16 halves the link bytes, int8 quarters "
+               "them (per-row scales, dequantized on the card before the step) - the remedy for ingest-bound "
+               "chunked training; quality impact EER-gated (tests/test_chunked.py). Requires "
+               "--resident-chunk-batches")
+FREEZE_HELP = ("fast-numerics recipe: freeze BatchNorm (running-stats forward, no stat updates) for epochs after "
+               "FRAC of the schedule (0 disables)")
+
+
+def add_stream_args(p: argparse.ArgumentParser, fused_help: str) -> None:
+    """The JAX training CLIs' ``--fused-fit``, ``--resident-chunk-batches``
+    and ``--chunk-ingest``."""
+    p.add_argument("--fused-fit", action="store_true", help=fused_help)
+    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help=CHUNK_HELP)
+    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help=INGEST_HELP)
+
+
+def check_stream_args(p: argparse.ArgumentParser, args) -> None:
+    """The JAX training CLIs' conflicts (``dfac_tpu/cli/train.py:104-111``)."""
+    if args.fused_fit and args.resident_chunk_batches:
+        p.error("--fused-fit compiles the whole run over a device-resident "
+                "corpus; it cannot stream chunks — drop one of "
+                "--fused-fit/--resident-chunk-batches")
+    if args.device_resident and args.resident_chunk_batches:
+        p.error("--device-resident uploads the whole corpus once; "
+                "--resident-chunk-batches streams it — pick one")

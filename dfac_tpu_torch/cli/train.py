@@ -5,12 +5,17 @@ reference ``src/train.py:94-246``: the same flags, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on the
 CPU). Trains every ``--model`` choice on one device, in f32 or ``--bf16``
 (the families that take a compute dtype: CNN2D and CNN1D; the zoo trains
-in f32, as in JAX), host-fed or ``--device-resident``; ``--resume``,
-``--run-name``, ``--debug-augment-stats`` and ``--profile-dir`` (a
-``torch.profiler`` Chrome trace of the fit) work. The display is the rich
-dashboard, ``--no-rich`` tqdm and ``--quiet`` none (the JAX CLI's
-``create_visualizer`` chain). The flags of paths not ported yet exit
-non-zero with "not yet ported".
+in f32, as in JAX), host-fed, ``--device-resident`` or streamed in chunks
+(``--resident-chunk-batches G``, ``--chunk-ingest f32|bf16|int8``), or as
+one ``--fused-fit`` run (resident, no display; it writes the best and
+last checkpoints at the end, as the JAX CLI does); the BatchNorm
+freeze tail (``--bn-freeze-after FRAC``, ``--train-fast``: dropout 0 and
+a 0.5 tail); ``--resume``, ``--run-name``, ``--debug-augment-stats`` and
+``--profile-dir`` (a ``torch.profiler`` Chrome trace of the fit) work. The
+display is the rich dashboard, ``--no-rich`` tqdm and ``--quiet`` none
+(the JAX CLI's ``create_visualizer`` chain). ``--data-parallel``,
+``--multihost`` and ``--checkpoint-format orbax`` exit non-zero with "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -23,9 +28,12 @@ import numpy as np
 from dfac_tpu_torch.cli.common import (
     add_augment_args,
     add_data_args,
+    FREEZE_HELP,
     add_multihost_args,
+    add_stream_args,
     add_swap_tf_args,
     augment_config_from_args,
+    check_stream_args,
     refuse_unported_training,
     set_seed,
 )
@@ -74,18 +82,26 @@ def parse_args(argv=None):
                    help="checkpoint layout (orbax is not yet ported)")
     p.add_argument("--device-resident", action="store_true",
                    help="upload the training corpus to the card once; gather batches there")
-    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help="not yet ported")
-    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help="not yet ported")
-    p.add_argument("--fused-fit", action="store_true", help="not yet ported")
+    add_stream_args(p, "run the ENTIRE training loop (epochs+eval+plateau+early-stop) over a device-resident "
+                       "corpus (implies --device-resident; no live UI)")
     p.add_argument("--resume", default=None, metavar="CKPT",
                    help="resume training from a checkpoint (model+optimizer+scheduler+epoch)")
-    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
-    p.add_argument("--train-fast", action="store_true", help="not yet ported")
+    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help=FREEZE_HELP)
+    p.add_argument("--train-fast", action="store_true",
+                   help="opt-in fast-numerics recipe: dropout-free training plus a BN freeze tail (2nd half of "
+                        "the schedule)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the fit into this directory")
     add_multihost_args(p)
     add_swap_tf_args(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.train_fast:
+        # the JAX CLI's recipe: no dropout and the BN freeze tail; composes with every training mode
+        args.dropout = 0.0
+        if not args.bn_freeze_after:
+            args.bn_freeze_after = 0.5
+    check_stream_args(p, args)
+    return args
 
 
 def _debug_augment_stats(augment_fn, feats_swapped, device) -> None:
@@ -150,7 +166,10 @@ def main(argv=None):
         swap_tf=args.swap_tf,
         augment=augment_config_from_args(args),
         compute_dtype="bfloat16" if args.bf16 else None,
-        device_resident=args.device_resident,
+        device_resident=args.device_resident or args.fused_fit,
+        resident_chunk_batches=args.resident_chunk_batches,
+        chunk_ingest=args.chunk_ingest,
+        bn_freeze_after_frac=args.bn_freeze_after,
     )
     visualizer = create_visualizer("noop" if args.quiet else ("tqdm" if args.no_rich else "rich"))
     trainer = Trainer(cfg, visualizer=visualizer, device=args.device)
@@ -163,14 +182,39 @@ def main(argv=None):
     from dfac_tpu_torch.obs.profiling import trace
 
     with trace(args.profile_dir):
-        result = trainer.fit(
-            train_ds, dev_ds, checkpoint_dir=checkpoint_root,
-            config_snapshot=build_config_dict(args),
-            resume_from=args.resume,
-        )
+        if args.fused_fit:
+            result = trainer.fit_fused(train_ds, dev_ds, resume_from=args.resume)
+            _save_fused(trainer, result, checkpoint_root, args, build_config_dict(args))
+        else:
+            result = trainer.fit(
+                train_ds, dev_ds, checkpoint_dir=checkpoint_root,
+                config_snapshot=build_config_dict(args),
+                resume_from=args.resume,
+            )
     if result["best_eer"] is not None:
         print(f"best dev EER: {result['best_eer']:.6f}")
     return result
+
+
+def _save_fused(trainer, result: dict, checkpoint_root: str, args, config: dict) -> None:
+    """The JAX CLI's checkpoints after a fused fit (``dfac_tpu/cli/train.py:219-244``):
+    ``*_best.ckpt`` only when an epoch of this run improved (a resumed run
+    keeps its better best), ``*_last.ckpt`` only when an epoch ran (a
+    resume with nothing left keeps its resume point)."""
+    os.makedirs(checkpoint_root, exist_ok=True)
+    trainer_state = {
+        "best_eer": result["best_eer"], "best_train_loss": result["best_train_loss"],
+        "best_dev_loss": result["best_dev_loss"], "epochs_no_improve": result["epochs_no_improve"],
+        "lr": trainer._lr,
+    }
+    if any(m.is_best for m in result["history"]):
+        trainer.save_checkpoint_file(os.path.join(checkpoint_root, f"{args.model}_best.ckpt"),
+                                     epoch=result["best_epoch"], variables=trainer.best_variables(),
+                                     config_snapshot=config, trainer_state=trainer_state)
+    if result["history"]:
+        trainer.save_checkpoint_file(os.path.join(checkpoint_root, f"{args.model}_last.ckpt"),
+                                     epoch=result["history"][-1].epoch, config_snapshot=config,
+                                     trainer_state=trainer_state)
 
 
 if __name__ == "__main__":

@@ -8,16 +8,28 @@ with ``--no-rich`` or where ``rich`` is not installed, nothing with
 ``--quiet``), and the ``cae_best.ckpt`` / ``cae_last.ckpt`` /
 ``normalizer.npz`` artifacts. The same flags and final line, with
 ``--device`` defaulting to ``cuda`` (no implicit fallback; ``--device
-cpu`` runs on the CPU). Trains in f32 on one device, host-fed or
-``--device-resident``, ``--profile-dir`` tracing the fit; the flags of paths not ported yet exit non-zero
-with "not yet ported".
+cpu`` runs on the CPU). Trains in f32 on one device, host-fed,
+``--device-resident``, streamed in chunks (``--resident-chunk-batches``,
+``--chunk-ingest``) or as one ``--fused-fit`` run, with the BatchNorm
+freeze tail (``--bn-freeze-after``; ``--train-fast`` is a 0.5 tail: the
+CAE has no dropout), ``--profile-dir`` tracing the fit;
+``--data-parallel``, ``--multihost`` and ``--checkpoint-format orbax``
+exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
 
 import argparse
 
-from dfac_tpu_torch.cli.common import add_data_args, add_multihost_args, refuse_unported_training, set_seed
+from dfac_tpu_torch.cli.common import (
+    FREEZE_HELP,
+    add_data_args,
+    add_multihost_args,
+    add_stream_args,
+    check_stream_args,
+    refuse_unported_training,
+    set_seed,
+)
 
 
 def parse_args(argv=None):
@@ -38,12 +50,14 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device-resident", action="store_true",
                    help="upload the bonafide corpus to the card once; gather batches there")
-    p.add_argument("--fused-fit", action="store_true", help="not yet ported")
-    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help="not yet ported")
-    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help="not yet ported")
+    add_stream_args(p, "the WHOLE run (epochs + validation + best rule + plateau + early stop) over a "
+                       "device-resident corpus, with no live UI")
     p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
-    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
-    p.add_argument("--train-fast", action="store_true", help="not yet ported")
+    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC",
+                   help=FREEZE_HELP + "; every BatchNorm, encoder and decoder")
+    p.add_argument("--train-fast", action="store_true",
+                   help="opt-in fast-numerics recipe: the CAE has no dropout, so this is the BN freeze tail "
+                        "(2nd half of the schedule)")
     add_multihost_args(p)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
@@ -51,7 +65,11 @@ def parse_args(argv=None):
                    help="write a torch.profiler Chrome trace of the fit into this directory")
     p.add_argument("--no-rich", action="store_true")
     p.add_argument("--quiet", action="store_true")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.train_fast and not args.bn_freeze_after:
+        args.bn_freeze_after = 0.5
+    check_stream_args(p, args)
+    return args
 
 
 def main(argv=None):
@@ -76,15 +94,19 @@ def main(argv=None):
         early_stop=args.early_stop,
         base_channels=args.base_channels,
         seed=args.seed,
-        device_resident=args.device_resident,
+        device_resident=args.device_resident or args.fused_fit,
+        resident_chunk_batches=args.resident_chunk_batches,
+        chunk_ingest=args.chunk_ingest,
+        bn_freeze_after_frac=args.bn_freeze_after,
     )
     visualizer = create_cae_visualizer("noop" if args.quiet else ("plain" if args.no_rich else "rich"))
     trainer = CAETrainer(cfg, visualizer=visualizer, device=args.device)
     normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
     from dfac_tpu_torch.obs.profiling import trace
 
+    fit = trainer.fit_fused if args.fused_fit else trainer.fit
     with trace(args.profile_dir):
-        result = trainer.fit(train_ds, dev_ds, checkpoint_dir=args.checkpoint_dir, normalizer=normalizer)
+        result = fit(train_ds, dev_ds, checkpoint_dir=args.checkpoint_dir, normalizer=normalizer)
     print(f"best val reconstruction MSE: {result['best_val_mse']:.6f}")
     return result
 

@@ -10,9 +10,13 @@ has labels. ``--epochs 0`` scores ``--ckpt-path`` without training;
 for bf16 activations). The same flags and lines, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on
 the CPU). Trains on one device, in f32 or ``--bf16`` (the model in bf16,
-which then scores the test split without ``--fast``, as in JAX), host-fed
-or ``--device-resident``, ``--profile-dir`` tracing the fit; the flags of
-other paths not ported yet exit non-zero with "not yet ported".
+which then scores the test split without ``--fast``, as in JAX), host-fed,
+``--device-resident``, streamed in chunks (``--resident-chunk-batches``,
+``--chunk-ingest``) or as one ``--fused-fit`` run, with the BatchNorm
+freeze tail (``--bn-freeze-after``; ``--train-fast``: both dropouts 0 and
+a 0.5 tail), ``--profile-dir`` tracing the fit; ``--data-parallel``,
+``--multihost`` and ``--checkpoint-format orbax`` exit non-zero with "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -20,7 +24,13 @@ from __future__ import annotations
 import argparse
 import os
 
-from dfac_tpu_torch.cli.common import add_multihost_args, refuse_unported_training
+from dfac_tpu_torch.cli.common import (
+    FREEZE_HELP,
+    add_multihost_args,
+    add_stream_args,
+    check_stream_args,
+    refuse_unported_training,
+)
 
 
 def parse_args(argv=None):
@@ -42,8 +52,11 @@ def parse_args(argv=None):
     p.add_argument("--dropout", type=float, default=0.3)
     p.add_argument("--encoder-dropout", type=float, default=0.2,
                    help="per-block encoder dropout (reference ConvEncoder default)")
-    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC", help="not yet ported")
-    p.add_argument("--train-fast", action="store_true", help="not yet ported")
+    p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC",
+                   help=FREEZE_HELP + ". Composes with --ema: the EMA keeps averaging params over frozen stats")
+    p.add_argument("--train-fast", action="store_true",
+                   help="opt-in fast-numerics recipe: dropout-free training (head + encoder) plus a BN freeze "
+                        "tail (2nd half of the schedule)")
     p.add_argument("--use-prob", action="store_true", help="save sigmoid probs instead of logits")
     p.add_argument("--specaug", action="store_true")
     p.add_argument("--time-mask-max", type=int, default=30)
@@ -59,16 +72,23 @@ def parse_args(argv=None):
                    help="score the test split through the folded-BN detector serving chain")
     p.add_argument("--device-resident", action="store_true",
                    help="upload the training corpus to the card once; gather batches there")
-    p.add_argument("--fused-fit", action="store_true", help="not yet ported")
-    p.add_argument("--resident-chunk-batches", type=int, default=0, metavar="G", help="not yet ported")
-    p.add_argument("--chunk-ingest", choices=["f32", "bf16", "int8"], default="f32", help="not yet ported")
+    add_stream_args(p, "the WHOLE run (epochs + dev EER + best rule + patience) over a device-resident "
+                       "corpus")
     p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the fit into this directory")
     add_multihost_args(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.train_fast:
+        # the JAX CLI's recipe: both dropouts off and the BN freeze tail
+        args.dropout = 0.0
+        args.encoder_dropout = 0.0
+        if not args.bn_freeze_after:
+            args.bn_freeze_after = 0.5
+    check_stream_args(p, args)
+    return args
 
 
 def main(argv=None):
@@ -94,7 +114,10 @@ def main(argv=None):
         freq_mask_max=args.freq_mask_max, freq_mask_n=args.freq_mask_n,
         ema=args.ema, ema_decay=args.ema_decay, patience=args.patience,
         seed=args.seed, compute_dtype="bfloat16" if args.bf16 else None,
-        device_resident=args.device_resident,
+        device_resident=args.device_resident or args.fused_fit,
+        resident_chunk_batches=args.resident_chunk_batches,
+        chunk_ingest=args.chunk_ingest,
+        bn_freeze_after_frac=args.bn_freeze_after,
     )
 
     def split_paths(split):
@@ -111,8 +134,9 @@ def main(argv=None):
         trainer = DetectorTrainer(cfg, in_channels=train_ds.features.shape[1], device=device)
         from dfac_tpu_torch.obs.profiling import trace
 
+        fit = trainer.fit_fused if args.fused_fit else trainer.fit
         with trace(args.profile_dir):
-            result = trainer.fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
+            result = fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
         print(f"Training done. Best dev EER: {result['best_eer']:.6f}")
     test_ds = load_dataset(test_feat, test_lab if has_test_labels else None)
 

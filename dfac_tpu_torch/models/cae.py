@@ -65,6 +65,8 @@ def fit_time(h: torch.Tensor, t_orig: int) -> torch.Tensor:
 
 
 class ConvAutoencoder(nn.Module):
+    takes_bn_frozen = True  # models.common.frozen_batchnorm: the JAX model's bn_frozen
+
     def __init__(self, base_channels: int = 32):
         super().__init__()
         bc = base_channels

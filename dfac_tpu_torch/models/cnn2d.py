@@ -32,6 +32,8 @@ from dfac_tpu_torch.models.common import FastDropout, Linear, conv_bn_relu, time
 
 
 class CNN2D(nn.Module):
+    takes_bn_frozen = True  # models.common.frozen_batchnorm: the JAX model's bn_frozen
+
     def __init__(
         self,
         in_features: int = 180,

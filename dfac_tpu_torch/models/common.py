@@ -198,6 +198,36 @@ class ChannelDropout(_Dropout):
         return f"rate={self.rate}"
 
 
+@contextlib.contextmanager
+def frozen_batchnorm(model: nn.Module, frozen: bool = True):
+    """The JAX models' ``bn_frozen=True`` (``dfac_tpu/models/cnn2d.py:41-58``,
+    ``cae.py:47-101``, ``detector.py:55-73``) for the scope: every BatchNorm
+    of ``model`` in eval mode, so it normalizes with its running statistics
+    and leaves ``running_mean``, ``running_var`` and ``num_batches_tracked``
+    as they are, while dropout and every other layer keep their mode and
+    gradients still reach BatchNorm's weight and bias. Each BatchNorm's
+    mode is restored on exit. ``frozen=False`` does nothing.
+
+    A model whose class does not set ``takes_bn_frozen`` raises the
+    ``TypeError`` that the JAX package's ``model.apply(..., bn_frozen=True)``
+    raises for a module whose ``__call__`` has no such argument (the zoo,
+    CNN1D)."""
+    if not frozen:
+        yield
+        return
+    if not getattr(model, "takes_bn_frozen", False):
+        raise TypeError(f"{type(model).__name__}.__call__() got an unexpected keyword argument 'bn_frozen'")
+    norms = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    modes = [m.training for m in norms]
+    for m in norms:
+        m.eval()
+    try:
+        yield
+    finally:
+        for m, mode in zip(norms, modes):
+            m.train(mode)
+
+
 def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
     """Point every dropout of ``model`` at ``generator``."""
     for m in model.modules():

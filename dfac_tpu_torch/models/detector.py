@@ -56,6 +56,8 @@ class ConvEncoder(nn.Module):
 
 
 class DeepfakeDetector(nn.Module):
+    takes_bn_frozen = True  # models.common.frozen_batchnorm: the JAX model's bn_frozen
+
     def __init__(
         self,
         in_channels: int = 180,

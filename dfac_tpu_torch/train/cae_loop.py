@@ -13,9 +13,14 @@ Counterpart of :mod:`dfac_tpu.train.cae_loop`. Feature-parity targets:
   (:func:`~dfac_tpu_torch.models.common.f32_convs`). Batches come host-fed
   (``np.random.default_rng(seed * 100003 + epoch).shuffle`` of the
   bonafide rows, a true-size tail, gathered and uploaded by a prefetch
-  thread) or ``device_resident`` (the same order gathered on the card
+  thread), ``device_resident`` (the same order gathered on the card
   from a corpus uploaded once; the bonafide dev split is uploaded once
-  too and each validation is one pass over it).
+  too and each validation is one pass over it) or chunked
+  (``resident_chunk_batches``, ``chunk_ingest``:
+  :mod:`~dfac_tpu_torch.train.chunked`). ``bn_freeze_after_frac``
+  freezes every BatchNorm (encoder and decoder) for the epochs after
+  ``round(epochs * frac)``; :meth:`CAETrainer.fit_fused` is the resident
+  fit with no display (:mod:`~dfac_tpu_torch.train.fused_fit`).
 * Evaluator — reference ``src/evaluation_cae.py``: per-sample
   reconstruction MSE over (T, F) of normalized, swapped spectrograms, and
   the **dual scoring convention** (the EER of -MSE and of +MSE, the better
@@ -37,12 +42,13 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset, num_batches
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.models import build_model
 from dfac_tpu_torch.models.cae import reconstruction_mse
-from dfac_tpu_torch.models.common import f32_convs
+from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm
 from dfac_tpu_torch.obs.base import EpochMetrics, TrainingConfig, TrainingVisualizer
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
 from dfac_tpu_torch.ops.eer import eer_device
 from dfac_tpu_torch.train import checkpoint as ckpt_lib
-from dfac_tpu_torch.train.loop import resident_arrays, run_epoch, shuffled_batches
+from dfac_tpu_torch.train.chunked import ChunkFeed, check_config
+from dfac_tpu_torch.train.loop import bn_frozen_at, epoch_order, resident_arrays, run_epoch, shuffled_batches
 from dfac_tpu_torch.train.optim import BETAS, EPS, PlateauScheduler, set_lr
 from dfac_tpu_torch.utils.convert import jax_from_state_dict
 
@@ -121,8 +127,10 @@ def evaluate_cae(
 @dataclasses.dataclass
 class CAEConfig:
     """Reference train_cae.py defaults (``src/train_cae.py:114-126``), the
-    fields the port trains: f32, one device (the JAX package's other
-    fields select paths not ported yet; see ROADMAP.md)."""
+    fields the port trains: f32, one device, host-fed, resident or chunked,
+    with the BatchNorm freeze tail (the JAX package's data-parallel,
+    multi-host and orbax fields select paths not ported yet; see
+    ROADMAP.md)."""
 
     batch_size: int = 32
     epochs: int = 80
@@ -134,6 +142,16 @@ class CAEConfig:
     base_channels: int = 32
     seed: int = 0
     device_resident: bool = False  # upload the bonafide corpus once; gather batches on the card
+    # stream the epoch in chunks of N batches (TrainConfig's); 0 = off
+    resident_chunk_batches: int = 0
+    chunk_ingest: str = "f32"  # the chunked upload's compression: f32 | bf16 | int8 (TrainConfig's)
+    # freeze every BatchNorm (encoder + decoder) for the epochs after
+    # round(epochs * frac); 0 disables. The CAE has no dropout, so this is
+    # its whole --train-fast recipe
+    bn_freeze_after_frac: float = 0.0
+
+    def __post_init__(self):
+        check_config(self)
 
 
 class CAETrainer:
@@ -150,6 +168,7 @@ class CAETrainer:
         self.history: list[EpochMetrics] = []
         self._lr = cfg.lr
         self._resident: dict = {}  # id(dataset) -> (dataset, features, labels on the device)
+        self.chunk_feed = ChunkFeed(cfg, self.device, __name__)  # resident_chunk_batches' feed
 
     # -- state ------------------------------------------------------------
     def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
@@ -173,14 +192,15 @@ class CAETrainer:
         self._std = torch.as_tensor(normalizer.std, dtype=torch.float32, device=self.device)
 
     # -- step -------------------------------------------------------------
-    def train_step(self, feats: torch.Tensor, weights: torch.Tensor):
+    def train_step(self, feats: torch.Tensor, weights: torch.Tensor, frozen: bool = False):
         """One optimizer step on a device batch of stored-orientation (B,
-        F, T) features: swap, normalize, reconstruct, the weighted mean
-        MSE, backward, AdamW. Returns ``(loss * count, count)`` as device
+        F, T) features: swap, normalize, reconstruct (with ``frozen``, every
+        BatchNorm on its running statistics), the weighted mean MSE,
+        backward, AdamW. Returns ``(loss * count, count)`` as device
         scalars."""
         x = (feats.transpose(1, 2) - self._mean) / self._std
         self.model.train()
-        with f32_convs():
+        with f32_convs(), frozen_batchnorm(self.model, frozen):
             recon, _ = self.model(x)
             per = reconstruction_mse(recon, x)
             count = weights.sum()
@@ -197,16 +217,27 @@ class CAETrainer:
             entry = self._resident[id(ds)] = (ds, *resident_arrays(ds, self.device))
         return entry[1:]
 
+    def _bn_frozen_at(self, epoch: int) -> bool:
+        return bn_frozen_at(epoch, self.cfg.epochs, self.cfg.bn_freeze_after_frac)
+
     def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
         """One epoch over the bonafide rows of ``ds`` (shuffle seed ``seed
         * 100003 + epoch``, the batches of
-        :func:`~dfac_tpu_torch.train.loop.shuffled_batches`); the weighted
-        mean training MSE, or None for an empty corpus."""
+        :func:`~dfac_tpu_torch.train.loop.shuffled_batches`, or those
+        batches streamed in chunks); the weighted mean training MSE, or
+        None for an empty corpus."""
         cfg = self.cfg
-        resident = self._resident_arrays(ds) if cfg.device_resident else None
-        batches = shuffled_batches(ds, cfg.batch_size, cfg.seed * 100003 + epoch, self.device, resident)
-        return run_epoch(lambda feats, _labels, weights: self.train_step(feats, weights), batches, self.device,
-                         batch_ctx)
+        frozen = self._bn_frozen_at(epoch)
+        seed = cfg.seed * 100003 + epoch
+        if cfg.resident_chunk_batches > 0:  # the host loop's batches, streamed in chunks
+            ones = torch.ones(cfg.batch_size, device=self.device)
+            batches = ((f, None, ones[: len(f)])
+                       for (f,) in self.chunk_feed.batches(ds.features, (), epoch_order(len(ds), seed)))
+        else:
+            resident = self._resident_arrays(ds) if cfg.device_resident else None
+            batches = shuffled_batches(ds, cfg.batch_size, seed, self.device, resident)
+        return run_epoch(lambda feats, _labels, weights: self.train_step(feats, weights, frozen), batches,
+                         self.device, batch_ctx)
 
     def validate(self, bona_dev: ArrayDataset) -> float:
         """The bonafide-dev mean reconstruction MSE (reference ``:85-105``);
@@ -296,3 +327,21 @@ class CAETrainer:
         if last_path:
             self._save(last_path, self.history[-1].epoch if self.history else 0)
         return {"best_val_mse": best_val, "history": self.history, "normalizer": self.normalizer}
+
+    def fit_fused(
+        self,
+        train_ds: ArrayDataset,
+        dev_ds: ArrayDataset,
+        checkpoint_dir: str | None = None,
+        normalizer: FeatureNormalizer | None = None,
+    ) -> dict:
+        """``--fused-fit`` (:mod:`~dfac_tpu_torch.train.fused_fit`; JAX
+        ``make_fused_cae_fit``): :meth:`fit` over the device-resident corpus
+        with no display, the freeze tail's ``TypeError`` raised before the
+        first epoch; :meth:`fit`'s artifacts and result."""
+        from dfac_tpu_torch.train.fused_fit import fused_run
+
+        if self.model is None:
+            self.init_state()
+        with fused_run(self):
+            return self.fit(train_ds, dev_ds, checkpoint_dir=checkpoint_dir, normalizer=normalizer)

@@ -27,10 +27,17 @@ its own recipe:
 The step runs through autograd on the device, convs in full f32 (or bf16
 with ``compute_dtype``)
 (:func:`~dfac_tpu_torch.models.common.f32_convs`). Batches come host-fed
-(a prefetch thread gathers and uploads each) or ``device_resident`` (the
-corpus uploaded once, the same order gathered on the card); the tail batch
-trains at its true size. Dropout bytes and the SpecAugment draws come
-from one ``torch.Generator`` on the device, seeded from ``seed``.
+(a prefetch thread gathers and uploads each), ``device_resident`` (the
+corpus uploaded once, the same order gathered on the card) or chunked
+(``resident_chunk_batches``, ``chunk_ingest``:
+:mod:`~dfac_tpu_torch.train.chunked`); the tail batch trains at its true
+size. Dropout bytes and the SpecAugment draws come from one
+``torch.Generator`` on the device, seeded from ``seed``.
+``bn_freeze_after_frac`` freezes BatchNorm for the epochs after
+``round(epochs * frac)``: the EMA goes on averaging the parameters, and
+the eval variables stay the EMA parameters with the live (now fixed)
+statistics. :meth:`DetectorTrainer.fit_fused` is the resident fit
+(:mod:`~dfac_tpu_torch.train.fused_fit`).
 """
 
 from __future__ import annotations
@@ -46,9 +53,10 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.io.prefetch import prefetched
 from dfac_tpu_torch.models import build_model
-from dfac_tpu_torch.models.common import f32_convs, set_dropout_generator
+from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_dropout_generator
 from dfac_tpu_torch.ops.eer import eer_device
-from dfac_tpu_torch.train.loop import resident_arrays
+from dfac_tpu_torch.train.chunked import ChunkFeed, check_config
+from dfac_tpu_torch.train.loop import bn_frozen_at, resident_arrays, resident_batches
 from dfac_tpu_torch.train.optim import BETAS, EPS
 
 
@@ -56,8 +64,9 @@ from dfac_tpu_torch.train.optim import BETAS, EPS
 class DetectorConfig:
     """The reference dlqueen recipe's knobs (``src/dlqueen_model.py:266-300``)
     that the port trains: one device, f32 or ``compute_dtype="bfloat16"``
-    (JAX ``detector_loop.py:56``; the JAX package's other fields select
-    paths not ported yet; see ROADMAP.md)."""
+    (JAX ``detector_loop.py:56``), host-fed, resident or chunked, with the
+    BatchNorm freeze tail (the JAX package's data-parallel, multi-host and
+    orbax fields select paths not ported yet; see ROADMAP.md)."""
 
     epochs: int = 30
     batch_size: int = 32
@@ -78,6 +87,15 @@ class DetectorConfig:
     seed: int = 42
     compute_dtype: str | None = None  # None (f32) | "bfloat16"
     device_resident: bool = False  # upload the corpus once; gather batches on the card
+    # stream the epoch in chunks of N batches (TrainConfig's); 0 = off
+    resident_chunk_batches: int = 0
+    chunk_ingest: str = "f32"  # the chunked upload's compression: f32 | bf16 | int8 (TrainConfig's)
+    # freeze BatchNorm for the epochs after round(epochs * frac); 0 disables.
+    # The EMA goes on averaging the parameters over the fixed statistics
+    bn_freeze_after_frac: float = 0.0
+
+    def __post_init__(self):
+        check_config(self)
 
 
 def compute_class_weights(labels: np.ndarray) -> tuple[float, float, float]:
@@ -129,6 +147,7 @@ class DetectorTrainer:
         self.ema: dict[str, torch.Tensor] | None = None
         self._eval_model: torch.nn.Module | None = None
         self._resident: tuple | None = None  # (dataset, features, lengths, labels) on the device
+        self.chunk_feed = ChunkFeed(cfg, self.device, __name__)  # resident_chunk_batches' feed
 
     def _build(self) -> torch.nn.Module:
         cfg = self.cfg
@@ -178,16 +197,17 @@ class DetectorTrainer:
 
     # -- step -------------------------------------------------------------
     def train_step(self, feats: torch.Tensor, lengths: torch.Tensor, labels: torch.Tensor,
-                   pos_weight: float) -> torch.Tensor:
+                   pos_weight: float, frozen: bool = False) -> torch.Tensor:
         """One optimizer step on a device batch of stored-orientation (B,
-        C, T) features; returns the batch's mean loss as a device scalar."""
+        C, T) features (with ``frozen``, BatchNorm on its running
+        statistics); returns the batch's mean loss as a device scalar."""
         cfg = self.cfg
         x = feats.transpose(1, 2)  # (B, T, C)
         if cfg.specaug:
             x = dlqueen_spec_augment(x, *draw_dlqueen_masks(self.generator, x, cfg.time_mask_max, cfg.time_mask_n,
                                                              cfg.freq_mask_max, cfg.freq_mask_n))
         self.model.train()
-        with f32_convs():
+        with f32_convs(), frozen_batchnorm(self.model, frozen):
             loss = pos_weight_bce(self.model(x, lengths), labels, pos_weight)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -208,20 +228,20 @@ class DetectorTrainer:
 
     def _batches(self, ds: ArrayDataset, order: np.ndarray):
         """True-size batches of the rows ``order`` names: gathered on the
-        card from the resident corpus, or gathered on the host and uploaded
-        (pinned, ``non_blocking``) by the prefetch thread."""
+        card from the resident corpus, streamed in chunks, or gathered on
+        the host and uploaded (pinned, ``non_blocking``) by the prefetch
+        thread."""
         bs = self.cfg.batch_size
         if self.cfg.device_resident:
-            arrays = self._resident_arrays(ds)
-            order_d = torch.from_numpy(order).to(self.device)
-            for start in range(0, len(order), bs):
-                idx = order_d[start : start + bs]
-                yield tuple(a.index_select(0, idx) for a in arrays)
+            yield from resident_batches(self._resident_arrays(ds), torch.from_numpy(order).to(self.device), bs)
             return
         from dfac_tpu_torch.models.fast_infer import ingest
 
         lengths = dataset_lengths(ds)
         labels = np.asarray(ds.labels, np.float32)
+        if self.cfg.resident_chunk_batches > 0:
+            yield from self.chunk_feed.batches(ds.features, (lengths, labels), order)
+            return
 
         def host():
             for start in range(0, len(order), bs):
@@ -232,16 +252,21 @@ class DetectorTrainer:
 
         yield from prefetched(host(), depth=2)
 
-    def train_epoch(self, ds: ArrayDataset, order: np.ndarray, pos_weight: float) -> tuple[torch.Tensor, int]:
-        """One epoch over the rows ``order`` names; ``(sum of the batches'
-        mean losses on the device, batches)``. The loss is fetched by the
-        caller, once an epoch."""
+    def train_epoch(self, ds: ArrayDataset, order: np.ndarray, pos_weight: float, frozen: bool = False
+                    ) -> tuple[torch.Tensor, int]:
+        """One epoch over the rows ``order`` names (with ``frozen``,
+        BatchNorm frozen); ``(sum of the batches' mean losses on the
+        device, batches)``. The loss is fetched by the caller, once an
+        epoch."""
         total = torch.zeros((), device=self.device)
         n_batches = 0
         for feats, lens, labels in self._batches(ds, order):
-            total += self.train_step(feats, lens, labels, pos_weight)
+            total += self.train_step(feats, lens, labels, pos_weight, frozen)
             n_batches += 1
         return total, n_batches
+
+    def _bn_frozen_at(self, epoch: int) -> bool:
+        return bn_frozen_at(epoch, self.cfg.epochs, self.cfg.bn_freeze_after_frac)
 
     # -- loop ---------------------------------------------------------------
     def fit(self, train_ds: ArrayDataset, dev_ds: ArrayDataset, ckpt_path: str | None = None) -> dict:
@@ -265,7 +290,7 @@ class DetectorTrainer:
         for epoch in range(1, cfg.epochs + 1):
             # weighted sampling with replacement, num_samples = N (reference)
             order = rng.choice(n, size=n, replace=True, p=sample_p)
-            total, n_batches = self.train_epoch(train_ds, order, pos_weight)
+            total, n_batches = self.train_epoch(train_ds, order, pos_weight, self._bn_frozen_at(epoch))
             dev_eer, _ = eer_device(self.scores(dev_ds), dev_ds.labels)
             history.append({"epoch": epoch, "train_loss": float(total) / max(n_batches, 1), "dev_eer": dev_eer})
             if dev_eer < best_eer:
@@ -278,6 +303,18 @@ class DetectorTrainer:
                 if bad >= cfg.patience:
                     break
         return {"best_eer": best_eer, "history": history}
+
+    def fit_fused(self, train_ds: ArrayDataset, dev_ds: ArrayDataset, ckpt_path: str | None = None) -> dict:
+        """``--fused-fit`` (:mod:`~dfac_tpu_torch.train.fused_fit`; JAX
+        ``make_fused_detector_fit``): :meth:`fit` over the device-resident
+        corpus, the freeze tail's ``TypeError`` raised before the first
+        epoch; :meth:`fit`'s checkpoint and result."""
+        from dfac_tpu_torch.train.fused_fit import fused_run
+
+        if self.model is None:
+            self.init_state()
+        with fused_run(self):
+            return self.fit(train_ds, dev_ds, ckpt_path=ckpt_path)
 
 
 def detector_scores(

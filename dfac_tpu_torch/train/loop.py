@@ -23,11 +23,18 @@ Reference semantics kept:
 * the final partial batch trains at its true size, so its BatchNorm
   statistics cover real rows only.
 
-Both feeds walk one order, ``np.random.default_rng(seed * 100003 +
+Every feed walks one order, ``np.random.default_rng(seed * 100003 +
 epoch).shuffle`` of the row ids, the JAX package's host loop's: host-fed
-(a prefetch thread gathers each batch and uploads it from pinned memory)
-or ``device_resident`` (the corpus uploaded once, each batch gathered on
-the card). The epoch's loss is summed on the device and fetched once.
+(a prefetch thread gathers each batch and uploads it from pinned memory),
+``device_resident`` (the corpus uploaded once, each batch gathered on the
+card) or chunked (``resident_chunk_batches``: chunks of G batches
+streamed through pinned memory, compressed with ``chunk_ingest``;
+:mod:`~dfac_tpu_torch.train.chunked`). The epoch's loss is summed on the
+device and fetched once. :meth:`Trainer.fit_fused` is the resident fit
+with no display and no checkpoint (:mod:`~dfac_tpu_torch.train.fused_fit`).
+``bn_freeze_after_frac`` trains the epochs after ``round(epochs * frac)``
+with BatchNorm frozen (:func:`~dfac_tpu_torch.models.common.frozen_batchnorm`),
+in every feed.
 Dropout draws (bytes and channel masks) and augmentation draws come from
 one ``torch.Generator`` on the device, seeded from ``seed``.
 
@@ -54,10 +61,11 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset, batch_iterator, num_batch
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.io.prefetch import prefetched
 from dfac_tpu_torch.models import MODEL_REGISTRY, build_model, model_width, width_overrides
-from dfac_tpu_torch.models.common import f32_convs, set_dropout_generator
+from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_dropout_generator
 from dfac_tpu_torch.obs.base import BatchMetrics, EpochMetrics, TrainingConfig, TrainingVisualizer
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
 from dfac_tpu_torch.train import checkpoint as ckpt_lib
+from dfac_tpu_torch.train.chunked import ChunkFeed, check_config
 from dfac_tpu_torch.train.evaluate import evaluate_classifier
 from dfac_tpu_torch.train.optim import PlateauScheduler, build_optimizer, set_lr, smooth_labels
 from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_dict, state_dict_from_jax
@@ -66,9 +74,11 @@ from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_d
 class TrainConfig:
     """The reference train.py flag surface (``src/train.py:94-246``) that
     the port trains: every registry classifier on one device, f32 or
-    ``compute_dtype="bfloat16"`` (the JAX package's other fields select
-    paths not ported yet; see ROADMAP.md). ``in_features`` is the input
-    width of a model built without a sample batch."""
+    ``compute_dtype="bfloat16"``, host-fed, resident or chunked, with the
+    BatchNorm freeze tail (the JAX package's data-parallel, multi-host and
+    orbax fields select paths not ported yet; see ROADMAP.md).
+    ``in_features`` is the input width of a model built without a sample
+    batch."""
 
     model: str = "cnn2d"
     batch_size: int = 32
@@ -91,12 +101,46 @@ class TrainConfig:
     augment: AugmentConfig = dataclasses.field(default_factory=AugmentConfig)
     compute_dtype: str | None = None  # None (f32) | "bfloat16"
     device_resident: bool = False  # upload the corpus once; gather batches on the card
+    # stream the epoch in chunks of N batches through pinned memory, the
+    # upload overlapped with the steps (corpora larger than the card); 0 = off
+    resident_chunk_batches: int = 0
+    # the chunked upload's compression: f32 (exact) | bf16 (half the bytes,
+    # features bf16-rounded) | int8 (a quarter, per-(row, feature-dim)
+    # scales, dequantized on the card before the step)
+    chunk_ingest: str = "f32"
+    # the BatchNorm freeze tail: epochs after round(epochs * frac) train with
+    # BatchNorm on its running statistics, which stay as they are; 0 disables
+    bn_freeze_after_frac: float = 0.0
 
     def __post_init__(self):
         if not (0.0 <= self.label_smoothing < 0.5):
             raise ValueError("label_smoothing must be in [0, 0.5)")
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError("compute_dtype must be None (f32) or 'bfloat16'")
+        check_config(self, " (the resident and host-loop paths have their own ingest handling)")
+
+
+def bn_frozen_at(epoch: int, epochs: int, frac: float) -> bool:
+    """True when ``epoch`` trains with frozen BatchNorm under the freeze
+    tail: ``epoch > round(epochs * frac)``, Python's ``round`` (half to
+    even: 2.5 -> 2), as every JAX trainer and fused program rounds."""
+    return bool(frac) and epoch > round(epochs * frac)
+
+
+def epoch_order(n: int, seed: int) -> np.ndarray:
+    """The host loop's row order: ``np.random.default_rng(seed).shuffle`` of ``arange(n)``."""
+    order = np.arange(n)
+    np.random.default_rng(seed).shuffle(order)
+    return order
+
+
+def resident_batches(arrays, order: torch.Tensor, batch_size: int):
+    """True-size batches of the device-resident ``arrays``: each array's
+    rows ``order[start:start + batch_size]`` (``order`` on the device),
+    gathered on the card."""
+    for start in range(0, order.numel(), batch_size):
+        idx = order[start : start + batch_size]
+        yield tuple(a.index_select(0, idx) for a in arrays)
 
 
 def resident_arrays(ds: ArrayDataset, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -113,14 +157,10 @@ def shuffled_batches(ds: ArrayDataset, batch_size: int, seed: int, device: torch
     of ``ds``), or gathered on the host and uploaded (pinned,
     ``non_blocking``) by the prefetch thread."""
     if resident is not None:
-        feats_all, labels_all = resident
-        order = np.arange(len(ds))
-        np.random.default_rng(seed).shuffle(order)
-        order = torch.from_numpy(order).to(device)
         ones = torch.ones(batch_size, device=device)
-        for start in range(0, len(ds), batch_size):
-            idx = order[start : start + batch_size]
-            yield feats_all.index_select(0, idx), labels_all.index_select(0, idx), ones[: len(idx)]
+        order = torch.from_numpy(epoch_order(len(ds), seed)).to(device)
+        for feats, labels in resident_batches(resident, order, batch_size):
+            yield feats, labels, ones[: len(feats)]
         return
     from dfac_tpu_torch.models.fast_infer import ingest
 
@@ -202,6 +242,7 @@ class Trainer:
         self._best_state: dict | None = None
         self._resident: tuple | None = None  # (dataset, features, labels) on the device
         self._dev_resident: tuple | None = None  # (dataset, features)
+        self.chunk_feed = ChunkFeed(cfg, self.device, __name__)  # resident_chunk_batches' feed
 
     # -- state ------------------------------------------------------------
     def init_state(self, state_dict: dict | None = None, example_batch=None) -> torch.nn.Module:
@@ -237,20 +278,43 @@ class Trainer:
         return self.model.state_dict()
 
     def best_variables(self) -> dict:
-        """The best epoch's ``state_dict`` (a copy taken when it was best;
-        the current one before any epoch was)."""
+        """The best epoch's ``state_dict``, parameters and BatchNorm
+        statistics of that epoch (a copy taken when it was best, by
+        :meth:`fit` or :meth:`fit_fused`; the current one before any epoch
+        was)."""
         return self._best_state if self._best_state is not None else self.variables()
 
+    def _bn_frozen_at(self, epoch: int) -> bool:
+        """True when ``epoch`` trains with frozen BatchNorm (:func:`bn_frozen_at`)."""
+        return bn_frozen_at(epoch, self.cfg.epochs, self.cfg.bn_freeze_after_frac)
+
+    def fit_fused(self, train_ds: ArrayDataset, dev_ds: ArrayDataset, resume_from: str | None = None) -> dict:
+        """``--fused-fit`` (:mod:`~dfac_tpu_torch.train.fused_fit`): :meth:`fit`
+        over the device-resident corpus with no display and no checkpoint
+        written, the freeze tail's ``TypeError`` raised before the first
+        epoch. Returns :meth:`fit`'s result and ``best_variables``: the
+        ``state_dict`` of this run's best epoch, or None where no epoch of
+        this run was best (a resumed run's earlier best stands)."""
+        from dfac_tpu_torch.train.fused_fit import fused_run
+
+        if self.model is None:
+            self.init_state(example_batch=train_ds.features[:1])
+        with fused_run(self):
+            result = self.fit(train_ds, dev_ds, resume_from=resume_from)
+        new_best = any(m.is_best for m in result["history"])
+        return {**result, "best_variables": self._best_state if new_best else None}
+
     # -- step -------------------------------------------------------------
-    def train_step(self, feats: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor):
+    def train_step(self, feats: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor, frozen: bool = False):
         """One optimizer step on a device batch of stored-orientation
-        features; returns ``(loss * count, count)`` as device scalars."""
+        features (with ``frozen``, BatchNorm on its running statistics);
+        returns ``(loss * count, count)`` as device scalars."""
         cfg = self.cfg
         x = feats.transpose(1, 2) if cfg.swap_tf else feats
         if self.augment_fn is not None:
             x = self.augment_fn(x, self.generator)
         self.model.train()
-        with f32_convs():
+        with f32_convs(), frozen_batchnorm(self.model, frozen):
             logits = self.model(x.contiguous()).reshape(-1)
             per = F.binary_cross_entropy_with_logits(
                 logits, smooth_labels(labels, cfg.label_smoothing), reduction="none"
@@ -269,9 +333,17 @@ class Trainer:
 
     def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
         cfg = self.cfg
-        resident = self._resident_arrays(ds) if cfg.device_resident else None
-        batches = shuffled_batches(ds, cfg.batch_size, cfg.seed * 100003 + epoch, self.device, resident)
-        return run_epoch(self.train_step, batches, self.device, batch_ctx)
+        frozen = self._bn_frozen_at(epoch)
+        seed = cfg.seed * 100003 + epoch
+        if cfg.resident_chunk_batches > 0:  # the host loop's batches, streamed in chunks
+            labels = np.asarray(ds.labels if ds.labels is not None else np.zeros(len(ds)), np.float32)
+            ones = torch.ones(cfg.batch_size, device=self.device)
+            batches = ((f, l, ones[: len(f)])
+                       for f, l in self.chunk_feed.batches(ds.features, (labels,), epoch_order(len(ds), seed)))
+        else:
+            resident = self._resident_arrays(ds) if cfg.device_resident else None
+            batches = shuffled_batches(ds, cfg.batch_size, seed, self.device, resident)
+        return run_epoch(lambda *b: self.train_step(*b, frozen=frozen), batches, self.device, batch_ctx)
 
     # -- evaluation -------------------------------------------------------
     def evaluate(self, dev_ds: ArrayDataset) -> dict:
@@ -381,6 +453,7 @@ class Trainer:
         )
 
         best_eer = resumed_ts.get("best_eer")
+        best_epoch = start_epoch - 1 if best_eer is not None else None  # a resumed run's best stands until beaten
         best_train_loss = resumed_ts.get("best_train_loss")
         best_dev_loss = resumed_ts.get("best_dev_loss")
         prev_metrics: EpochMetrics | None = None
@@ -427,6 +500,7 @@ class Trainer:
                         is_best = True
                         best_train_loss, best_dev_loss = train_loss, dev_loss
             if is_best:
+                best_epoch = epoch
                 # parameters change in place: keep a copy of the best epoch's
                 self._best_state = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
@@ -479,6 +553,8 @@ class Trainer:
             "best_eer": best_eer,
             "best_train_loss": best_train_loss,
             "best_dev_loss": best_dev_loss,
+            "best_epoch": best_epoch,
+            "epochs_no_improve": epochs_no_improve,
             "history": self.history,
         }
 

@@ -10,7 +10,8 @@ side's is held to 1e-5 * max|g| instead), BN running statistics 1e-5,
 parameters after one AdamW step 1e-6 where |g| > 1e-6 (within 2 * lr
 elsewhere: Adam's first step divides by |g|);
 the validation MSE of each epoch rtol 1e-3, the same best epoch, learning
-rates and stop; the normalizer rtol 1e-6.
+rates and stop (the port's host-fed, resident, chunked and fused fits); the
+normalizer rtol 1e-6.
 """
 
 import pickle
@@ -155,6 +156,26 @@ def test_two_epochs_match_jax_trainer_with_a_plateau_step_and_an_early_stop(jax_
     assert [m.is_best for m in got] == [True, False]
     # the rise the decisions rest on is far above the tolerance
     assert got[1].dev_loss > got[0].dev_loss * (1 + 1e-4)
+    np.testing.assert_allclose(result["best_val_mse"], jax_runs["best"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["chunked", "fused"])
+def test_chunked_and_fused_fits_match_jax_trainer(jax_runs, mode):
+    """The chunked feed (chunks of 2 batches; the JAX package's chunked fit
+    equals its host-fed one up to XLA reassociation, ``tests/test_chunked.py``)
+    and fit_fused (the resident fit with no display), from the JAX init, against
+    the JAX fit: the same epochs, plateau step and stop."""
+    trainer = tloop.CAETrainer(_cfg(tloop, resident_chunk_batches=2 if mode == "chunked" else 0), device="cpu")
+    trainer.init_state(state_dict_from_jax(jax_runs["variables"], "cae"))
+    fit = trainer.fit if mode == "chunked" else trainer.fit_fused
+    result = fit(_corpus(tpipe, N_TRAIN, 1), _corpus(tpipe, N_DEV, 2))
+    got, want = result["history"], jax_runs["history"]
+    assert [m.epoch for m in got] == [m.epoch for m in want] == [1, 2]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.dev_loss, w.dev_loss, rtol=1e-3)
+        np.testing.assert_allclose(g.train_loss, w.train_loss, rtol=1e-3)
+        assert (g.is_best, g.epochs_no_improve, g.learning_rate) == (w.is_best, w.epochs_no_improve,
+                                                                      w.learning_rate)
     np.testing.assert_allclose(result["best_val_mse"], jax_runs["best"], rtol=1e-3)
 
 

@@ -10,7 +10,8 @@ atol 1e-6 * max|g|; BN running statistics 1e-5; parameters and EMA
 parameters after one step 1e-6 where |g| > 1e-6 (within 2 * lr
 elsewhere: Adam's first step divides by |g|), as
 ``tests/test_torch_port_train.py``; two epochs' losses rtol 1e-3 and the
-dev EER equal; the folded chain f32 atol 1e-5, bf16 2e-2.
+dev EER equal (host-fed and chunked); the folded chain f32 atol 1e-5, bf16
+2e-2.
 """
 
 import pickle
@@ -309,9 +310,9 @@ def fits(tmp_path_factory):
         orders = []
         epoch = trainer.train_epoch
 
-        def recording(ds, order, pos_weight, epoch=epoch):
+        def recording(ds, order, pos_weight, *frozen, epoch=epoch):
             orders.append(order.copy())
-            return epoch(ds, order, pos_weight)
+            return epoch(ds, order, pos_weight, *frozen)
 
         trainer.train_epoch = recording
         ckpt = str(root / f"port_{resident}.ckpt")
@@ -339,6 +340,22 @@ def test_two_epochs_match_jax_trainer(fits):
     # the JAX EER search agrees with calculate_eer here (no tied minima, ROADMAP.md 3.4)
     jscores = fits["jax_dev_scores"]
     assert teer.calculate_eer(jscores, _corpus(jpipe, N_DEV, 2).labels)[0] == fits["jax"]["history"][-1]["dev_eer"]
+
+
+def test_chunked_fit_matches_jax_trainer(fits):
+    """The chunked feed (chunks of 2 batches of the weighted draws) from
+    the JAX init against the JAX fit (the JAX package's chunked fit equals
+    its host-fed one up to XLA reassociation, ``tests/test_chunked.py``), at
+    the two-epoch tolerances; and equal to the port's host-fed fit."""
+    trainer = tloop.DetectorTrainer(_tcfg(resident_chunk_batches=2), in_channels=C_, device="cpu")
+    trainer.init_state(state_dict_from_jax(_init(), "detector"))
+    result = trainer.fit(_corpus(tpipe, N_TRAIN, 1), _corpus(tpipe, N_DEV, 2))
+    want = fits["jax"]["history"]
+    assert [h["epoch"] for h in result["history"]] == [h["epoch"] for h in want] == [1, 2]
+    for got, w in zip(result["history"], want):
+        np.testing.assert_allclose(got["train_loss"], w["train_loss"], rtol=1e-3)
+        assert got["dev_eer"] == w["dev_eer"]
+    assert result["history"] == fits["host"][1]["history"]
 
 
 def test_device_resident_fit_equals_host_fed(fits):

@@ -9,7 +9,8 @@ rtol 1e-5, the grads rtol 1e-4 + atol 1e-6 * max|g| over the whole
 gradient (f32 convs summed in another order; the pre-BatchNorm conv
 biases' gradients are zero up to rounding on both sides), BN running statistics 1e-5, parameters after one AdamW
 step 1e-6 where |g| > 1e-6 (within 2 * lr elsewhere: Adam's first step
-divides by |g|), two epochs' losses rtol 1e-3 and the dev EER equal.
+divides by |g|), two epochs' losses rtol 1e-3 and the dev EER equal (the
+port's host-fed, chunked and fused fits).
 """
 
 import pickle
@@ -167,6 +168,24 @@ def test_two_epochs_match_jax_trainer(jax_runs, torch_fit):
         assert got.dev_eer == want.dev_eer
         assert (got.is_best, got.learning_rate) == (want.is_best, want.learning_rate)
     assert result["history"][1].train_loss < result["history"][0].train_loss
+
+
+@pytest.mark.parametrize("mode", ["chunked", "fused"])
+def test_chunked_and_fused_fits_match_jax_trainer(jax_runs, mode):
+    """The chunked feed (chunks of 2 batches; the JAX package's chunked run
+    equals its host-fed one up to XLA reassociation, ``tests/test_chunked.py``)
+    and the fused fit (the resident fit with no display), from the JAX init,
+    against the JAX fit at the two-epoch tolerances."""
+    trainer = _torch_trainer(_cfg(tloop, resident_chunk_batches=2) if mode == "chunked" else
+                             _cfg(tloop, device_resident=True), jax_runs["init"])
+    fit = trainer.fit if mode == "chunked" else trainer.fit_fused
+    result = fit(_datasets(tpipe, jax_runs["train"]), _datasets(tpipe, jax_runs["dev"]))
+    assert [m.epoch for m in result["history"]] == [m.epoch for m in jax_runs["history"]] == [1, 2]
+    for got, want in zip(result["history"], jax_runs["history"]):
+        np.testing.assert_allclose(got.train_loss, want.train_loss, rtol=1e-3)
+        np.testing.assert_allclose(got.dev_loss, want.dev_loss, rtol=1e-3)
+        assert got.dev_eer == want.dev_eer
+        assert (got.is_best, got.learning_rate) == (want.is_best, want.learning_rate)
 
 
 def test_device_resident_epochs_equal_host_fed(jax_runs, torch_fit):
