@@ -76,7 +76,9 @@ line:
             method at B=64 with and without the driver's host round trip,
             each kernel against its plain version with CUDA events, in turns,
             K4 (B=128 and B=64) and K7's v0 also by their device time a launch
-            (``torch.profiler``'s kernel records), each K1 mode, each K2 block in bf16 and in f32 and each probe
+            (``torch.profiler``'s kernel records; CUDA events over launches
+            queued behind a spin kernel where the profiler keeps no record
+            in three passes), each K1 mode, each K2 block in bf16 and in f32 and each probe
             case beside its own bound, rFFT + K4 against K1, K5 against
             ``F.avg_pool2d``, and controls: cuBLAS's DFT product alone in
             bf16 and f32 for K1, cuDNN's conv alone for each K2 block in
@@ -226,6 +228,24 @@ line:
             fused B=32 detector run traced (CUDA activity only) after three
             runs on the same trainer (busy share of its own wall, largest
             items)
+21. data-parallel  ``--data-parallel`` training on the one card
+            (``dfac_tpu_torch/parallel``): in this process, a one-rank NCCL
+            group runs the data-parallel trainer at full CNN2D width (its
+            eager synced BatchNorm, the flat gradient all-reduce, rank 0's
+            broadcast decisions): a 2-epoch fit at B=32 on 1,024 / 256
+            utterances against the single-device host-fed fit on the same
+            order (cuDNN deterministic; losses rel 1e-3, the same best
+            epoch), ms per step of the two at B=512 and B=32 in turns
+            (single, DP, DP, single; median of 2 epochs of 4 / 8 steps each
+            turn), and the DP-trained checkpoint through ``predict --fast``'s
+            K2 f32 chain (3 launches a batch) against ``predict_scores``
+            (1e-4); two gloo ranks sharing the card take one CNN2D DP step at
+            a global B=64 against the single-device step on the
+            concatenated batch (SGD 0.1, ``tests/test_parallel.py:60``'s
+            tolerances: the loss sum rtol 1e-5, parameters atol 2e-6,
+            BatchNorm mean atol 1e-6 and var rtol 1e-4); ``train
+            --data-parallel 2`` exits non-zero with ``make_mesh``'s
+            device-count message
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
@@ -348,6 +368,11 @@ REST_CLI_UTTS = {"train": 1024, "dev": 256, "test2": 128}  # the CLIs' and the B
 REST_FUSED_BIG_UTTS = 2048  # the fused and per-epoch fits at B=512: 4 steps an epoch
 REST_EPOCHS, REST_REPS = 3, 3  # epochs of a fused / per-epoch fit; timed epochs of a chunked feed
 REST_RTOL = 1e-3  # card runs of one computation in two feeds (cuDNN need not be deterministic)
+# data-parallel training (21)
+DP_STEP_BATCH = 64  # the two ranks' global batch: 32 rows a rank
+DP_REPS = 2  # timed epochs per turn
+DP_TIMEOUT_S = 300  # a collective that waits longer fails its rank
+DP_CLI_UTTS = 16
 PASS_REPLACES = {"conv1_pass": "scripts/train_opt_probe.py:845", "conv_forms": "scripts/train_opt_probe.py:974",
                  "conv_chunked": "scripts/train_opt_probe.py:1248", "conv_trailing": "scripts/train_opt_probe.py:1355"}
 
@@ -389,16 +414,55 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Device time per launch of the kernel named ``kernel`` over ``reps``
-    calls of ``fn``, from ``torch.profiler``'s kernel records
-    (``dfac_tpu_torch.profiling.kernel_device_ms``): the kernel alone,
-    without its wrapper's host work. Fails unless each call launched it once."""
+PROFILER_TRIES = 3  # torch.profiler passes before device_ms falls back to queued CUDA events
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` over ``reps`` calls queued behind a
+    spin kernel (``torch.cuda._sleep``): the host enqueues every launch
+    while the stream is held, so CUDA events around them time the device
+    alone, without the wrappers' host work. The spin is lengthened until
+    it outlasts the enqueueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # ~10 ms at the H100's boost clock
+    for _ in range(4):
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        held.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * held.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError(f"queued_ms: enqueueing {reps} calls outlasted a spin of {cycles // 4} cycles")
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> tuple[float, str]:
+    """(device time per launch, how it was taken) of the kernel named
+    ``kernel`` over ``reps`` calls of ``fn``: from ``torch.profiler``'s
+    kernel records (``dfac_tpu_torch.profiling.kernel_device_ms``), the
+    kernel alone without its wrapper's host work, failing unless each call
+    launched it once. Where the profiler kept no device record in
+    ``PROFILER_TRIES`` passes (it has been seen to drop every device record
+    of a pass), :func:`queued_ms` takes the device time instead."""
     from dfac_tpu_torch.profiling import kernel_device_ms
 
-    found = kernel_device_ms(fn, kernel, reps)
-    require(found is not None and found[1] == reps, f"torch.profiler: {found} for {kernel} over {reps} calls")
-    return found[0]
+    for _ in range(PROFILER_TRIES):
+        found = kernel_device_ms(fn, kernel, reps)
+        if found is not None:
+            require(found[1] == reps, f"torch.profiler: {found[1]} {kernel} launches over {reps} calls")
+            return found[0], "torch.profiler"
+    print(f"torch.profiler kept no {kernel} record in {PROFILER_TRIES} passes: CUDA events over {reps} "
+          f"launches queued behind a spin kernel instead", file=sys.stderr, flush=True)
+    return queued_ms(fn, reps), "CUDA events, queued launches"
 
 
 def bound(n_bytes: float, **flops: float) -> tuple[float, str]:
@@ -1362,7 +1426,7 @@ def int8_tools_phase(dev, card: str) -> dict:
     from dfac_tpu_torch.models import fast_infer_int8 as w8
     from dfac_tpu_torch.ops import _build
     from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8, reference_conv_block_w8a8
-    from dfac_tpu_torch.profiling import kernel_device_ms, profile_path
+    from dfac_tpu_torch.profiling import profile_path
     from dfac_tpu_torch.train import rates
     from dfac_tpu_torch.train.checkpoint import save_checkpoint
     from dfac_tpu_torch.utils.convert import jax_from_state_dict
@@ -1434,13 +1498,7 @@ def int8_tools_phase(dev, card: str) -> dict:
         w8_parts.append(bnd)
         ms, plain_ms = in_turns(lambda: reference_conv_block_w8a8(x, w, deq, b, inv_s),
                                 lambda: conv_block_w8a8(x, w, deq, b, inv_s), reps=5)
-        found = kernel_device_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s), "conv_block_w8a8", 10)
-        if found is not None:
-            require(found[1] == 10, f"torch.profiler: {found[1]} conv_block_w8a8 launches over 10 calls")
-            dev_ms, dev_how = found[0], "torch.profiler's kernel records"
-        else:  # the profiler kept no kernel record in this process: CUDA events over back-to-back launches,
-            # which time the device alone, as the kernel outlasts its wrapper's host work
-            dev_ms, dev_how = cuda_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s), 20), "CUDA events, 20 launches"
+        dev_ms, dev_how = device_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s), "conv_block_w8a8")
         xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
         patches = torch.cat([xp[:, dy:dy + h, dx:dx + width] for dy in range(3) for dx in range(3)], -1)
         patches = patches.reshape(-1, 9 * c_in)
@@ -1847,36 +1905,220 @@ def train_rest_phase(dev, card: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t.fit_fused(tr, dv)
-    traced = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    require(events, "the traced detector run recorded no device event")
-    busy_us, end, per_name = 0.0, float("-inf"), {}
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        a, b = e.time_range.start, e.time_range.end
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-        us, n = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (us + b - a, n + 1)
-    steps = -(-len(tr) // TRAIN_BATCH) * REST_EPOCHS
-    device_ms = sum(us for us, _ in per_name.values()) / 1e3
-    phase("train-rest", f"detector fit_fused B={TRAIN_BATCH}, {REST_EPOCHS} epochs on {len(tr)} / {len(dv)} "
-                        f"utterances: wall {', '.join(f'{w:.3f}' for w in walls)} s (the first uploads the corpus); "
-                        f"the fourth traced (CUDA activity only): wall {traced:.3f} s, device {device_ms / steps:.4f} "
-                        f"ms a step (kernels and copies, {steps} steps with the dev passes), busy "
-                        f"{busy_us / 1e6 / traced:.1%} of the traced wall, "
-                        f"{busy_us / 1e6 / statistics.median(walls[1:]):.1%} of the untraced warm runs' median wall, "
-                        f"on {card}")
-    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        phase("train-rest", f"  {us / 1e3 / steps:8.4f} ms {us / 1e3 / device_ms:6.1%} {n / steps:5.1f}x  {name[:110]}")
+    for _ in range(PROFILER_TRIES):  # the profiler has been seen to drop a whole pass's device records
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t.fit_fused(tr, dv)
+        traced = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        if events:
+            break
+    if not events:
+        phase("train-rest", f"detector fit_fused B={TRAIN_BATCH}: wall {', '.join(f'{w:.3f}' for w in walls)} s; "
+                            f"device time and busy share not measured: torch.profiler recorded no device event in "
+                            f"{PROFILER_TRIES} traced runs, on {card}")
+    else:
+        busy_us, end, per_name = 0.0, float("-inf"), {}
+        for e in sorted(events, key=lambda e: e.time_range.start):
+            a, b = e.time_range.start, e.time_range.end
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+            us, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + b - a, n + 1)
+        steps = -(-len(tr) // TRAIN_BATCH) * REST_EPOCHS
+        device_ms = sum(us for us, _ in per_name.values()) / 1e3
+        phase("train-rest", f"detector fit_fused B={TRAIN_BATCH}, {REST_EPOCHS} epochs on {len(tr)} / "
+                            f"{len(dv)} utterances: wall {', '.join(f'{w:.3f}' for w in walls)} s (the first "
+                            f"uploads the corpus); the fourth traced (CUDA activity only): wall {traced:.3f} s, "
+                            f"device {device_ms / steps:.4f} ms a step (kernels and copies, {steps} steps with the "
+                            f"dev passes), busy {busy_us / 1e6 / traced:.1%} of the traced wall, "
+                            f"{busy_us / 1e6 / statistics.median(walls[1:]):.1%} of the untraced warm runs' median "
+                            f"wall, on {card}")
+        for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            phase("train-rest", f"  {us / 1e3 / steps:8.4f} ms {us / 1e3 / device_ms:6.1%} {n / steps:5.1f}x  "
+                                f"{name[:110]}")
     timed = _build.launch_counts()
     require(not any(timed.values()), f"the timed training runs launched kernels of the port: {timed}")
     phase("train-rest", f"launches over the timed training runs: {timed} (cuDNN and cuBLAS only)")
+
+
+def dp_rank_step(kind: str, sd: dict, feats: np.ndarray, labels: np.ndarray) -> tuple[float, dict]:
+    """Phase 21, on each of two gloo ranks sharing the card: one CNN2D DP
+    step (SGD 0.1) on the rank's half of the global batch; the summed loss
+    and the state afterwards (numpy)."""
+    import torch
+
+    from dfac_tpu_torch.parallel.data_parallel import rank_device
+    from dfac_tpu_torch.train.loop import TrainConfig, Trainer
+
+    dev = rank_device(kind)
+    t = Trainer(TrainConfig(batch_size=len(feats), in_features=TRAIN_FEATURES, dropout=0.0, label_smoothing=0.05,
+                            data_parallel=2), device=dev)
+    t.init_state({k: torch.from_numpy(v) for k, v in sd.items()})
+    t.optimizer = torch.optim.SGD(t.model.parameters(), lr=0.1)
+    k, r = len(feats) // 2, t.ranks.rank
+    x, y = (torch.from_numpy(a[r * k : (r + 1) * k]).to(dev) for a in (feats, labels))
+    loss_sum, _ = t.train_step(x, y, torch.ones(k, device=dev))
+    return float(loss_sum), {n: v.cpu().numpy() for n, v in t.model.state_dict().items()}
+
+
+def data_parallel_phase(dev, card: str) -> None:
+    """Phase 21: data-parallel training on the one card (see the module docstring)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models.fast_infer import predict_scores_fast
+    from dfac_tpu_torch.ops import _build
+    from dfac_tpu_torch.parallel import data_parallel as dpar
+    from dfac_tpu_torch.train import rates
+    from dfac_tpu_torch.train.checkpoint import load_model_variables
+    from dfac_tpu_torch.train.evaluate import predict_scores
+    from dfac_tpu_torch.train.loop import TrainConfig, Trainer
+
+    features = TRAIN_FEATURES
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def cfg(**kw):
+        return TrainConfig(**{**dict(batch_size=TRAIN_BATCH, epochs=2, in_features=features, seed=SEED,
+                                     label_smoothing=0.05, lr_scheduler="plateau"), **kw})
+
+    def rows(history):
+        return [(m.train_loss, m.dev_loss, m.dev_eer, m.learning_rate) for m in history]
+
+    with tempfile.TemporaryDirectory(prefix="dfac_smoke_dp_") as tmp:
+        # the refused CLI and the two ranks on the one card start now, beside the work in process below
+        tiny = write_split(tmp, "tiny", rates.synthetic_dataset(DP_CLI_UTTS, features, N_FRAMES, 80))
+        refused = subprocess.Popen(
+            [sys.executable, "-m", "dfac_tpu_torch.cli.train", "--train-features", tiny[0], "--train-labels", tiny[1],
+             "--dev-features", tiny[0], "--dev-labels", tiny[1], "--data-parallel", "2", "--in-features",
+             str(features), "--quiet", "--checkpoint-dir", os.path.join(tmp, "ck_refused")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+        t_pool = time.perf_counter()
+        pool = dpar.RankPool([f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"] * 2, backend="gloo",
+                             timeout_s=DP_TIMEOUT_S)
+        try:
+            # -- one rank on NCCL, in this process
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                    init_method=f"tcp://127.0.0.1:{dpar.free_port()}", world_size=1, rank=0,
+                                    timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+            try:
+                group = dist.group.WORLD
+                train_ds = rates.synthetic_dataset(TRAIN_UTTS, features, N_FRAMES, 81)
+                dev_ds = rates.synthetic_dataset(TRAIN_DEV_UTTS, features, N_FRAMES, 82)
+                _build.reset_launch_counts()
+                torch.backends.cudnn.deterministic = True
+                ck = os.path.join(tmp, "ck")
+                t0 = time.perf_counter()
+                single = Trainer(cfg(), device=dev).fit(train_ds, dev_ds)
+                t1 = time.perf_counter()
+                dp_t = Trainer(cfg(), device=dev, group=group)
+                dp_fit = dp_t.fit(train_ds, dev_ds, checkpoint_dir=ck)
+                t2 = time.perf_counter()
+                torch.backends.cudnn.deterministic = False
+                require(len(dp_fit["history"]) == len(single["history"]) == 2
+                        and np.allclose(rows(dp_fit["history"]), rows(single["history"]), rtol=REST_RTOL, atol=0.0),
+                        f"DP fit {rows(dp_fit['history'])} vs single-device {rows(single['history'])}")
+                require(dp_fit["best_epoch"] == single["best_epoch"],
+                        f"best epochs: DP {dp_fit['best_epoch']}, single-device {single['best_epoch']}")
+                phase("data-parallel", f"one NCCL rank, CNN2D full width, B={TRAIN_BATCH}, 2 epochs on "
+                                       f"{len(train_ds)} / {len(dev_ds)} utterances, cuDNN deterministic: DP fit "
+                                       f"(train loss, dev loss, EER, lr) {rows(dp_fit['history'])} vs the "
+                                       f"single-device host-fed fit {rows(single['history'])} (rtol {REST_RTOL}); "
+                                       f"best epoch {dp_fit['best_epoch']} both; wall {t2 - t1:.2f} s vs "
+                                       f"{t1 - t0:.2f} s")
+                del dp_t
+                # -- ms a step: the DP step (eager synced BatchNorm, the flat all-reduce) and the single-device one
+                for b, steps in sorted(TRAIN_STEPS.items(), reverse=True):
+                    ds = rates.synthetic_dataset(b * steps, features, N_FRAMES, 83)
+                    trainers = {"single-device": Trainer(cfg(batch_size=b), device=dev),
+                                "data-parallel": Trainer(cfg(batch_size=b), device=dev, group=group)}
+                    for t in trainers.values():
+                        t.init_state(example_batch=ds.features[:1])
+                    secs = {k: [] for k in trainers}
+                    for k in ("single-device", "data-parallel", "data-parallel", "single-device"):
+                        secs[k] += rates.epoch_seconds(trainers[k], ds, reps=DP_REPS)
+                    ms = {k: [1e3 * x / steps for x in v] for k, v in secs.items()}
+                    med = {k: statistics.median(v) for k, v in ms.items()}
+                    phase("data-parallel", f"train step B={b} host-fed, one NCCL rank: data-parallel "
+                                           f"{med['data-parallel']:.4f} ms (min {min(ms['data-parallel']):.4f}, max "
+                                           f"{max(ms['data-parallel']):.4f}) vs single-device "
+                                           f"{med['single-device']:.4f} ms (min {min(ms['single-device']):.4f}, max "
+                                           f"{max(ms['single-device']):.4f}): x"
+                                           f"{med['data-parallel'] / med['single-device']:.3f} (median of "
+                                           f"{len(ms['single-device'])} epochs of {steps} steps each, in turns "
+                                           f"single, DP, DP, single), on {card}")
+                    del trainers, ds
+                    torch.cuda.empty_cache()
+                trained = _build.launch_counts()
+                require(not any(trained.values()), f"DP training launched kernels of the port: {trained}")
+                # -- the DP-trained checkpoint served as predict --fast (f32) and predict serve it
+                model = build_model("cnn2d", in_features=features)
+                model.load_state_dict(load_model_variables(os.path.join(ck, "cnn2d_best.ckpt")))
+                _build.reset_launch_counts()
+                fast = predict_scores_fast(model.state_dict(), dev_ds, dev, batch_size=BATCH,
+                                           compute_dtype=torch.float32)
+                served = _build.launch_counts()
+                n_served = -(-len(dev_ds) // BATCH)
+                plain = predict_scores(model.to(dev), dev_ds, batch_size=BATCH, apply_sigmoid=True)
+                d_in = float(np.abs(fast - plain).max())
+                phase("data-parallel", f"the DP-trained CNN2D's best checkpoint: predict_scores_fast (predict --fast, "
+                                       f"K2 f32) vs predict_scores on {len(dev_ds)} utterances: max abs {d_in:.3e} "
+                                       f"(tolerance {F32_SCORE_ATOL}), launches over {n_served} batches {served}")
+                require(served == {**dict.fromkeys(served, 0), "conv_block": 3 * n_served}, f"served: {served}")
+                require(d_in <= F32_SCORE_ATOL, "predict and predict --fast disagree on the DP-trained checkpoint")
+            finally:
+                dist.destroy_process_group()
+
+            # -- two gloo ranks sharing the card: one DP step against the single-device step
+            batch = rates.synthetic_dataset(DP_STEP_BATCH, features, N_FRAMES, 84)
+            feats, labels = batch.features, batch.labels.astype(np.float32)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                sd = {k: v.numpy() for k, v in build_model("cnn2d", in_features=features, dropout=0.0)
+                      .state_dict().items()}
+            t0 = time.perf_counter()
+            got = pool.run(dp_rank_step, dev.type, sd, feats, labels, timeout_s=DP_TIMEOUT_S)
+            t_ranks = time.perf_counter() - t0
+            one = Trainer(TrainConfig(batch_size=DP_STEP_BATCH, in_features=features, dropout=0.0,
+                                      label_smoothing=0.05), device=dev)
+            one.init_state({k: torch.from_numpy(v) for k, v in sd.items()})
+            one.optimizer = torch.optim.SGD(one.model.parameters(), lr=0.1)
+            loss_one, _ = one.train_step(torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev),
+                                         torch.ones(DP_STEP_BATCH, device=dev))
+            want = {k: v.cpu().numpy() for k, v in one.model.state_dict().items()}
+            errs = {"loss": 0.0, "params": 0.0, "mean": 0.0, "var": 0.0}
+            for loss, state in got:
+                errs["loss"] = max(errs["loss"], abs(loss - float(loss_one)) / abs(float(loss_one)))
+                for k, w in want.items():
+                    kind = "mean" if "running_mean" in k else "var" if "running_var" in k else \
+                        None if "num_batches" in k else "params"
+                    if kind:
+                        d = np.abs(state[k] - w) / (np.abs(w) if kind == "var" else 1.0)
+                        errs[kind] = max(errs[kind], float(d.max()))
+            phase("data-parallel", f"two gloo ranks sharing {card} (processes started with the phase, "
+                                   f"{time.perf_counter() - t_pool:.1f} s ago): one CNN2D DP step, global B="
+                                   f"{DP_STEP_BATCH}, SGD 0.1, against the single-device step on the concatenated "
+                                   f"batch: loss sum rel {errs['loss']:.2e} (1e-5), parameters max abs "
+                                   f"{errs['params']:.2e} (2e-6), BatchNorm mean max abs {errs['mean']:.2e} (1e-6), "
+                                   f"var max rel {errs['var']:.2e} (1e-4); the step {t_ranks:.2f} s")
+            require(errs["loss"] <= 1e-5 and errs["params"] <= 2e-6 and errs["mean"] <= 1e-6 and errs["var"] <= 1e-4,
+                    f"the two-rank step disagrees with the single-device step: {errs}")
+        finally:
+            pool.close()
+        # -- the CLI on a machine with one card
+        out, err = refused.communicate(timeout=DP_TIMEOUT_S)
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        msg = f"mesh 2x1 needs 2 devices, only {n_cards} available"
+        require(refused.returncode not in (0, None) and msg in err and not os.path.exists(os.path.join(tmp, "ck_refused")),
+                f"train --data-parallel 2 exited {refused.returncode}: {err[-2000:]}")
+        phase("data-parallel", f"train --data-parallel 2 on {n_cards} card(s): exit {refused.returncode}, "
+                               f"{err.strip().splitlines()[-1]}")
 
 
 def kernel_phases():
@@ -2475,10 +2717,10 @@ def kernel_phases():
     for b in (BATCH, EXTRACT_BATCH):
         pw = power[:b]
         ms, plain_ms = in_turns(lambda: fb_log_dct_plain(pw, cfg), lambda: fused_fb_log_dct(pw, cfg))
-        dev_ms = device_ms(lambda: fused_fb_log_dct(pw, cfg), "fb_log_dct_kernel")
+        dev_ms, dev_how = device_ms(lambda: fused_fb_log_dct(pw, cfg), "fb_log_dct_kernel")
         bnd_ms, bnd_by = k4_bound(pw)
         phase("timing", f"K4 fb_log_dct B={b} ({b * N_FRAMES} rows): kernel {ms:.4f} ms in turns, device "
-                        f"{dev_ms:.4f} ms a launch (torch.profiler), bound {bnd_ms:.4f} ms ({bnd_by}), "
+                        f"{dev_ms:.4f} ms a launch ({dev_how}), bound {bnd_ms:.4f} ms ({bnd_by}), "
                         f"{bnd_ms / ms:.1%} of the bound's rate in turns, {bnd_ms / dev_ms:.1%} on the device; "
                         f"plain {plain_ms:.4f} ms, on {card}")
         if b == BATCH:
@@ -2602,8 +2844,8 @@ def kernel_phases():
         pass_ms[key], pass_plain[key] = pass_ms[key] + ms, pass_plain[key] + plain_ms
         phase("timing", case_line(key, name, ms, plain_ms))
         if name == "v0":  # a ~0.03 ms kernel behind its wrapper's host work: its device time too
-            dev_ms = device_ms(lambda: case.kernel(a, wt), "sum_sq_checksum")
-            phase("timing", f"{key} v0 B={PROBE_BATCH}: device {dev_ms:.4f} ms a launch (torch.profiler; "
+            dev_ms, dev_how = device_ms(lambda: case.kernel(a, wt), "sum_sq_checksum")
+            phase("timing", f"{key} v0 B={PROBE_BATCH}: device {dev_ms:.4f} ms a launch ({dev_how}; "
                             f"sum_sq_checksum alone), {case_bound[name][0] / dev_ms:.1%} of the bound's rate, "
                             f"on {card}")
     x11, w11 = pass_arrs["11"]["x"], pass_arrs["11"]["w"]
@@ -2692,6 +2934,9 @@ def main() -> int:
     # -- 20. the remainder of single-device training ------------------------------------
     torch.cuda.empty_cache()
     train_rest_phase(dev, card)
+    # -- 21. data-parallel training -------------------------------------------------------
+    torch.cuda.empty_cache()
+    data_parallel_phase(dev, card)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

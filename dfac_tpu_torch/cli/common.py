@@ -83,14 +83,36 @@ def add_multihost_args(p: argparse.ArgumentParser) -> None:
 
 def refuse_unported_training(args) -> None:
     """Exit non-zero with "not yet ported" on the first set flag of a
-    training path the training CLIs do not port yet (data-parallel and
-    multi-host fits, orbax checkpoints)."""
-    for flag, on in (
-        ("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost),
-        ("--checkpoint-format orbax", args.checkpoint_format == "orbax"),
-    ):
+    training path the training CLIs do not port yet (multi-host fits, orbax
+    checkpoints)."""
+    for flag, on in (("--multihost", args.multihost), ("--checkpoint-format orbax", args.checkpoint_format == "orbax")):
         if on:
             raise SystemExit(f"{flag}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+
+
+DATA_PARALLEL_HELP = ("data-parallel training over N devices: one process per device (NCCL on the card, gloo with "
+                      "--device cpu), BatchNorm synced across them; --batch-size is the global batch")
+
+
+def run_training(fit, args, *data):
+    """``fit(args, *data)`` in this process, or with ``--data-parallel N > 1``
+    on N ranks (:func:`dfac_tpu_torch.parallel.launch`; the datasets in
+    shared memory), returning rank 0's result. The data was read here
+    first, so a missing file fails before any rank starts."""
+    if args.data_parallel > 1:
+        from dfac_tpu_torch.parallel import launch
+
+        return launch(fit, args.data_parallel, args.device, args, *data)
+    return fit(args, *data)
+
+
+def train_device(args):
+    """The device a fit runs on: ``--device``, or a data-parallel rank's own."""
+    if args.data_parallel > 1:
+        from dfac_tpu_torch.parallel.data_parallel import rank_device
+
+        return rank_device(args.device)
+    return args.device
 
 
 CHUNK_HELP = ("stream the epoch in chunks of G batches through pinned memory (the upload overlapped with the "

@@ -3,7 +3,9 @@
 Counterpart of ``dfac-train`` (:mod:`dfac_tpu.cli.train`), parity target
 reference ``src/train.py:94-246``: the same flags, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on the
-CPU). Trains every ``--model`` choice on one device, in f32 or ``--bf16``
+CPU). Trains every ``--model`` choice on one device or, with
+``--data-parallel N``, on N devices (one process each, BatchNorm synced
+across them; :mod:`dfac_tpu_torch.parallel`), in f32 or ``--bf16``
 (the families that take a compute dtype: CNN2D and CNN1D; the zoo trains
 in f32, as in JAX), host-fed, ``--device-resident`` or streamed in chunks
 (``--resident-chunk-batches G``, ``--chunk-ingest f32|bf16|int8``), or as
@@ -13,7 +15,8 @@ freeze tail (``--bn-freeze-after FRAC``, ``--train-fast``: dropout 0 and
 a 0.5 tail); ``--resume``, ``--run-name``, ``--debug-augment-stats`` and
 ``--profile-dir`` (a ``torch.profiler`` Chrome trace of the fit) work. The
 display is the rich dashboard, ``--no-rich`` tqdm and ``--quiet`` none
-(the JAX CLI's ``create_visualizer`` chain). ``--data-parallel``,
+(the JAX CLI's ``create_visualizer`` chain), shown by rank 0 of a
+data-parallel run, which alone prints and writes checkpoints.
 ``--multihost`` and ``--checkpoint-format orbax`` exit non-zero with "not
 yet ported".
 """
@@ -26,16 +29,19 @@ import os
 import numpy as np
 
 from dfac_tpu_torch.cli.common import (
+    DATA_PARALLEL_HELP,
+    FREEZE_HELP,
     add_augment_args,
     add_data_args,
-    FREEZE_HELP,
     add_multihost_args,
     add_stream_args,
     add_swap_tf_args,
     augment_config_from_args,
     check_stream_args,
     refuse_unported_training,
+    run_training,
     set_seed,
+    train_device,
 )
 
 MODELS = [
@@ -77,7 +83,7 @@ def parse_args(argv=None):
     p.add_argument("--debug-augment-stats", action="store_true",
                    help="print feature stats before/after augmentation on the first batch")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (f32 parameters)")
-    p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
+    p.add_argument("--data-parallel", type=int, default=0, help=DATA_PARALLEL_HELP)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
     p.add_argument("--device-resident", action="store_true",
@@ -134,16 +140,25 @@ def main(argv=None):
     set_seed(args.seed)
 
     from dfac_tpu_torch.data.pipeline import load_dataset
-    from dfac_tpu_torch.obs.factory import create_visualizer
-    from dfac_tpu_torch.train.checkpoint import build_config_dict
-    from dfac_tpu_torch.train.loop import TrainConfig, Trainer
-
-    checkpoint_root = args.checkpoint_dir
-    if args.run_name:
-        checkpoint_root = os.path.join(checkpoint_root, args.run_name)
 
     train_ds = load_dataset(args.train_features, args.train_labels)
     dev_ds = load_dataset(args.dev_features, args.dev_labels)
+    return run_training(_fit, args, train_ds, dev_ds)
+
+
+def _fit(args, train_ds, dev_ds):
+    """The run after the data is read: in this process, or on each rank of
+    ``--data-parallel`` (rank 0 prints and writes); the fit's result."""
+    from dfac_tpu_torch.obs.factory import create_visualizer
+    from dfac_tpu_torch.parallel.data_parallel import main_process
+    from dfac_tpu_torch.train.checkpoint import build_config_dict
+    from dfac_tpu_torch.train.loop import TrainConfig, Trainer
+
+    set_seed(args.seed)
+    main = main_process()
+    checkpoint_root = args.checkpoint_dir
+    if args.run_name:
+        checkpoint_root = os.path.join(checkpoint_root, args.run_name)
 
     cfg = TrainConfig(
         model=args.model,
@@ -170,18 +185,19 @@ def main(argv=None):
         resident_chunk_batches=args.resident_chunk_batches,
         chunk_ingest=args.chunk_ingest,
         bn_freeze_after_frac=args.bn_freeze_after,
+        data_parallel=args.data_parallel,
     )
-    visualizer = create_visualizer("noop" if args.quiet else ("tqdm" if args.no_rich else "rich"))
-    trainer = Trainer(cfg, visualizer=visualizer, device=args.device)
+    visualizer = create_visualizer("noop" if args.quiet or not main else ("tqdm" if args.no_rich else "rich"))
+    trainer = Trainer(cfg, visualizer=visualizer, device=train_device(args))
 
-    if args.debug_augment_stats:
+    if args.debug_augment_stats and main:
         first = train_ds.features[: args.batch_size]
         feats = np.transpose(first, (0, 2, 1)) if args.swap_tf else first
         _debug_augment_stats(trainer.augment_fn, np.ascontiguousarray(feats, np.float32), trainer.device)
 
     from dfac_tpu_torch.obs.profiling import trace
 
-    with trace(args.profile_dir):
+    with trace(args.profile_dir if main else None):
         if args.fused_fit:
             result = trainer.fit_fused(train_ds, dev_ds, resume_from=args.resume)
             _save_fused(trainer, result, checkpoint_root, args, build_config_dict(args))
@@ -191,7 +207,7 @@ def main(argv=None):
                 config_snapshot=build_config_dict(args),
                 resume_from=args.resume,
             )
-    if result["best_eer"] is not None:
+    if result["best_eer"] is not None and main:
         print(f"best dev EER: {result['best_eer']:.6f}")
     return result
 

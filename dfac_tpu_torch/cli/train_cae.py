@@ -8,13 +8,14 @@ with ``--no-rich`` or where ``rich`` is not installed, nothing with
 ``--quiet``), and the ``cae_best.ckpt`` / ``cae_last.ckpt`` /
 ``normalizer.npz`` artifacts. The same flags and final line, with
 ``--device`` defaulting to ``cuda`` (no implicit fallback; ``--device
-cpu`` runs on the CPU). Trains in f32 on one device, host-fed,
-``--device-resident``, streamed in chunks (``--resident-chunk-batches``,
-``--chunk-ingest``) or as one ``--fused-fit`` run, with the BatchNorm
-freeze tail (``--bn-freeze-after``; ``--train-fast`` is a 0.5 tail: the
-CAE has no dropout), ``--profile-dir`` tracing the fit;
-``--data-parallel``, ``--multihost`` and ``--checkpoint-format orbax``
-exit non-zero with "not yet ported".
+cpu`` runs on the CPU). Trains in f32 on one device or, with
+``--data-parallel N``, on N (one process each; rank 0 prints and writes
+the artifacts), host-fed, ``--device-resident``, streamed in chunks
+(``--resident-chunk-batches``, ``--chunk-ingest``) or as one
+``--fused-fit`` run, with the BatchNorm freeze tail
+(``--bn-freeze-after``; ``--train-fast`` is a 0.5 tail: the CAE has no
+dropout), ``--profile-dir`` tracing the fit; ``--multihost`` and
+``--checkpoint-format orbax`` exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -22,13 +23,16 @@ from __future__ import annotations
 import argparse
 
 from dfac_tpu_torch.cli.common import (
+    DATA_PARALLEL_HELP,
     FREEZE_HELP,
     add_data_args,
     add_multihost_args,
     add_stream_args,
     check_stream_args,
     refuse_unported_training,
+    run_training,
     set_seed,
+    train_device,
 )
 
 
@@ -52,7 +56,7 @@ def parse_args(argv=None):
                    help="upload the bonafide corpus to the card once; gather batches there")
     add_stream_args(p, "the WHOLE run (epochs + validation + best rule + plateau + early stop) over a "
                        "device-resident corpus, with no live UI")
-    p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
+    p.add_argument("--data-parallel", type=int, default=0, help=DATA_PARALLEL_HELP)
     p.add_argument("--bn-freeze-after", type=float, default=0.0, metavar="FRAC",
                    help=FREEZE_HELP + "; every BatchNorm, encoder and decoder")
     p.add_argument("--train-fast", action="store_true",
@@ -79,11 +83,23 @@ def main(argv=None):
 
     from dfac_tpu_torch.data.normalizer import FeatureNormalizer
     from dfac_tpu_torch.data.pipeline import load_dataset
-    from dfac_tpu_torch.obs.cae_dashboard import create_cae_visualizer
-    from dfac_tpu_torch.train.cae_loop import CAEConfig, CAETrainer
 
     train_ds = load_dataset(args.train_features, args.train_labels)
     dev_ds = load_dataset(args.dev_features, args.dev_labels)
+    normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
+    return run_training(_fit, args, train_ds, dev_ds, normalizer)
+
+
+def _fit(args, train_ds, dev_ds, normalizer):
+    """The run after the data is read: in this process, or on each rank of
+    ``--data-parallel`` (rank 0 prints and writes); the fit's result."""
+    from dfac_tpu_torch.obs.cae_dashboard import create_cae_visualizer
+    from dfac_tpu_torch.obs.profiling import trace
+    from dfac_tpu_torch.parallel.data_parallel import main_process
+    from dfac_tpu_torch.train.cae_loop import CAEConfig, CAETrainer
+
+    set_seed(args.seed)
+    main = main_process()
     cfg = CAEConfig(
         batch_size=args.batch_size,
         epochs=args.epochs,
@@ -98,16 +114,15 @@ def main(argv=None):
         resident_chunk_batches=args.resident_chunk_batches,
         chunk_ingest=args.chunk_ingest,
         bn_freeze_after_frac=args.bn_freeze_after,
+        data_parallel=args.data_parallel,
     )
-    visualizer = create_cae_visualizer("noop" if args.quiet else ("plain" if args.no_rich else "rich"))
-    trainer = CAETrainer(cfg, visualizer=visualizer, device=args.device)
-    normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
-    from dfac_tpu_torch.obs.profiling import trace
-
+    visualizer = create_cae_visualizer("noop" if args.quiet or not main else ("plain" if args.no_rich else "rich"))
+    trainer = CAETrainer(cfg, visualizer=visualizer, device=train_device(args))
     fit = trainer.fit_fused if args.fused_fit else trainer.fit
-    with trace(args.profile_dir):
+    with trace(args.profile_dir if main else None):
         result = fit(train_ds, dev_ds, checkpoint_dir=args.checkpoint_dir, normalizer=normalizer)
-    print(f"best val reconstruction MSE: {result['best_val_mse']:.6f}")
+    if main:
+        print(f"best val reconstruction MSE: {result['best_val_mse']:.6f}")
     return result
 
 

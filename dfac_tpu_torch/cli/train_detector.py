@@ -9,14 +9,15 @@ has labels. ``--epochs 0`` scores ``--ckpt-path`` without training;
 ``--fast`` scores through the folded chain (f32 by default, ``--bf16``
 for bf16 activations). The same flags and lines, with ``--device``
 defaulting to ``cuda`` (no implicit fallback; ``--device cpu`` runs on
-the CPU). Trains on one device, in f32 or ``--bf16`` (the model in bf16,
+the CPU). Trains on one device or, with ``--data-parallel N``, on N (one
+process each; rank 0 prints its training line and writes the checkpoint,
+then this process scores the test split), in f32 or ``--bf16`` (the model in bf16,
 which then scores the test split without ``--fast``, as in JAX), host-fed,
 ``--device-resident``, streamed in chunks (``--resident-chunk-batches``,
 ``--chunk-ingest``) or as one ``--fused-fit`` run, with the BatchNorm
 freeze tail (``--bn-freeze-after``; ``--train-fast``: both dropouts 0 and
-a 0.5 tail), ``--profile-dir`` tracing the fit; ``--data-parallel``,
-``--multihost`` and ``--checkpoint-format orbax`` exit non-zero with "not
-yet ported".
+a 0.5 tail), ``--profile-dir`` tracing the fit; ``--multihost`` and
+``--checkpoint-format orbax`` exit non-zero with "not yet ported".
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ import argparse
 import os
 
 from dfac_tpu_torch.cli.common import (
+    DATA_PARALLEL_HELP,
     FREEZE_HELP,
     add_multihost_args,
     add_stream_args,
     check_stream_args,
     refuse_unported_training,
+    run_training,
+    train_device,
 )
 
 
@@ -74,7 +78,7 @@ def parse_args(argv=None):
                    help="upload the training corpus to the card once; gather batches there")
     add_stream_args(p, "the WHOLE run (epochs + dev EER + best rule + patience) over a device-resident "
                        "corpus")
-    p.add_argument("--data-parallel", type=int, default=0, help="DP over N devices (not yet ported)")
+    p.add_argument("--data-parallel", type=int, default=0, help=DATA_PARALLEL_HELP)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
                    help="checkpoint layout (orbax is not yet ported)")
     p.add_argument("--profile-dir", default=None,
@@ -103,7 +107,7 @@ def main(argv=None):
     from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.ops.eer import calculate_eer
     from dfac_tpu_torch.train.checkpoint import load_model_variables
-    from dfac_tpu_torch.train.detector_loop import DetectorConfig, DetectorTrainer, dataset_lengths, detector_scores
+    from dfac_tpu_torch.train.detector_loop import DetectorConfig, dataset_lengths, detector_scores
 
     device = resolve_device(args.device)
     cfg = DetectorConfig(
@@ -118,6 +122,7 @@ def main(argv=None):
         resident_chunk_batches=args.resident_chunk_batches,
         chunk_ingest=args.chunk_ingest,
         bn_freeze_after_frac=args.bn_freeze_after,
+        data_parallel=args.data_parallel,
     )
 
     def split_paths(split):
@@ -131,13 +136,7 @@ def main(argv=None):
     if args.epochs > 0:
         train_ds = load_dataset(*split_paths(args.train_split))
         dev_ds = load_dataset(*split_paths(args.dev_split))
-        trainer = DetectorTrainer(cfg, in_channels=train_ds.features.shape[1], device=device)
-        from dfac_tpu_torch.obs.profiling import trace
-
-        fit = trainer.fit_fused if args.fused_fit else trainer.fit
-        with trace(args.profile_dir):
-            result = fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
-        print(f"Training done. Best dev EER: {result['best_eer']:.6f}")
+        run_training(_fit, args, cfg, train_ds, dev_ds)
     test_ds = load_dataset(test_feat, test_lab if has_test_labels else None)
 
     if not os.path.exists(args.ckpt_path):
@@ -164,6 +163,23 @@ def main(argv=None):
         eer, _ = calculate_eer(scores, test_ds.labels)
         print(f"EER on split '{args.test_split}': {eer:.6f}")
     return scores
+
+
+def _fit(args, cfg, train_ds, dev_ds):
+    """The training after the data is read: in this process, or on each
+    rank of ``--data-parallel`` (rank 0 prints and writes the checkpoint)."""
+    from dfac_tpu_torch.obs.profiling import trace
+    from dfac_tpu_torch.parallel.data_parallel import main_process
+    from dfac_tpu_torch.train.detector_loop import DetectorTrainer
+
+    main = main_process()
+    trainer = DetectorTrainer(cfg, in_channels=train_ds.features.shape[1], device=train_device(args))
+    fit = trainer.fit_fused if args.fused_fit else trainer.fit
+    with trace(args.profile_dir if main else None):
+        result = fit(train_ds, dev_ds, ckpt_path=args.ckpt_path)
+    if main:
+        print(f"Training done. Best dev EER: {result['best_eer']:.6f}")
+    return result
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfac_tpu_torch.models.common import BN_EPS, BN_MOMENTUM, conv_bn_relu
+from dfac_tpu_torch.models.common import BatchNorm2d, conv_bn_relu
 
 MIN_SIDE = 16  # four floor 2x2 pools keep a nonempty bottleneck
 
@@ -78,7 +78,7 @@ class ConvAutoencoder(nn.Module):
         for c_in, c_out in ((bc * 8, bc * 4), (bc * 4, bc * 2), (bc * 2, bc)):
             dec += [
                 nn.ConvTranspose2d(c_in, c_out, 2, stride=2),
-                nn.BatchNorm2d(c_out, eps=BN_EPS, momentum=BN_MOMENTUM),
+                BatchNorm2d(c_out),
                 nn.ReLU(),
             ]
         dec.append(nn.ConvTranspose2d(bc, 1, 2, stride=2))  # no BN / activation on the last block

@@ -35,6 +35,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -88,12 +89,19 @@ class Linear(nn.Linear):
 
 class BatchNorm1d(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` (eps 1e-5, momentum 0.1) computed in f32 from
-    its input, the result in the input's dtype."""
+    its input, the result in the input's dtype. With ``sync_group`` set
+    (:func:`set_batchnorm_group`), training mode takes the statistics of
+    every rank's rows (:func:`synced_batch_norm`, the
+    JAX ``TorchBatchNorm`` under ``axis_name``); without one it is
+    ``nn.BatchNorm1d``'s own path."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.sync_group = None  # a torch.distributed group to sync the batch statistics over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            return synced_batch_norm(self, x, self.sync_group)
         return super().forward(x.float()).to(x.dtype)
 
 
@@ -102,9 +110,74 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            return synced_batch_norm(self, x, self.sync_group)
         return super().forward(x.float()).to(x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum across the ranks of ``group``; the backward sums the gradient
+    across them too (each rank's input feeds every rank's output)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed across the ranks of ``group``, differentiable."""
+    return _AllReduceSum.apply(x, group)
+
+
+def synced_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, group) -> torch.Tensor:
+    """Training-mode BatchNorm of ``bn`` (channels on dim 1) with the
+    statistics of the rows of every rank of ``group``: f32 mean and E[x²]
+    of this rank's rows, averaged across ranks, var = E[x²] - mean² clamped
+    at 0, the running statistics updated with momentum and the unbiased
+    factor of the global count (``dfac_tpu/models/common.py:96-103``). The
+    result is computed in f32 and returned in ``x``'s dtype."""
+    world = dist.get_world_size(group)
+    xf = x.float()
+    c = xf.shape[1]
+    dims = [0, *range(2, xf.dim())]
+    stats = all_reduce_sum(torch.cat([xf.mean(dims), xf.square().mean(dims)]), group) / world
+    mean, mean_sq = stats[:c], stats[c:]
+    var = (mean_sq - mean.square()).clamp_min(0.0)
+    n = (xf.numel() // c) * world
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach() * (n / max(n - 1, 1)), alpha=m)
+        bn.num_batches_tracked.add_(1)
+    shape = (1, c) + (1,) * (xf.dim() - 2)
+    # one pass for (x - mean) * rsqrt(var + eps) * weight + bias: autograd keeps x - mean alone of
+    # the activation's size beside x itself
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    return torch.addcmul(bn.bias.view(shape), xf - mean.view(shape), scale.view(shape)).to(x.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group) -> None:
+    """Sync every BatchNorm of ``model`` over ``group`` in training mode
+    (None: each keeps ``nn.BatchNorm``'s own path). Raises where a
+    BatchNorm of the model is not one of the port's, which would train on
+    its rank's rows alone."""
+    for name, m in model.named_modules():
+        if isinstance(m, (BatchNorm1d, BatchNorm2d)):
+            m.sync_group = group
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            raise TypeError(f"{name}: {type(m).__name__} cannot sync its statistics across ranks")
 
 
 def conv_bn_relu(c_in: int, c_out: int) -> list[nn.Module]:

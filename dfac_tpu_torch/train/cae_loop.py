@@ -21,6 +21,11 @@ Counterpart of :mod:`dfac_tpu.train.cae_loop`. Feature-parity targets:
   freezes every BatchNorm (encoder and decoder) for the epochs after
   ``round(epochs * frac)``; :meth:`CAETrainer.fit_fused` is the resident
   fit with no display (:mod:`~dfac_tpu_torch.train.fused_fit`).
+  ``data_parallel`` N > 1 trains on N ranks as the supervised trainer does
+  (:mod:`~dfac_tpu_torch.train.loop`; the JAX ``make_cae_dp_train_step``):
+  the normalizer replicated, each rank's rows of every batch (host-fed or
+  chunked), BatchNorm (encoder and decoder) synced, the validation MSE on
+  rank 0 broadcast, the artifacts written by rank 0.
 * Evaluator — reference ``src/evaluation_cae.py``: per-sample
   reconstruction MSE over (T, F) of normalized, swapped spectrograms, and
   the **dual scoring convention** (the EER of -MSE and of +MSE, the better
@@ -31,6 +36,7 @@ Counterpart of :mod:`dfac_tpu.train.cae_loop`. Feature-parity targets:
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 
@@ -42,13 +48,22 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset, num_batches
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.models import build_model
 from dfac_tpu_torch.models.cae import reconstruction_mse
-from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm
+from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_batchnorm_group
 from dfac_tpu_torch.obs.base import EpochMetrics, TrainingConfig, TrainingVisualizer
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
 from dfac_tpu_torch.ops.eer import eer_device
+from dfac_tpu_torch.parallel.data_parallel import maybe_ranks, on_rank_zero
 from dfac_tpu_torch.train import checkpoint as ckpt_lib
-from dfac_tpu_torch.train.chunked import ChunkFeed, check_config
-from dfac_tpu_torch.train.loop import bn_frozen_at, epoch_order, resident_arrays, run_epoch, shuffled_batches
+from dfac_tpu_torch.train.chunked import ChunkFeed, check_config, rank_order
+from dfac_tpu_torch.train.loop import (
+    bn_frozen_at,
+    check_data_parallel,
+    epoch_order,
+    resident_arrays,
+    run_epoch,
+    shuffled_batches,
+    weighted_step,
+)
 from dfac_tpu_torch.train.optim import BETAS, EPS, PlateauScheduler, set_lr
 from dfac_tpu_torch.utils.convert import jax_from_state_dict
 
@@ -127,8 +142,8 @@ def evaluate_cae(
 @dataclasses.dataclass
 class CAEConfig:
     """Reference train_cae.py defaults (``src/train_cae.py:114-126``), the
-    fields the port trains: f32, one device, host-fed, resident or chunked,
-    with the BatchNorm freeze tail (the JAX package's data-parallel,
+    fields the port trains: f32, one device or data-parallel, host-fed,
+    resident or chunked, with the BatchNorm freeze tail (the JAX package's
     multi-host and orbax fields select paths not ported yet; see
     ROADMAP.md)."""
 
@@ -149,18 +164,23 @@ class CAEConfig:
     # round(epochs * frac); 0 disables. The CAE has no dropout, so this is
     # its whole --train-fast recipe
     bn_freeze_after_frac: float = 0.0
+    data_parallel: int = 0  # ranks of the process group (TrainConfig's)
 
     def __post_init__(self):
+        check_data_parallel(self)
         check_config(self)
 
 
 class CAETrainer:
     def __init__(self, cfg: CAEConfig, visualizer: TrainingVisualizer | None = None, device=None):
         """``device``: a ``torch.device`` or its name (default ``cuda``, no
-        fallback)."""
+        fallback). With ``data_parallel > 1`` the trainer is a rank of the
+        default process group."""
         self.cfg = cfg
         self.device = device if isinstance(device, torch.device) else resolve_device(device)
-        self.visualizer = visualizer or NoOpVisualizer()
+        self.ranks = maybe_ranks(cfg.data_parallel)
+        main = self.ranks is None or self.ranks.is_main
+        self.visualizer = (visualizer if main else None) or NoOpVisualizer()
         self.scheduler = PlateauScheduler(factor=cfg.lr_scheduler_factor, patience=cfg.lr_scheduler_patience)
         self.model: torch.nn.Module | None = None
         self.optimizer: torch.optim.Optimizer | None = None
@@ -168,7 +188,7 @@ class CAETrainer:
         self.history: list[EpochMetrics] = []
         self._lr = cfg.lr
         self._resident: dict = {}  # id(dataset) -> (dataset, features, labels on the device)
-        self.chunk_feed = ChunkFeed(cfg, self.device, __name__)  # resident_chunk_batches' feed
+        self.chunk_feed = ChunkFeed(cfg, self.device, __name__, self.ranks)  # resident_chunk_batches' feed
 
     # -- state ------------------------------------------------------------
     def init_state(self, state_dict: dict | None = None) -> torch.nn.Module:
@@ -182,6 +202,8 @@ class CAETrainer:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device)
+        if self.ranks is not None:
+            set_batchnorm_group(self.model, self.ranks.group)
         self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=self._lr, betas=BETAS, eps=EPS,
                                            weight_decay=cfg.weight_decay)
         return self.model
@@ -196,19 +218,14 @@ class CAETrainer:
         """One optimizer step on a device batch of stored-orientation (B,
         F, T) features: swap, normalize, reconstruct (with ``frozen``, every
         BatchNorm on its running statistics), the weighted mean MSE,
-        backward, AdamW. Returns ``(loss * count, count)`` as device
-        scalars."""
+        backward, AdamW. Returns ``(loss * count, count)``
+        (:func:`~dfac_tpu_torch.train.loop.weighted_step`)."""
         x = (feats.transpose(1, 2) - self._mean) / self._std
         self.model.train()
         with f32_convs(), frozen_batchnorm(self.model, frozen):
             recon, _ = self.model(x)
             per = reconstruction_mse(recon, x)
-            count = weights.sum()
-            loss = (per * weights).sum() / count.clamp_min(1.0)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        self.optimizer.step()
-        return loss.detach() * count, count
+            return weighted_step(per, weights, self.optimizer, self.model.parameters(), self.ranks)
 
     def _resident_arrays(self, ds: ArrayDataset) -> tuple[torch.Tensor, torch.Tensor]:
         """``ds``'s features and labels on the device, uploaded once per dataset."""
@@ -228,21 +245,27 @@ class CAETrainer:
         None for an empty corpus."""
         cfg = self.cfg
         frozen = self._bn_frozen_at(epoch)
-        seed = cfg.seed * 100003 + epoch
-        if cfg.resident_chunk_batches > 0:  # the host loop's batches, streamed in chunks
-            ones = torch.ones(cfg.batch_size, device=self.device)
-            batches = ((f, None, ones[: len(f)])
-                       for (f,) in self.chunk_feed.batches(ds.features, (), epoch_order(len(ds), seed)))
+        chunked = cfg.resident_chunk_batches > 0
+        order, bs = rank_order(epoch_order(len(ds), cfg.seed * 100003 + epoch), cfg.batch_size, self.ranks,
+                               "chunked CAE training" if chunked else "CAE training")
+        if chunked:  # the host loop's batches, streamed in chunks
+            ones = torch.ones(bs, device=self.device)
+            batches = ((f, None, ones[: len(f)]) for (f,) in self.chunk_feed.batches(ds.features, (), order))
         else:
-            resident = self._resident_arrays(ds) if cfg.device_resident else None
-            batches = shuffled_batches(ds, cfg.batch_size, seed, self.device, resident)
+            resident = self._resident_arrays(ds) if self._resident_feed else None
+            batches = shuffled_batches(ds, bs, order, self.device, resident)
         return run_epoch(lambda feats, _labels, weights: self.train_step(feats, weights, frozen), batches,
                          self.device, batch_ctx)
+
+    @property
+    def _resident_feed(self) -> bool:
+        """``device_resident`` on one device; data-parallel epochs are host-fed, as in JAX."""
+        return self.cfg.device_resident and self.ranks is None
 
     def validate(self, bona_dev: ArrayDataset) -> float:
         """The bonafide-dev mean reconstruction MSE (reference ``:85-105``);
         resident, one pass over the dev split uploaded once."""
-        features = self._resident_arrays(bona_dev)[0] if self.cfg.device_resident and len(bona_dev) else None
+        features = self._resident_arrays(bona_dev)[0] if self._resident_feed and len(bona_dev) else None
         scores = cae_mse_scores(self.model, bona_dev, self.normalizer, self.cfg.batch_size, features=features)
         return float(scores.mean()) if len(scores) else float("nan")
 
@@ -273,8 +296,15 @@ class CAETrainer:
         if self.model is None:
             self.init_state()
 
+        if cfg.device_resident and not self._resident_feed:
+            logging.getLogger(__name__).warning(
+                "device_resident is ignored with data_parallel=%d: the CAE "
+                "epoch falls back to per-batch host-fed dispatch (a "
+                "host/relay round trip per step). Drop --data-parallel or "
+                "--device-resident to silence this.", cfg.data_parallel,
+            )
         best_path = last_path = None
-        if checkpoint_dir:
+        if checkpoint_dir and (self.ranks is None or self.ranks.is_main):  # rank 0 writes a data-parallel run's
             os.makedirs(checkpoint_dir, exist_ok=True)
             best_path = os.path.join(checkpoint_dir, "cae_best.ckpt")
             last_path = os.path.join(checkpoint_dir, "cae_last.ckpt")
@@ -293,7 +323,7 @@ class CAETrainer:
             t0 = time.perf_counter()
             with self.visualizer.on_epoch_start(epoch, num_batches(len(bona_train), cfg.batch_size)) as batch_ctx:
                 train_loss = self.train_epoch(bona_train, epoch, batch_ctx)
-            val_loss = self.validate(bona_dev)
+            val_loss = on_rank_zero(self.ranks, lambda: self.validate(bona_dev))
             elapsed = time.perf_counter() - t0
 
             is_best = best_val is None or val_loss < best_val
@@ -338,9 +368,11 @@ class CAETrainer:
         """``--fused-fit`` (:mod:`~dfac_tpu_torch.train.fused_fit`; JAX
         ``make_fused_cae_fit``): :meth:`fit` over the device-resident corpus
         with no display, the freeze tail's ``TypeError`` raised before the
-        first epoch; :meth:`fit`'s artifacts and result."""
-        from dfac_tpu_torch.train.fused_fit import fused_run
+        first epoch; :meth:`fit`'s artifacts and result. A data-parallel
+        trainer raises the JAX package's ``ValueError``."""
+        from dfac_tpu_torch.train.fused_fit import check_not_data_parallel, fused_run
 
+        check_not_data_parallel(self)
         if self.model is None:
             self.init_state()
         with fused_run(self):

@@ -1,8 +1,7 @@
-"""Chunked streaming training on one device (corpora larger than the card's memory).
+"""Chunked streaming training (corpora larger than the card's memory).
 
-Counterpart of the single-device part of :mod:`dfac_tpu.train.chunked`;
-the data-parallel tail check, the chunk shardings and the multi-host
-branch are not ported yet. All three trainers (``train/loop.py``,
+Counterpart of :mod:`dfac_tpu.train.chunked` on one device and
+data-parallel (the multi-host branch is not ported yet). All three trainers (``train/loop.py``,
 ``train/cae_loop.py``, ``train/detector_loop.py``) stream a corpus the
 same way:
 
@@ -26,6 +25,11 @@ same way:
   f32), so a chunked epoch runs the trainer's own per-batch step on the
   host loop's batches and its generator draws. On the CPU (no upload) a
   chunked f32 epoch is the host-fed epoch bit for bit.
+
+Data-parallel (:mod:`~dfac_tpu_torch.parallel.data_parallel`), each rank
+streams only its rows of every batch of the shared order (its
+``batch_size / N`` share, the tail's included), after
+:func:`check_dp_tail`.
 
 The JAX package scans each chunk as one program (``lax.scan``); here the
 trainer's step is launched per batch, as in its other epochs.
@@ -72,6 +76,31 @@ def check_config(cfg, ingest_note: str = "") -> None:
             "chunk_ingest compresses the chunked-streaming upload — it "
             "needs resident_chunk_batches > 0" + ingest_note
         )
+
+
+def check_dp_tail(n: int, batch_size: int, dp: int, what: str) -> None:
+    """Every batch, the epoch's tail included, must divide over the ranks
+    (``dfac_tpu/train/chunked.py:23-33``, its message): ``what`` names
+    the caller's mode."""
+    if dp > 1 and (n % batch_size) % dp != 0:
+        raise ValueError(
+            f"data-parallel {what} needs every batch (including the "
+            f"{n % batch_size}-row tail of the {n}-sample epoch) to divide "
+            f"over {dp} shards — pick a batch_size with tail % data_parallel == 0"
+        )
+
+
+def rank_order(order: np.ndarray, batch_size: int, ranks, what: str) -> tuple[np.ndarray, int]:
+    """``(rows, batch size)`` a trainer feeds from an epoch's global
+    ``order``: ``order`` and ``batch_size`` on one device (``ranks`` None);
+    data-parallel, this rank's rows
+    (:meth:`~dfac_tpu_torch.parallel.data_parallel.Ranks.rows`) and its
+    share of the batch, after :func:`check_dp_tail` (``what`` names the
+    mode in its message)."""
+    if ranks is None:
+        return order, batch_size
+    check_dp_tail(len(order), batch_size, ranks.world, what)
+    return ranks.rows(order, batch_size), batch_size // ranks.world
 
 
 def chunk_rows(order: np.ndarray, batch_size: int, chunk_batches: int):
@@ -333,8 +362,10 @@ class ChunkFeed:
     ``logger_name``'s logger the first time an epoch waited on the host's
     chunk gathers (:meth:`~dfac_tpu_torch.io.prefetch.PrefetchStats.host_bound`)."""
 
-    def __init__(self, cfg, device: torch.device, logger_name: str):
-        self.batch_size, self.chunk_batches, self.ingest = cfg.batch_size, cfg.resident_chunk_batches, cfg.chunk_ingest
+    def __init__(self, cfg, device: torch.device, logger_name: str, ranks=None):
+        """``ranks``: a data-parallel trainer's; its batches are the rank's share of each global batch."""
+        self.batch_size = cfg.batch_size // (ranks.world if ranks is not None else 1)
+        self.chunk_batches, self.ingest = cfg.resident_chunk_batches, cfg.chunk_ingest
         self.device = device
         self.ring = PinnedRing()  # its buffers are allocated by the first chunk
         self.stats = None
@@ -342,7 +373,8 @@ class ChunkFeed:
         self._warned = False
 
     def batches(self, feats_src, row_arrays: Sequence[np.ndarray], order: np.ndarray):
-        """The epoch's ``(features f32, *rows)`` batches over ``order``."""
+        """The epoch's ``(features f32, *rows)`` batches over ``order`` (a
+        data-parallel rank's: its rows of the global order)."""
         from dfac_tpu_torch.io.prefetch import PrefetchStats
 
         self.stats = PrefetchStats()

@@ -1,4 +1,4 @@
-"""DeepfakeDetector ("dlqueen") training runtime on one device.
+"""DeepfakeDetector ("dlqueen") training runtime, on one device or data-parallel.
 
 Counterpart of :mod:`dfac_tpu.train.detector_loop`; parity target
 reference ``src/dlqueen_model.py:220-448``, the alternative trainer with
@@ -38,11 +38,21 @@ size. Dropout bytes and the SpecAugment draws come from one
 the eval variables stay the EMA parameters with the live (now fixed)
 statistics. :meth:`DetectorTrainer.fit_fused` is the resident fit
 (:mod:`~dfac_tpu_torch.train.fused_fit`).
+
+``data_parallel`` N > 1 trains on N ranks (the JAX
+``make_detector_dp_train_step``; :mod:`~dfac_tpu_torch.train.loop`): every
+rank walks the host's weighted draws in the same order and feeds its rows
+of each batch (host-fed or chunked; ``device_resident`` falls back to
+host-fed), BatchNorm syncs across the ranks, the gradients of the global
+sum are divided once by the global count, then clipping, AdamW and the EMA
+run alike on every rank; rank 0 computes the EMA model's dev EER,
+broadcasts it and writes the checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -53,20 +63,22 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.io.prefetch import prefetched
 from dfac_tpu_torch.models import build_model
-from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_dropout_generator
+from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_batchnorm_group, set_dropout_generator
 from dfac_tpu_torch.ops.eer import eer_device
-from dfac_tpu_torch.train.chunked import ChunkFeed, check_config
-from dfac_tpu_torch.train.loop import bn_frozen_at, resident_arrays, resident_batches
+from dfac_tpu_torch.parallel.data_parallel import maybe_ranks, on_rank_zero, rank_seed
+from dfac_tpu_torch.train.chunked import ChunkFeed, check_config, rank_order
+from dfac_tpu_torch.train.loop import bn_frozen_at, check_data_parallel, resident_arrays, resident_batches
 from dfac_tpu_torch.train.optim import BETAS, EPS
 
 
 @dataclasses.dataclass
 class DetectorConfig:
     """The reference dlqueen recipe's knobs (``src/dlqueen_model.py:266-300``)
-    that the port trains: one device, f32 or ``compute_dtype="bfloat16"``
-    (JAX ``detector_loop.py:56``), host-fed, resident or chunked, with the
-    BatchNorm freeze tail (the JAX package's data-parallel, multi-host and
-    orbax fields select paths not ported yet; see ROADMAP.md)."""
+    that the port trains: one device or data-parallel, f32 or
+    ``compute_dtype="bfloat16"`` (JAX ``detector_loop.py:56``), host-fed,
+    resident or chunked, with the BatchNorm freeze tail (the JAX package's
+    multi-host and orbax fields select paths not ported yet; see
+    ROADMAP.md)."""
 
     epochs: int = 30
     batch_size: int = 32
@@ -93,8 +105,10 @@ class DetectorConfig:
     # freeze BatchNorm for the epochs after round(epochs * frac); 0 disables.
     # The EMA goes on averaging the parameters over the fixed statistics
     bn_freeze_after_frac: float = 0.0
+    data_parallel: int = 0  # ranks of the process group (TrainConfig's)
 
     def __post_init__(self):
+        check_data_parallel(self)
         check_config(self)
 
 
@@ -136,18 +150,20 @@ def dataset_lengths(ds: ArrayDataset) -> np.ndarray:
 class DetectorTrainer:
     def __init__(self, cfg: DetectorConfig, in_channels: int = 180, device=None):
         """``device``: a ``torch.device`` or its name (default ``cuda``, no
-        fallback)."""
+        fallback). With ``data_parallel > 1`` the trainer is a rank of the
+        default process group."""
         self.cfg = cfg
         self.in_channels = in_channels
         self.device = device if isinstance(device, torch.device) else resolve_device(device)
-        self.generator = torch.Generator(device=self.device)  # dropout bytes and SpecAugment draws
-        self.generator.manual_seed(cfg.seed)
+        self.ranks = maybe_ranks(cfg.data_parallel)
+        self.generator = torch.Generator(device=self.device)  # dropout bytes and SpecAugment draws, per rank
+        self.generator.manual_seed(rank_seed(cfg.seed, self.ranks.rank) if self.ranks else cfg.seed)
         self.model: torch.nn.Module | None = None
         self.optimizer: torch.optim.Optimizer | None = None
         self.ema: dict[str, torch.Tensor] | None = None
         self._eval_model: torch.nn.Module | None = None
         self._resident: tuple | None = None  # (dataset, features, lengths, labels) on the device
-        self.chunk_feed = ChunkFeed(cfg, self.device, __name__)  # resident_chunk_batches' feed
+        self.chunk_feed = ChunkFeed(cfg, self.device, __name__, self.ranks)  # resident_chunk_batches' feed
 
     def _build(self) -> torch.nn.Module:
         cfg = self.cfg
@@ -169,6 +185,8 @@ class DetectorTrainer:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device)
         set_dropout_generator(self.model, self.generator)
+        if self.ranks is not None:
+            set_batchnorm_group(self.model, self.ranks.group)
         self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr, betas=BETAS, eps=EPS,
                                            weight_decay=cfg.weight_decay)
         self.ema = (
@@ -200,7 +218,11 @@ class DetectorTrainer:
                    pos_weight: float, frozen: bool = False) -> torch.Tensor:
         """One optimizer step on a device batch of stored-orientation (B,
         C, T) features (with ``frozen``, BatchNorm on its running
-        statistics); returns the batch's mean loss as a device scalar."""
+        statistics); returns the batch's mean loss as a device scalar.
+        Data-parallel, the batch is this rank's rows: backward on their sum,
+        the gradients summed across the ranks and divided by the global
+        count, the loss the global batch's mean (the JAX
+        ``make_detector_dp_train_step``)."""
         cfg = self.cfg
         x = feats.transpose(1, 2)  # (B, T, C)
         if cfg.specaug:
@@ -208,9 +230,13 @@ class DetectorTrainer:
                                                              cfg.freq_mask_max, cfg.freq_mask_n))
         self.model.train()
         with f32_convs(), frozen_batchnorm(self.model, frozen):
-            loss = pos_weight_bce(self.model(x, lengths), labels, pos_weight)
+            per = pos_weight_bce_per(self.model(x, lengths), labels, pos_weight)
+            loss = per.mean() if self.ranks is None else per.sum()
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if self.ranks is not None:
+            count = float(per.numel() * self.ranks.world)
+            loss = self.ranks.reduce_grads_(self.model.parameters(), loss, count) / count
         if cfg.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.model.parameters()], cfg.grad_clip)
         self.optimizer.step()
@@ -231,15 +257,17 @@ class DetectorTrainer:
         card from the resident corpus, streamed in chunks, or gathered on
         the host and uploaded (pinned, ``non_blocking``) by the prefetch
         thread."""
-        bs = self.cfg.batch_size
-        if self.cfg.device_resident:
+        chunked = self.cfg.resident_chunk_batches > 0
+        order, bs = rank_order(order, self.cfg.batch_size, self.ranks,
+                               "chunked detector training" if chunked else "detector training")
+        if self._resident_feed:
             yield from resident_batches(self._resident_arrays(ds), torch.from_numpy(order).to(self.device), bs)
             return
         from dfac_tpu_torch.models.fast_infer import ingest
 
         lengths = dataset_lengths(ds)
         labels = np.asarray(ds.labels, np.float32)
-        if self.cfg.resident_chunk_batches > 0:
+        if chunked:
             yield from self.chunk_feed.batches(ds.features, (lengths, labels), order)
             return
 
@@ -268,6 +296,11 @@ class DetectorTrainer:
     def _bn_frozen_at(self, epoch: int) -> bool:
         return bn_frozen_at(epoch, self.cfg.epochs, self.cfg.bn_freeze_after_frac)
 
+    @property
+    def _resident_feed(self) -> bool:
+        """``device_resident`` on one device; data-parallel epochs are host-fed, as in JAX."""
+        return self.cfg.device_resident and self.ranks is None
+
     # -- loop ---------------------------------------------------------------
     def fit(self, train_ds: ArrayDataset, dev_ds: ArrayDataset, ckpt_path: str | None = None) -> dict:
         """Train for ``epochs`` (``patience`` ends it early); write
@@ -284,6 +317,15 @@ class DetectorTrainer:
         sample_p /= sample_p.sum()
         if self.model is None:
             self.init_state()
+        if self.cfg.device_resident and not self._resident_feed:
+            logging.getLogger(__name__).warning(
+                "device_resident is ignored with data_parallel=%d: the "
+                "detector epoch falls back to per-batch host-fed dispatch "
+                "(a host/relay round trip per step). Drop --data-parallel "
+                "or --device-resident to silence this.", cfg.data_parallel,
+            )
+        if self.ranks is not None and not self.ranks.is_main:
+            ckpt_path = None  # rank 0 writes a data-parallel run's
         n = len(train_ds)
         # inf, not 1.0: epoch 1 always counts as an improvement (and saves)
         best_eer, bad, history = float("inf"), 0, []
@@ -291,7 +333,7 @@ class DetectorTrainer:
             # weighted sampling with replacement, num_samples = N (reference)
             order = rng.choice(n, size=n, replace=True, p=sample_p)
             total, n_batches = self.train_epoch(train_ds, order, pos_weight, self._bn_frozen_at(epoch))
-            dev_eer, _ = eer_device(self.scores(dev_ds), dev_ds.labels)
+            dev_eer = on_rank_zero(self.ranks, lambda: eer_device(self.scores(dev_ds), dev_ds.labels)[0])
             history.append({"epoch": epoch, "train_loss": float(total) / max(n_batches, 1), "dev_eer": dev_eer})
             if dev_eer < best_eer:
                 best_eer, bad = dev_eer, 0
@@ -308,9 +350,11 @@ class DetectorTrainer:
         """``--fused-fit`` (:mod:`~dfac_tpu_torch.train.fused_fit`; JAX
         ``make_fused_detector_fit``): :meth:`fit` over the device-resident
         corpus, the freeze tail's ``TypeError`` raised before the first
-        epoch; :meth:`fit`'s checkpoint and result."""
-        from dfac_tpu_torch.train.fused_fit import fused_run
+        epoch; :meth:`fit`'s checkpoint and result. A data-parallel trainer
+        raises the JAX package's ``ValueError``."""
+        from dfac_tpu_torch.train.fused_fit import check_not_data_parallel, fused_run
 
+        check_not_data_parallel(self)
         if self.model is None:
             self.init_state()
         with fused_run(self):

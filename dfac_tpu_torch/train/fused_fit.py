@@ -36,6 +36,38 @@ from dfac_tpu_torch.models.common import frozen_batchnorm
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
 
 
+# the JAX fused entry points' refusal of a single-process data-parallel run (``dfac_tpu/train/fused_fit.py:290-298``,
+# ``cae_loop.py:994-1000``, ``detector_loop.py:822-828``), by trainer class
+DATA_PARALLEL_REFUSALS = {
+    "Trainer": (
+        "fit_fused with data_parallel is the MULTIHOST GSPMD path "
+        "(--multihost --fused-fit): the single-process trainer's "
+        "shard_map-DP model syncs BatchNorm with an axis_name that is "
+        "unbound outside shard_map. For single-process multi-chip fused "
+        "training drop data_parallel (or see "
+        "__graft_entry__.dryrun_multichip for the raw GSPMD program)"
+    ),
+    "CAETrainer": (
+        "fit_fused with data_parallel is the MULTIHOST GSPMD path "
+        "(--multihost --fused-fit); for single-process multi-chip "
+        "CAE training use fit() with data_parallel (the shard_map "
+        "DP step)"
+    ),
+    "DetectorTrainer": (
+        "fit_fused with data_parallel is the MULTIHOST GSPMD path "
+        "(--multihost --fused-fit); for single-process multi-chip "
+        "detector training use fit() with data_parallel (the "
+        "shard_map DP step)"
+    ),
+}
+
+
+def check_not_data_parallel(trainer) -> None:
+    """Raise the JAX package's ``ValueError`` for a fused fit of a data-parallel trainer."""
+    if trainer.ranks is not None:
+        raise ValueError(DATA_PARALLEL_REFUSALS[type(trainer).__name__])
+
+
 @contextlib.contextmanager
 def fused_run(trainer):
     """``trainer`` (a built model) as a fused run sees it: its config with

@@ -1,4 +1,4 @@
-"""Supervised training driver (every classifier of the registry, on one device).
+"""Supervised training loop (every classifier of the registry, on one device or data-parallel).
 
 Counterpart of :mod:`dfac_tpu.train.loop`; parity target reference
 ``src/train.py`` (call stack SURVEY.md §3.1). The step — swap,
@@ -35,8 +35,22 @@ with no display and no checkpoint (:mod:`~dfac_tpu_torch.train.fused_fit`).
 ``bn_freeze_after_frac`` trains the epochs after ``round(epochs * frac)``
 with BatchNorm frozen (:func:`~dfac_tpu_torch.models.common.frozen_batchnorm`),
 in every feed.
+
+``data_parallel`` N > 1 (the JAX package's shard_map step, here one
+process per device: :mod:`~dfac_tpu_torch.parallel.data_parallel`) trains on
+N ranks: ``batch_size`` is the global batch, each rank feeds its rows of
+every batch of the shared order (host-fed or chunked; ``device_resident``
+falls back to host-fed, as in JAX), BatchNorm syncs its statistics across
+the ranks, the gradients of the global sum are divided once by the global
+count, and rank 0 evaluates and broadcasts what the best rule, the
+plateau scheduler and early stopping read; only rank 0 displays and writes
+checkpoints. A tail that does not divide over the ranks is refused before
+the epoch (``check_dp_tail``), and ``fit_fused`` is refused, with the JAX
+package's messages.
+
 Dropout draws (bytes and channel masks) and augmentation draws come from
-one ``torch.Generator`` on the device, seeded from ``seed``.
+one ``torch.Generator`` on the device, seeded from ``seed`` (each rank
+from ``(seed, rank)``, rank 0 from ``seed``).
 
 The model is built for the width of the model-view input (F with
 ``swap_tf``, T without) of the first training batch, as the JAX
@@ -57,15 +71,16 @@ import torch
 import torch.nn.functional as F
 
 from dfac_tpu_torch.data.augment import AugmentConfig, build_augment_fn
-from dfac_tpu_torch.data.pipeline import ArrayDataset, batch_iterator, num_batches
+from dfac_tpu_torch.data.pipeline import ArrayDataset, num_batches
 from dfac_tpu_torch.device import resolve_device
 from dfac_tpu_torch.io.prefetch import prefetched
 from dfac_tpu_torch.models import MODEL_REGISTRY, build_model, model_width, width_overrides
-from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_dropout_generator
+from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_batchnorm_group, set_dropout_generator
 from dfac_tpu_torch.obs.base import BatchMetrics, EpochMetrics, TrainingConfig, TrainingVisualizer
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
+from dfac_tpu_torch.parallel.data_parallel import maybe_ranks, on_rank_zero, rank_seed
 from dfac_tpu_torch.train import checkpoint as ckpt_lib
-from dfac_tpu_torch.train.chunked import ChunkFeed, check_config
+from dfac_tpu_torch.train.chunked import ChunkFeed, check_config, rank_order
 from dfac_tpu_torch.train.evaluate import evaluate_classifier
 from dfac_tpu_torch.train.optim import PlateauScheduler, build_optimizer, set_lr, smooth_labels
 from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_dict, state_dict_from_jax
@@ -73,10 +88,10 @@ from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_d
 @dataclasses.dataclass
 class TrainConfig:
     """The reference train.py flag surface (``src/train.py:94-246``) that
-    the port trains: every registry classifier on one device, f32 or
-    ``compute_dtype="bfloat16"``, host-fed, resident or chunked, with the
-    BatchNorm freeze tail (the JAX package's data-parallel, multi-host and
-    orbax fields select paths not ported yet; see ROADMAP.md).
+    the port trains: every registry classifier on one device or
+    data-parallel, f32 or ``compute_dtype="bfloat16"``, host-fed, resident
+    or chunked, with the BatchNorm freeze tail (the JAX package's multi-host
+    and orbax fields select paths not ported yet; see ROADMAP.md).
     ``in_features`` is the input width of a model built without a sample
     batch."""
 
@@ -111,13 +126,21 @@ class TrainConfig:
     # the BatchNorm freeze tail: epochs after round(epochs * frac) train with
     # BatchNorm on its running statistics, which stay as they are; 0 disables
     bn_freeze_after_frac: float = 0.0
+    data_parallel: int = 0  # ranks of the process group the trainer runs on (0/1 = one device)
 
     def __post_init__(self):
         if not (0.0 <= self.label_smoothing < 0.5):
             raise ValueError("label_smoothing must be in [0, 0.5)")
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError("compute_dtype must be None (f32) or 'bfloat16'")
+        check_data_parallel(self)
         check_config(self, " (the resident and host-loop paths have their own ingest handling)")
+
+
+def check_data_parallel(cfg) -> None:
+    """The JAX configs' check of ``data_parallel`` against the global batch."""
+    if cfg.data_parallel > 1 and cfg.batch_size % cfg.data_parallel != 0:
+        raise ValueError("batch_size must divide evenly over data_parallel shards")
 
 
 def bn_frozen_at(epoch: int, epochs: int, frac: float) -> bool:
@@ -150,25 +173,28 @@ def resident_arrays(ds: ArrayDataset, device: torch.device) -> tuple[torch.Tenso
             torch.as_tensor(np.asarray(labels, np.float32), device=device))
 
 
-def shuffled_batches(ds: ArrayDataset, batch_size: int, seed: int, device: torch.device, resident=None):
+def shuffled_batches(ds: ArrayDataset, batch_size: int, order: np.ndarray, device: torch.device, resident=None):
     """An epoch's true-size ``(features, labels, weights)`` batches on
-    ``device`` in the order ``np.random.default_rng(seed).shuffle`` of the
-    row ids: gathered on the card from ``resident`` (:func:`resident_arrays`
-    of ``ds``), or gathered on the host and uploaded (pinned,
-    ``non_blocking``) by the prefetch thread."""
+    ``device``, the rows ``order`` names (:func:`epoch_order`, or a rank's
+    rows of it) ``batch_size`` at a time: gathered on the card from
+    ``resident`` (:func:`resident_arrays` of ``ds``), or gathered on the
+    host and uploaded (pinned, ``non_blocking``) by the prefetch thread."""
     if resident is not None:
         ones = torch.ones(batch_size, device=device)
-        order = torch.from_numpy(epoch_order(len(ds), seed)).to(device)
-        for feats, labels in resident_batches(resident, order, batch_size):
+        for feats, labels in resident_batches(resident, torch.from_numpy(order).to(device), batch_size):
             yield feats, labels, ones[: len(feats)]
         return
     from dfac_tpu_torch.models.fast_infer import ingest
 
-    host = (
-        tuple(ingest(a, torch.float32, device) for a in (b.features, b.labels, b.weights))
-        for b in batch_iterator(ds, batch_size, shuffle=True, seed=seed, pad_tail=False)
-    )
-    yield from prefetched(host, depth=2)
+    labels = ds.labels if ds.labels is not None else np.zeros(len(ds), np.int32)
+
+    def host():
+        for start in range(0, len(order), batch_size):
+            idx = order[start : start + batch_size]
+            yield tuple(ingest(a, torch.float32, device)
+                        for a in (ds.features[idx], labels[idx].astype(np.float32), np.ones(len(idx), np.float32)))
+
+    yield from prefetched(host(), depth=2)
 
 
 def run_epoch(step, batches, device: torch.device, batch_ctx=None) -> float | None:
@@ -193,6 +219,31 @@ def run_epoch(step, batches, device: torch.device, batch_ctx=None) -> float | No
     return (float(total_loss) / tc) if tc else None
 
 
+def weighted_step(per: torch.Tensor, weights: torch.Tensor, optimizer: torch.optim.Optimizer, params,
+                  ranks=None):
+    """Backward of the weighted mean of the per-example losses ``per`` and
+    one ``optimizer`` step; returns ``(loss * count, count)`` as device
+    scalars. Data-parallel (``ranks``), the batch is this rank's rows
+    (weights all ones) and both are the global batch's: backward on the
+    local weighted sum, the gradients of ``params`` summed across the ranks
+    and divided by the global count
+    (:meth:`~dfac_tpu_torch.parallel.data_parallel.Ranks.reduce_grads_`),
+    then the step every rank takes alike."""
+    optimizer.zero_grad(set_to_none=True)
+    if ranks is None:
+        count = weights.sum()
+        loss = (per * weights).sum() / count.clamp_min(1.0)
+        loss.backward()
+        optimizer.step()
+        return loss.detach() * count, count
+    count = float(weights.numel() * ranks.world)
+    local_sum = (per * weights).sum()
+    local_sum.backward()
+    loss_sum = ranks.reduce_grads_(params, local_sum, count)
+    optimizer.step()
+    return loss_sum, count
+
+
 def _model_kwargs(cfg: TrainConfig) -> dict:
     """The constructor overrides the JAX trainer passes every family
     (``dfac_tpu/train/loop.py:145-154``); :func:`build_model` keeps those
@@ -212,14 +263,20 @@ class Trainer:
         visualizer: TrainingVisualizer | None = None,
         device=None,
         model: torch.nn.Module | None = None,
+        group=None,
     ):
         """``device``: a ``torch.device`` or its name (default ``cuda``, no
         fallback). ``model`` (optional): the module to train in place of
         ``build_model(cfg.model, ...)`` (another width, as in the tests);
-        :meth:`init_state` resets or loads its parameters."""
+        :meth:`init_state` resets or loads its parameters. ``group``: the
+        process group of a data-parallel run (the default group where
+        ``data_parallel > 1``; a one-rank group runs the data-parallel path
+        on one device)."""
         self.cfg = cfg
         self.device = device if isinstance(device, torch.device) else resolve_device(device)
-        self.visualizer = visualizer or NoOpVisualizer()
+        self.ranks = maybe_ranks(cfg.data_parallel, group)
+        main = self.ranks is None or self.ranks.is_main
+        self.visualizer = (visualizer if main else None) or NoOpVisualizer()
         self.augment_fn = build_augment_fn(cfg.augment)
         self.scheduler = (
             PlateauScheduler(
@@ -231,9 +288,9 @@ class Trainer:
             if cfg.lr_scheduler == "plateau"
             else None
         )
-        # dropout bytes and augmentation draws (one stream on the device)
+        # dropout bytes and augmentation draws (one stream on the device; each rank its own)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
+        self.generator.manual_seed(rank_seed(cfg.seed, self.ranks.rank) if self.ranks else cfg.seed)
         self._module = model
         self.model: torch.nn.Module | None = None
         self.optimizer: torch.optim.Optimizer | None = None
@@ -242,7 +299,7 @@ class Trainer:
         self._best_state: dict | None = None
         self._resident: tuple | None = None  # (dataset, features, labels) on the device
         self._dev_resident: tuple | None = None  # (dataset, features)
-        self.chunk_feed = ChunkFeed(cfg, self.device, __name__)  # resident_chunk_batches' feed
+        self.chunk_feed = ChunkFeed(cfg, self.device, __name__, self.ranks)  # resident_chunk_batches' feed
 
     # -- state ------------------------------------------------------------
     def init_state(self, state_dict: dict | None = None, example_batch=None) -> torch.nn.Module:
@@ -270,6 +327,8 @@ class Trainer:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device)
         set_dropout_generator(self.model, self.generator)
+        if self.ranks is not None:
+            set_batchnorm_group(self.model, self.ranks.group)
         self.optimizer = build_optimizer(cfg.model, self.model.parameters(), self._lr, cfg.weight_decay)
         return self.model
 
@@ -294,9 +353,11 @@ class Trainer:
         written, the freeze tail's ``TypeError`` raised before the first
         epoch. Returns :meth:`fit`'s result and ``best_variables``: the
         ``state_dict`` of this run's best epoch, or None where no epoch of
-        this run was best (a resumed run's earlier best stands)."""
-        from dfac_tpu_torch.train.fused_fit import fused_run
+        this run was best (a resumed run's earlier best stands). A
+        data-parallel trainer raises the JAX package's ``ValueError``."""
+        from dfac_tpu_torch.train.fused_fit import check_not_data_parallel, fused_run
 
+        check_not_data_parallel(self)
         if self.model is None:
             self.init_state(example_batch=train_ds.features[:1])
         with fused_run(self):
@@ -308,7 +369,7 @@ class Trainer:
     def train_step(self, feats: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor, frozen: bool = False):
         """One optimizer step on a device batch of stored-orientation
         features (with ``frozen``, BatchNorm on its running statistics);
-        returns ``(loss * count, count)`` as device scalars."""
+        returns ``(loss * count, count)`` (:func:`weighted_step`)."""
         cfg = self.cfg
         x = feats.transpose(1, 2) if cfg.swap_tf else feats
         if self.augment_fn is not None:
@@ -319,12 +380,7 @@ class Trainer:
             per = F.binary_cross_entropy_with_logits(
                 logits, smooth_labels(labels, cfg.label_smoothing), reduction="none"
             )
-            count = weights.sum()
-            loss = (per * weights).sum() / count.clamp_min(1.0)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        self.optimizer.step()
-        return loss.detach() * count, count
+            return weighted_step(per, weights, self.optimizer, self.model.parameters(), self.ranks)
 
     def _resident_arrays(self, ds: ArrayDataset):
         if self._resident is None or self._resident[0] is not ds:
@@ -334,22 +390,28 @@ class Trainer:
     def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
         cfg = self.cfg
         frozen = self._bn_frozen_at(epoch)
-        seed = cfg.seed * 100003 + epoch
-        if cfg.resident_chunk_batches > 0:  # the host loop's batches, streamed in chunks
+        chunked = cfg.resident_chunk_batches > 0
+        order, bs = rank_order(epoch_order(len(ds), cfg.seed * 100003 + epoch), cfg.batch_size, self.ranks,
+                               "chunked training" if chunked else "training")
+        if chunked:  # the host loop's batches, streamed in chunks
             labels = np.asarray(ds.labels if ds.labels is not None else np.zeros(len(ds)), np.float32)
-            ones = torch.ones(cfg.batch_size, device=self.device)
-            batches = ((f, l, ones[: len(f)])
-                       for f, l in self.chunk_feed.batches(ds.features, (labels,), epoch_order(len(ds), seed)))
+            ones = torch.ones(bs, device=self.device)
+            batches = ((f, l, ones[: len(f)]) for f, l in self.chunk_feed.batches(ds.features, (labels,), order))
         else:
-            resident = self._resident_arrays(ds) if cfg.device_resident else None
-            batches = shuffled_batches(ds, cfg.batch_size, seed, self.device, resident)
+            resident = self._resident_arrays(ds) if self._resident_feed else None
+            batches = shuffled_batches(ds, bs, order, self.device, resident)
         return run_epoch(lambda *b: self.train_step(*b, frozen=frozen), batches, self.device, batch_ctx)
+
+    @property
+    def _resident_feed(self) -> bool:
+        """``device_resident`` on one device; data-parallel epochs are host-fed, as in JAX."""
+        return self.cfg.device_resident and self.ranks is None
 
     # -- evaluation -------------------------------------------------------
     def evaluate(self, dev_ds: ArrayDataset) -> dict:
         cfg = self.cfg
         features = None
-        if cfg.device_resident:
+        if self._resident_feed:
             if self._dev_resident is None or self._dev_resident[0] is not dev_ds:
                 self._dev_resident = (
                     dev_ds, torch.as_tensor(np.asarray(dev_ds.features, np.float32), device=self.device)
@@ -461,7 +523,7 @@ class Trainer:
         eer_tie_eps = 1e-4
         loss_improve_eps = 1e-6
         best_path = last_path = None
-        if checkpoint_dir:
+        if checkpoint_dir and (self.ranks is None or self.ranks.is_main):  # rank 0 writes a data-parallel run's
             os.makedirs(checkpoint_dir, exist_ok=True)
             best_path = os.path.join(checkpoint_dir, f"{cfg.model}_best.ckpt")
             last_path = os.path.join(checkpoint_dir, f"{cfg.model}_last.ckpt")
@@ -477,7 +539,7 @@ class Trainer:
             t0 = time.perf_counter()
             with self.visualizer.on_epoch_start(epoch, num_batches(len(train_ds), cfg.batch_size)) as batch_ctx:
                 train_loss = self.train_epoch(train_ds, epoch, batch_ctx)
-            dev_metrics = self.evaluate(dev_ds)
+            dev_metrics = on_rank_zero(self.ranks, lambda: self.evaluate(dev_ds))
             eer = dev_metrics["eer"]
             dev_loss = dev_metrics["avg_loss"]
             elapsed = time.perf_counter() - t0

@@ -1,10 +1,10 @@
 """The alternative trainers' CLIs and the CAE dashboard in the PyTorch port.
 
 Each flag set that the training CLIs once refused runs in ``train_cae``
-and ``train_detector``: the three paths still unported (data-parallel,
-multi-host, orbax checkpoints) exit non-zero with "not yet ported" before
-any data is read; the chunked, fused and freeze-tail flags go on to read
-the data, so a missing split stops them (``train_detector`` builds its
+and ``train_detector``: the two paths still unported (multi-host, orbax
+checkpoints) exit non-zero with "not yet ported" before any data is read;
+the data-parallel, chunked, fused and freeze-tail flags go on to read the
+data, so a missing split stops them (``train_detector`` builds its
 configuration first, which refuses ``--chunk-ingest int8`` without
 ``--resident-chunk-batches`` with the JAX package's error). The CAE dashboards print the reference's lines,
 and ``create_cae_visualizer("rich")`` falls back to the plain dashboard
@@ -35,7 +35,7 @@ REFUSED = [
 ]
 
 
-STILL_REFUSED = {"--data-parallel", "--multihost", "--checkpoint-format"}
+STILL_REFUSED = {"--multihost", "--checkpoint-format"}
 
 
 @pytest.mark.parametrize("cli", [train_cae, train_detector], ids=["train_cae", "train_detector"])

@@ -43,6 +43,17 @@ N_TRAIN, N_DEV = 24, 16  # 12 bonafide rows at B=4; 8 bonafide dev rows
 PRE_BN_BIASES = {f"encoder.{i}.bias" for i in (0, 4, 8, 12)} | {f"decoder.{i}.bias" for i in (0, 3, 6)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These torch fits are tiny: one intra-op thread a process runs them
+    fastest, alone or beside other test processes (module scope, so the
+    module's fixtures run pinned too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _corpus(mod, n, seed):
     """Half bonafide; each row scaled by its own factor, the spoof rows'
     larger on average, so the CAE's EER lies between 0 and 0.5."""

@@ -46,6 +46,17 @@ LR, CLIP, EMA_DECAY = 1e-3, 0.05, 0.9
 N_TRAIN, N_DEV = 30, 24  # 30 at B=8 leaves a true-size tail of 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These torch fits are tiny: one intra-op thread a process runs them
+    fastest, alone or beside other test processes (module scope, so the
+    module's fixtures run pinned too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_model(dropout=0.0):
     return jbuild("detector", in_channels=C_, hidden=H, dropout=dropout, encoder_dropout=dropout)
 

@@ -42,6 +42,17 @@ ZOO = ["meanpool_mlp", "statspool_mlp", "cnn1d_spatial", "cnn1d_archive", "cnn2d
        "cnn2d_robust", "cnn1d_variant"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These torch fits are tiny: one intra-op thread a process runs them
+    fastest, alone or beside other test processes (module scope, so the
+    module's fixtures run pinned too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _widths(name):
     return {**WIDTHS, "kernel_sizes": (5, 3, 3)} if name == "cnn1d_variant" else WIDTHS
 

@@ -29,6 +29,17 @@ ZOO = ["meanpool_mlp", "statspool_mlp", "cnn1d_spatial", "cnn1d_archive", "cnn2d
        "cnn2d_robust"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These torch fits are tiny: one intra-op thread a process runs them
+    fastest, alone or beside other test processes (module scope, so the
+    module's fixtures run pinned too)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def write_split(root, name, n, seed, f=F_, t=T_):
     rng = np.random.default_rng(seed)
     feats = rng.normal(size=(n, f, t)).astype(np.float32)
