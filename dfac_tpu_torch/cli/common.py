@@ -7,6 +7,7 @@ CLIs use.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import random
 
 import numpy as np
@@ -72,33 +73,75 @@ def set_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def add_multihost_args(p: argparse.ArgumentParser) -> None:
-    """The JAX CLIs' ``--multihost`` flag group; the port accepts the flags
-    and refuses ``--multihost`` ("not yet ported")."""
-    p.add_argument("--multihost", action="store_true", help="not yet ported")
-    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT", help="with --multihost")
-    p.add_argument("--num-processes", type=int, default=None, help="with --multihost")
-    p.add_argument("--process-id", type=int, default=None, help="with --multihost")
+def add_multihost_args(p: argparse.ArgumentParser, extra_help: str = "") -> None:
+    """The JAX CLIs' ``--multihost`` flag group (``dfac_tpu/cli/common.py:30-41``)."""
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host execution: run one copy of this CLI per host, joined at "
+                        "--coordinator-address (one rank per card of the host, one with --device cpu). DP over "
+                        "ALL global devices; artifacts from the coordinator only"
+                        + (". " + extra_help if extra_help else ""))
+    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT",
+                   help="with --multihost: the rank-0 coordinator (process 0 listens there)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="with --coordinator-address: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="with --coordinator-address: this process's rank")
+
+
+def init_multihost(args):
+    """Join the cluster (:func:`dfac_tpu_torch.parallel.multihost.initialize`)
+    and default ``args.data_parallel`` to the GLOBAL rank count; a larger
+    count that is not the world's is refused with the JAX package's
+    ``local_row_range`` message. Returns the
+    :class:`~dfac_tpu_torch.parallel.multihost.Cluster`."""
+    from dfac_tpu_torch.parallel import multihost as mh
+
+    cluster = mh.initialize(args.coordinator_address, args.num_processes, args.process_id, args.device)
+    if not args.data_parallel:
+        args.data_parallel = cluster.world
+    elif args.data_parallel > 1 and args.data_parallel != cluster.world:
+        cluster.close()
+        raise SystemExit(f"--data-parallel {args.data_parallel} over {cluster.world} global ranks: "
+                         + mh.SPAN_MESSAGE)
+    return cluster
+
+
+@contextlib.contextmanager
+def joined(args):
+    """The cluster this process joins under ``--multihost`` (:func:`init_multihost`),
+    closed on exit; None without the flag."""
+    if not args.multihost:
+        yield None
+        return
+    cluster = init_multihost(args)
+    try:
+        yield cluster
+    finally:
+        cluster.close()
 
 
 def refuse_unported_training(args) -> None:
-    """Exit non-zero with "not yet ported" on the first set flag of a
-    training path the training CLIs do not port yet (multi-host fits, orbax
-    checkpoints)."""
-    for flag, on in (("--multihost", args.multihost), ("--checkpoint-format orbax", args.checkpoint_format == "orbax")):
-        if on:
-            raise SystemExit(f"{flag}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+    """Exit non-zero on ``--checkpoint-format orbax``: orbax checkpoint
+    directories are not ported by design (``orbax.checkpoint`` imports JAX;
+    ROADMAP.md, "Do not port")."""
+    if args.checkpoint_format == "orbax":
+        raise SystemExit("--checkpoint-format orbax: not ported to dfac_tpu_torch (orbax imports JAX; the JAX "
+                         "package converts an orbax directory to a pickle checkpoint; see ROADMAP.md)")
 
 
 DATA_PARALLEL_HELP = ("data-parallel training over N devices: one process per device (NCCL on the card, gloo with "
                       "--device cpu), BatchNorm synced across them; --batch-size is the global batch")
 
 
-def run_training(fit, args, *data):
-    """``fit(args, *data)`` in this process, or with ``--data-parallel N > 1``
-    on N ranks (:func:`dfac_tpu_torch.parallel.launch`; the datasets in
-    shared memory), returning rank 0's result. The data was read here
-    first, so a missing file fails before any rank starts."""
+def run_training(fit, args, *data, cluster=None):
+    """``fit(args, *data)`` in this process, on N ranks with
+    ``--data-parallel N > 1`` (:func:`dfac_tpu_torch.parallel.launch`; the
+    datasets in shared memory), or on this host's ranks of a ``--multihost``
+    ``cluster``; the result of this process's first rank (rank 0's in the
+    first two). The data was read here first, so a missing file fails
+    before any rank starts."""
+    if cluster is not None:
+        return cluster.run(fit, args, *data)
     if args.data_parallel > 1:
         from dfac_tpu_torch.parallel import launch
 
@@ -108,7 +151,7 @@ def run_training(fit, args, *data):
 
 def train_device(args):
     """The device a fit runs on: ``--device``, or a data-parallel rank's own."""
-    if args.data_parallel > 1:
+    if args.data_parallel > 1 or args.multihost:
         from dfac_tpu_torch.parallel.data_parallel import rank_device
 
         return rank_device(args.device)

@@ -12,15 +12,20 @@ against another prediction set. The same flags and lines, with
 ``--fast`` runs both legs through the folded chains in bf16, as the JAX
 CLI does: CNN2D through the fused conv-block kernel (three launches a
 batch) or CNN1D through cuDNN, and the CAE through cuDNN. Without it both
-legs run the f32 eval models with TF32 off. ``--data-parallel > 1`` and
-``--multihost`` exit non-zero with "not yet ported".
+legs run the f32 eval models with TF32 off. ``--data-parallel N`` (with
+``--fast``) scores each batch's rows on N ranks
+(:func:`dfac_tpu_torch.parallel.serving.hybrid_scores_sharded`; the upload
+stays f32, both legs read it), ``--multihost`` on the ranks of a cluster of
+processes (:mod:`dfac_tpu_torch.parallel.multihost`), each reading only its
+rows; the fusion runs on the host over the gathered corpus, and only the
+coordinator writes and prints.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from dfac_tpu_torch.cli.common import add_multihost_args
+from dfac_tpu_torch.cli.common import add_multihost_args, joined
 
 
 def parse_args(argv=None):
@@ -41,32 +46,57 @@ def parse_args(argv=None):
     p.add_argument("--fast", action="store_true",
                    help="folded-BN serving chains for BOTH legs "
                    "(bf16 with f32 accumulation; cnn2d/cnn1d + CAE)")
-    p.add_argument("--data-parallel", type=int, default=0, help="not yet ported")
-    add_multihost_args(p)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="shard each scoring batch over N devices (requires "
+                   "--fast; both legs run per shard)")
+    add_multihost_args(p, extra_help="requires --fast")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu (no implicit fallback)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, on in (("--data-parallel", args.data_parallel > 1), ("--multihost", args.multihost)):
-        if on:
-            raise SystemExit(f"{flag}: not yet ported to dfac_tpu_torch (see ROADMAP.md)")
+    if args.multihost and not args.fast:
+        raise SystemExit("--multihost hybrid serving runs the folded fast chains — add --fast")
+    with joined(args) as cluster:  # join the cluster before anything is read
+        if cluster is not None and args.data_parallel != cluster.world:
+            from dfac_tpu_torch.parallel.multihost import SPAN_MESSAGE
 
+            raise SystemExit(f"--data-parallel {args.data_parallel} over {cluster.world} global ranks: "
+                             + SPAN_MESSAGE)
+        result = _scores(args, cluster)
+        if cluster is not None and not cluster.is_coordinator:
+            return  # every process holds the gathered scores; one writes
+    _report(args, *result)
+
+
+def _scores(args, cluster):
+    """``(uttids, supervised scores, CAE MSE)`` of the corpus: in this
+    process, or sharded over ``--data-parallel`` ranks or the ``cluster``'s."""
     from dfac_tpu_torch.data.normalizer import FeatureNormalizer
     from dfac_tpu_torch.data.pipeline import load_dataset
     from dfac_tpu_torch.device import resolve_device
-    from dfac_tpu_torch.ensemble.hybrid import compare_with_submission, fuse_scores, score_distribution_report
-    from dfac_tpu_torch.io.pickle_io import load_predictions, write_predictions
     from dfac_tpu_torch.models import model_from_state_dict
     from dfac_tpu_torch.train.checkpoint import load_model_variables
 
-    device = resolve_device(args.device)
     ds = load_dataset(args.features)
     cnn_sd = load_model_variables(args.cnn_checkpoint, model_name=args.cnn_model)
     cae_sd = load_model_variables(args.cae_checkpoint, model_name="cae")
     normalizer = FeatureNormalizer.load(args.normalizer)
 
+    if args.data_parallel > 1 or cluster is not None:
+        if not args.fast:
+            raise SystemExit("--data-parallel hybrid serving requires --fast")
+        if args.batch_size % args.data_parallel:
+            raise SystemExit("--batch-size must divide by --data-parallel")
+        if cluster is not None:
+            sup, cae_s = cluster.run(_sharded, args, cnn_sd, cae_sd, normalizer, ds)
+        else:
+            from dfac_tpu_torch.parallel import launch
+
+            sup, cae_s = launch(_sharded, args.data_parallel, args.device, args, cnn_sd, cae_sd, normalizer, ds)
+        return ds.uttids, sup, cae_s
+    device = resolve_device(args.device)
     if args.fast:
         from dfac_tpu_torch.models.fast_infer import (
             cae_mse_scores_fast,
@@ -85,9 +115,25 @@ def main(argv=None):
         sup = predict_scores(cnn.to(device), ds, args.batch_size, apply_sigmoid=True)
         cae = model_from_state_dict("cae", cae_sd)
         cae_s = cae_mse_scores(cae.to(device), ds, normalizer, args.batch_size)
+    return ds.uttids, sup, cae_s
+
+
+def _sharded(args, cnn_sd: dict, cae_sd: dict, normalizer, ds):
+    """Both legs on one rank (its rows of every batch), gathered on every rank."""
+    from dfac_tpu_torch.parallel.data_parallel import Ranks, rank_device
+    from dfac_tpu_torch.parallel.serving import hybrid_scores_sharded
+
+    return hybrid_scores_sharded(cnn_sd, cae_sd, normalizer, ds, rank_device(args.device), Ranks.of(),
+                                 args.batch_size, model=args.cnn_model)
+
+
+def _report(args, uttids, sup, cae_s) -> None:
+    """Fuse the legs, write ``prediction.pkl``, print the reference's lines."""
+    from dfac_tpu_torch.ensemble.hybrid import compare_with_submission, fuse_scores, score_distribution_report
+    from dfac_tpu_torch.io.pickle_io import load_predictions, write_predictions
 
     hybrid = fuse_scores(sup, cae_s, alpha=args.alpha)
-    write_predictions(args.out, ds.uttids, hybrid)
+    write_predictions(args.out, uttids, hybrid)
     print(f"wrote {len(hybrid)} hybrid predictions (alpha={args.alpha}) to {args.out}")
 
     rep = score_distribution_report(hybrid)
@@ -98,7 +144,7 @@ def main(argv=None):
 
     if args.compare_with:
         ou, os_ = load_predictions(args.compare_with)
-        diff = compare_with_submission(ds.uttids, hybrid, ou, os_)
+        diff = compare_with_submission(uttids, hybrid, ou, os_)
         print(
             f"vs {args.compare_with}: common={diff['n_common']} "
             f"mean|d|={diff['mean_abs_diff']:.6f} max|d|={diff['max_abs_diff']:.6f} "

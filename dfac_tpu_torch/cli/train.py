@@ -17,8 +17,12 @@ a 0.5 tail); ``--resume``, ``--run-name``, ``--debug-augment-stats`` and
 display is the rich dashboard, ``--no-rich`` tqdm and ``--quiet`` none
 (the JAX CLI's ``create_visualizer`` chain), shown by rank 0 of a
 data-parallel run, which alone prints and writes checkpoints.
-``--multihost`` and ``--checkpoint-format orbax`` exit non-zero with "not
-yet ported".
+``--multihost`` trains data-parallel over the ranks of a cluster of
+processes (:mod:`dfac_tpu_torch.parallel.multihost`: one copy of the CLI a
+host, joined at ``--coordinator-address``); ``--device-resident`` and
+``--fused-fit`` then keep the whole corpus on every rank, and
+``--resume`` is read by the coordinator alone. ``--checkpoint-format
+orbax`` exits non-zero: orbax is not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from dfac_tpu_torch.cli.common import (
     add_swap_tf_args,
     augment_config_from_args,
     check_stream_args,
+    joined,
     refuse_unported_training,
     run_training,
     set_seed,
@@ -85,7 +90,7 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (f32 parameters)")
     p.add_argument("--data-parallel", type=int, default=0, help=DATA_PARALLEL_HELP)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
-                   help="checkpoint layout (orbax is not yet ported)")
+                   help="checkpoint layout (orbax is not ported: it imports JAX)")
     p.add_argument("--device-resident", action="store_true",
                    help="upload the training corpus to the card once; gather batches there")
     add_stream_args(p, "run the ENTIRE training loop (epochs+eval+plateau+early-stop) over a device-resident "
@@ -141,14 +146,16 @@ def main(argv=None):
 
     from dfac_tpu_torch.data.pipeline import load_dataset
 
-    train_ds = load_dataset(args.train_features, args.train_labels)
-    dev_ds = load_dataset(args.dev_features, args.dev_labels)
-    return run_training(_fit, args, train_ds, dev_ds)
+    with joined(args) as cluster:  # join the cluster before the data is read
+        train_ds = load_dataset(args.train_features, args.train_labels)
+        dev_ds = load_dataset(args.dev_features, args.dev_labels)
+        return run_training(_fit, args, train_ds, dev_ds, cluster=cluster)
 
 
 def _fit(args, train_ds, dev_ds):
     """The run after the data is read: in this process, or on each rank of
-    ``--data-parallel`` (rank 0 prints and writes); the fit's result."""
+    ``--data-parallel`` or ``--multihost`` (rank 0 prints and writes); the
+    fit's result."""
     from dfac_tpu_torch.obs.factory import create_visualizer
     from dfac_tpu_torch.parallel.data_parallel import main_process
     from dfac_tpu_torch.train.checkpoint import build_config_dict
@@ -159,6 +166,8 @@ def _fit(args, train_ds, dev_ds):
     checkpoint_root = args.checkpoint_dir
     if args.run_name:
         checkpoint_root = os.path.join(checkpoint_root, args.run_name)
+    if not main:
+        checkpoint_root = None  # one rank writes; every rank holds the same model
 
     cfg = TrainConfig(
         model=args.model,
@@ -186,6 +195,7 @@ def _fit(args, train_ds, dev_ds):
         chunk_ingest=args.chunk_ingest,
         bn_freeze_after_frac=args.bn_freeze_after,
         data_parallel=args.data_parallel,
+        multihost=args.multihost,
     )
     visualizer = create_visualizer("noop" if args.quiet or not main else ("tqdm" if args.no_rich else "rich"))
     trainer = Trainer(cfg, visualizer=visualizer, device=train_device(args))
@@ -200,7 +210,8 @@ def _fit(args, train_ds, dev_ds):
     with trace(args.profile_dir if main else None):
         if args.fused_fit:
             result = trainer.fit_fused(train_ds, dev_ds, resume_from=args.resume)
-            _save_fused(trainer, result, checkpoint_root, args, build_config_dict(args))
+            if checkpoint_root:
+                _save_fused(trainer, result, checkpoint_root, args, build_config_dict(args))
         else:
             result = trainer.fit(
                 train_ds, dev_ds, checkpoint_dir=checkpoint_root,

@@ -14,8 +14,11 @@ the artifacts), host-fed, ``--device-resident``, streamed in chunks
 (``--resident-chunk-batches``, ``--chunk-ingest``) or as one
 ``--fused-fit`` run, with the BatchNorm freeze tail
 (``--bn-freeze-after``; ``--train-fast`` is a 0.5 tail: the CAE has no
-dropout), ``--profile-dir`` tracing the fit; ``--multihost`` and
-``--checkpoint-format orbax`` exit non-zero with "not yet ported".
+dropout), ``--profile-dir`` tracing the fit. ``--multihost`` trains
+data-parallel over the ranks of a cluster of processes
+(:mod:`dfac_tpu_torch.parallel.multihost`; the coordinator writes the
+artifacts); ``--checkpoint-format orbax`` exits non-zero: orbax is not
+ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from dfac_tpu_torch.cli.common import (
     add_data_args,
     add_multihost_args,
     add_stream_args,
+    joined,
     check_stream_args,
     refuse_unported_training,
     run_training,
@@ -64,7 +68,7 @@ def parse_args(argv=None):
                         "(2nd half of the schedule)")
     add_multihost_args(p)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
-                   help="checkpoint layout (orbax is not yet ported)")
+                   help="checkpoint layout (orbax is not ported: it imports JAX)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the fit into this directory")
     p.add_argument("--no-rich", action="store_true")
@@ -84,15 +88,16 @@ def main(argv=None):
     from dfac_tpu_torch.data.normalizer import FeatureNormalizer
     from dfac_tpu_torch.data.pipeline import load_dataset
 
-    train_ds = load_dataset(args.train_features, args.train_labels)
-    dev_ds = load_dataset(args.dev_features, args.dev_labels)
-    normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
-    return run_training(_fit, args, train_ds, dev_ds, normalizer)
+    with joined(args) as cluster:  # join the cluster before the data is read
+        train_ds = load_dataset(args.train_features, args.train_labels)
+        dev_ds = load_dataset(args.dev_features, args.dev_labels)
+        normalizer = FeatureNormalizer.load(args.normalizer) if args.normalizer else None
+        return run_training(_fit, args, train_ds, dev_ds, normalizer, cluster=cluster)
 
 
 def _fit(args, train_ds, dev_ds, normalizer):
     """The run after the data is read: in this process, or on each rank of
-    ``--data-parallel`` (rank 0 prints and writes); the fit's result."""
+    ``--data-parallel`` or ``--multihost`` (rank 0 prints and writes); the fit's result."""
     from dfac_tpu_torch.obs.cae_dashboard import create_cae_visualizer
     from dfac_tpu_torch.obs.profiling import trace
     from dfac_tpu_torch.parallel.data_parallel import main_process
@@ -115,6 +120,7 @@ def _fit(args, train_ds, dev_ds, normalizer):
         chunk_ingest=args.chunk_ingest,
         bn_freeze_after_frac=args.bn_freeze_after,
         data_parallel=args.data_parallel,
+        multihost=args.multihost,
     )
     visualizer = create_cae_visualizer("noop" if args.quiet or not main else ("plain" if args.no_rich else "rich"))
     trainer = CAETrainer(cfg, visualizer=visualizer, device=train_device(args))

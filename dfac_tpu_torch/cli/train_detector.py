@@ -16,8 +16,11 @@ which then scores the test split without ``--fast``, as in JAX), host-fed,
 ``--device-resident``, streamed in chunks (``--resident-chunk-batches``,
 ``--chunk-ingest``) or as one ``--fused-fit`` run, with the BatchNorm
 freeze tail (``--bn-freeze-after``; ``--train-fast``: both dropouts 0 and
-a 0.5 tail), ``--profile-dir`` tracing the fit; ``--multihost`` and
-``--checkpoint-format orbax`` exit non-zero with "not yet ported".
+a 0.5 tail), ``--profile-dir`` tracing the fit. ``--multihost`` trains
+data-parallel over the ranks of a cluster of processes
+(:mod:`dfac_tpu_torch.parallel.multihost`): the coordinator writes the
+checkpoint and alone scores the test split; ``--checkpoint-format orbax``
+exits non-zero: orbax is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from dfac_tpu_torch.cli.common import (
     FREEZE_HELP,
     add_multihost_args,
     add_stream_args,
+    joined,
     check_stream_args,
     refuse_unported_training,
     run_training,
@@ -80,7 +84,7 @@ def parse_args(argv=None):
                        "corpus")
     p.add_argument("--data-parallel", type=int, default=0, help=DATA_PARALLEL_HELP)
     p.add_argument("--checkpoint-format", choices=("pickle", "orbax"), default="pickle",
-                   help="checkpoint layout (orbax is not yet ported)")
+                   help="checkpoint layout (orbax is not ported: it imports JAX)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the fit into this directory")
     add_multihost_args(p)
@@ -98,7 +102,11 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported_training(args)
+    with joined(args) as cluster:  # join the cluster before the data is read
+        return _main(args, cluster)
 
+
+def _main(args, cluster):
     import torch
 
     from dfac_tpu_torch.data.pipeline import load_dataset
@@ -109,6 +117,10 @@ def main(argv=None):
     from dfac_tpu_torch.train.checkpoint import load_model_variables
     from dfac_tpu_torch.train.detector_loop import DetectorConfig, dataset_lengths, detector_scores
 
+    if cluster is not None and args.epochs <= 0 and not cluster.is_coordinator:
+        # scoring alone is local compute from a checkpoint on the coordinator's
+        # filesystem: concurrent writes of one prediction.pkl would corrupt it
+        return None
     device = resolve_device(args.device)
     cfg = DetectorConfig(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
@@ -123,6 +135,7 @@ def main(argv=None):
         chunk_ingest=args.chunk_ingest,
         bn_freeze_after_frac=args.bn_freeze_after,
         data_parallel=args.data_parallel,
+        multihost=args.multihost,
     )
 
     def split_paths(split):
@@ -136,7 +149,13 @@ def main(argv=None):
     if args.epochs > 0:
         train_ds = load_dataset(*split_paths(args.train_split))
         dev_ds = load_dataset(*split_paths(args.dev_split))
-        run_training(_fit, args, cfg, train_ds, dev_ds)
+        result = run_training(_fit, args, cfg, train_ds, dev_ds, cluster=cluster)
+        if cluster is not None:
+            from dfac_tpu_torch.parallel.multihost import sync
+
+            sync()  # the test split is scored from the coordinator's checkpoint, after its write
+            if not cluster.is_coordinator:
+                return result
     test_ds = load_dataset(test_feat, test_lab if has_test_labels else None)
 
     if not os.path.exists(args.ckpt_path):
@@ -167,7 +186,8 @@ def main(argv=None):
 
 def _fit(args, cfg, train_ds, dev_ds):
     """The training after the data is read: in this process, or on each
-    rank of ``--data-parallel`` (rank 0 prints and writes the checkpoint)."""
+    rank of ``--data-parallel`` or ``--multihost`` (rank 0 prints and writes
+    the checkpoint)."""
     from dfac_tpu_torch.obs.profiling import trace
     from dfac_tpu_torch.parallel.data_parallel import main_process
     from dfac_tpu_torch.train.detector_loop import DetectorTrainer

@@ -164,22 +164,39 @@ def maybe_ranks(data_parallel: int, group=None) -> Ranks | None:
 # -- the ranks' processes ----------------------------------------------------------------------------
 
 def free_port() -> int:
-    """A TCP port on 127.0.0.1 that nothing listens on now."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A TCP port on 127.0.0.1 that nothing listens on now, below Linux's
+    ephemeral range (32768-60999): a port the OS hands out could be taken by
+    another process's outgoing connection in the seconds before the ranks
+    listen there."""
+    import random
+
+    for port in random.Random().sample(range(20000, 32000), 200):
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free TCP port in 20000-31999")
 
 
 def _rank_main(rank: int, world: int, device: str, backend: str, port: int, timeout_s: float,
-               threads: int | None, tasks, results) -> None:
-    """A rank's process: join the group, then run each task ``(fn, args)``
-    it is sent and put ``(rank, ok, value or traceback)``; None ends it."""
+               threads: int | None, tasks, results, rendezvous=None) -> None:
+    """A rank's process: join the group (its own at ``127.0.0.1:port``, or
+    as global rank ``rendezvous.first_rank + rank`` at a multi-host
+    coordinator's store), then run each task ``(fn, args)`` it is sent and
+    put ``(rank, ok, value or traceback)``; None ends it."""
     if threads:
         torch.set_num_threads(threads)
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device).index or 0)
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if rendezvous is None:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                                timeout=timeout)
+    else:
+        dist.init_process_group(backend, store=rendezvous.store(), world_size=rendezvous.world,
+                                rank=rendezvous.first_rank + rank, timeout=timeout)
     try:
         while (task := tasks.get()) is not None:
             fn, args = task
@@ -208,8 +225,12 @@ class RankPool:
     :class:`RankError` with its traceback."""
 
     def __init__(self, devices: list[str], backend: str | None = None, timeout_s: float = DEFAULT_TIMEOUT_S,
-                 threads: int | None = None):
-        """``threads``: each rank's intra-op threads (torch's default when None)."""
+                 threads: int | None = None, rendezvous=None):
+        """``threads``: each rank's intra-op threads (torch's default when
+        None). ``rendezvous`` (a multi-host
+        :class:`~dfac_tpu_torch.parallel.multihost.Rendezvous`): the ranks
+        join the cluster's group as its global ranks ``first_rank + r``
+        instead of a group of their own."""
         import torch.multiprocessing as mp
 
         if backend is None:
@@ -223,7 +244,8 @@ class RankPool:
         port = free_port()
         self._procs = [
             ctx.Process(target=_rank_main, daemon=True, name=f"dfac-rank{r}",
-                        args=(r, self.world, d, backend, port, timeout_s, threads, self._tasks[r], self._results))
+                        args=(r, self.world, d, backend, port, timeout_s, threads, self._tasks[r], self._results,
+                              rendezvous))
             for r, d in enumerate(devices)
         ]
         for p in self._procs:
@@ -321,13 +343,18 @@ def _is_dataset(a) -> bool:
 
 def launch(fn: Callable, n: int, device: str, *args):
     """``--data-parallel n``: ``fn(*args)`` on ``n`` ranks (the devices of
-    :func:`rank_devices`), rank 0's return value. Each ``ArrayDataset`` of
-    ``args`` goes to the ranks through :func:`share_dataset`. On the CPU
-    each rank takes an ``n``-th of torch's intra-op threads."""
-    devices = rank_devices(n, device)
-    threads = max(1, torch.get_num_threads() // n) if devices[0] == "cpu" else None
+    :func:`rank_devices`), rank 0's return value."""
+    return launch_on(rank_devices(n, device), fn, *args)
+
+
+def launch_on(devices: list[str], fn: Callable, *args, backend: str | None = None, rendezvous=None):
+    """``fn(*args)`` on a :class:`RankPool` over ``devices``, its first
+    rank's return value. Each ``ArrayDataset`` of ``args`` goes to the
+    ranks through :func:`share_dataset`. On the CPU each rank takes an
+    ``n``-th of torch's intra-op threads."""
+    threads = max(1, torch.get_num_threads() // len(devices)) if devices[0] == "cpu" else None
     shared = [share_dataset(a) if _is_dataset(a) else a for a in args]
-    with RankPool(devices, threads=threads) as pool:
+    with RankPool(devices, backend=backend, threads=threads, rendezvous=rendezvous) as pool:
         return pool.run(_with_local_datasets, fn, *shared)[0]
 
 

@@ -1,4 +1,4 @@
-"""Counterpart of ``scripts/train_opt_probe.py``; stages 11 to 15 are ported so far.
+"""Counterpart of ``scripts/train_opt_probe.py``: its Pallas stages, 11 to 15.
 
 Stages 11-15 time formulations of CNN2D's convs, each (but stage 11's
 emit pass) reduced to a per-sample checksum, with the CUDA kernels of
@@ -11,8 +11,14 @@ K10), stage 15 conv2 and conv3 as trailing dots and a flat-shift conv1
 
     python -m dfac_tpu_torch.scripts.train_opt_probe --stages 11,12,13,14,15 [--batch 512] [--device cuda|cpu]
 
-Every other stage exits non-zero with "stage N not yet ported": stages
-1-10, 16 and 17 wait for CNN2D training (``ROADMAP.md``). Stage 11's control is one cuDNN conv1 forward
+``--stages`` defaults to ``11,12,13,14,15`` (the JAX script's default,
+``1,2,3,4``, names stages this script does not have). Every other stage
+exits non-zero with "stage N is not ported": stages 1-10, 16 and 17 time
+XLA lowerings of the JAX training step (``scripts/train_opt_probe.py:118-119``)
+and reach no Pallas kernel; stage 8 runs ``ops/fused_block.py`` and stage
+17 ``ops/train_chain.py``, both on ``ROADMAP.md``'s "Do not port" list, and
+the port's step profile (``dfac_tpu_torch/train/rates.py``) measures what
+stages 3-7 measured. Stage 11's control is one cuDNN conv1 forward
 (the JAX script's XLA conv), a library call timed as the stage's
 yardstick. A case that fails raises, so the script exits non-zero; the JAX
 script's ``try/except`` existed to print Mosaic compile errors, and on the
@@ -295,14 +301,15 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
-    ap.add_argument("--stages", default="1,2,3,4")
+    ap.add_argument("--stages", default=",".join(STAGES))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain PyTorch versions)")
     args = ap.parse_args(argv)
     stages = args.stages.split(",")
     missing = [s for s in stages if s not in STAGES]
     if missing:
-        raise SystemExit("; ".join(f"stage {s} not yet ported" for s in missing)
-                         + " (stages 1-10, 16, 17 wait for CNN2D training; see ROADMAP.md)")
+        raise SystemExit("; ".join(f"stage {s} is not ported" for s in missing)
+                         + " (stages 1-10, 16, 17 time XLA lowerings of the JAX training step and reach no "
+                           "Pallas kernel; ROADMAP.md, \"Do not port\")")
     device = resolve_device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"devices: [{name}]")

@@ -59,6 +59,7 @@ from dfac_tpu_torch.train.loop import (
     bn_frozen_at,
     check_data_parallel,
     epoch_order,
+    mode,
     resident_arrays,
     run_epoch,
     shuffled_batches,
@@ -165,9 +166,10 @@ class CAEConfig:
     # its whole --train-fast recipe
     bn_freeze_after_frac: float = 0.0
     data_parallel: int = 0  # ranks of the process group (TrainConfig's)
+    multihost: bool = False  # the ranks of a multi-host cluster (TrainConfig's)
 
     def __post_init__(self):
-        check_data_parallel(self)
+        check_data_parallel(self, "CAE training")
         check_config(self)
 
 
@@ -247,7 +249,7 @@ class CAETrainer:
         frozen = self._bn_frozen_at(epoch)
         chunked = cfg.resident_chunk_batches > 0
         order, bs = rank_order(epoch_order(len(ds), cfg.seed * 100003 + epoch), cfg.batch_size, self.ranks,
-                               "chunked CAE training" if chunked else "CAE training")
+                               mode(cfg, "chunked CAE training" if chunked else "CAE training"))
         if chunked:  # the host loop's batches, streamed in chunks
             ones = torch.ones(bs, device=self.device)
             batches = ((f, None, ones[: len(f)]) for (f,) in self.chunk_feed.batches(ds.features, (), order))
@@ -259,8 +261,9 @@ class CAETrainer:
 
     @property
     def _resident_feed(self) -> bool:
-        """``device_resident`` on one device; data-parallel epochs are host-fed, as in JAX."""
-        return self.cfg.device_resident and self.ranks is None
+        """``device_resident`` on one device or multi-host (every rank holds
+        the corpus); single-process data-parallel epochs are host-fed, as in JAX."""
+        return self.cfg.device_resident and (self.ranks is None or self.cfg.multihost)
 
     def validate(self, bona_dev: ArrayDataset) -> float:
         """The bonafide-dev mean reconstruction MSE (reference ``:85-105``);
@@ -370,9 +373,9 @@ class CAETrainer:
         with no display, the freeze tail's ``TypeError`` raised before the
         first epoch; :meth:`fit`'s artifacts and result. A data-parallel
         trainer raises the JAX package's ``ValueError``."""
-        from dfac_tpu_torch.train.fused_fit import check_not_data_parallel, fused_run
+        from dfac_tpu_torch.train.fused_fit import check_fused, fused_run
 
-        check_not_data_parallel(self)
+        check_fused(self)
         if self.model is None:
             self.init_state()
         with fused_run(self):

@@ -1,7 +1,7 @@
 """Chunked streaming training (corpora larger than the card's memory).
 
-Counterpart of :mod:`dfac_tpu.train.chunked` on one device and
-data-parallel (the multi-host branch is not ported yet). All three trainers (``train/loop.py``,
+Counterpart of :mod:`dfac_tpu.train.chunked` on one device,
+data-parallel and multi-host. All three trainers (``train/loop.py``,
 ``train/cae_loop.py``, ``train/detector_loop.py``) stream a corpus the
 same way:
 
@@ -28,8 +28,12 @@ same way:
 
 Data-parallel (:mod:`~dfac_tpu_torch.parallel.data_parallel`), each rank
 streams only its rows of every batch of the shared order (its
-``batch_size / N`` share, the tail's included), after
-:func:`check_dp_tail`.
+``batch_size / N`` share, the tail's included, with weights of ones of its
+share: ``tail_ones``), after :func:`check_dp_tail`. Multi-host
+(:mod:`~dfac_tpu_torch.parallel.multihost`) is the same walk: each rank is a
+process of some host, so a host gathers, compresses and uploads only its
+ranks' rows (``stream_chunks``' multi-host branch), and the tail check
+names the mode "multihost ... training".
 
 The JAX package scans each chunk as one program (``lax.scan``); here the
 trainer's step is launched per batch, as in its other epochs.

@@ -67,7 +67,7 @@ from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_batchn
 from dfac_tpu_torch.ops.eer import eer_device
 from dfac_tpu_torch.parallel.data_parallel import maybe_ranks, on_rank_zero, rank_seed
 from dfac_tpu_torch.train.chunked import ChunkFeed, check_config, rank_order
-from dfac_tpu_torch.train.loop import bn_frozen_at, check_data_parallel, resident_arrays, resident_batches
+from dfac_tpu_torch.train.loop import bn_frozen_at, check_data_parallel, mode, resident_arrays, resident_batches
 from dfac_tpu_torch.train.optim import BETAS, EPS
 
 
@@ -106,9 +106,10 @@ class DetectorConfig:
     # The EMA goes on averaging the parameters over the fixed statistics
     bn_freeze_after_frac: float = 0.0
     data_parallel: int = 0  # ranks of the process group (TrainConfig's)
+    multihost: bool = False  # the ranks of a multi-host cluster (TrainConfig's)
 
     def __post_init__(self):
-        check_data_parallel(self)
+        check_data_parallel(self, "detector training")
         check_config(self)
 
 
@@ -259,7 +260,7 @@ class DetectorTrainer:
         thread."""
         chunked = self.cfg.resident_chunk_batches > 0
         order, bs = rank_order(order, self.cfg.batch_size, self.ranks,
-                               "chunked detector training" if chunked else "detector training")
+                               mode(self.cfg, "chunked detector training" if chunked else "detector training"))
         if self._resident_feed:
             yield from resident_batches(self._resident_arrays(ds), torch.from_numpy(order).to(self.device), bs)
             return
@@ -298,8 +299,9 @@ class DetectorTrainer:
 
     @property
     def _resident_feed(self) -> bool:
-        """``device_resident`` on one device; data-parallel epochs are host-fed, as in JAX."""
-        return self.cfg.device_resident and self.ranks is None
+        """``device_resident`` on one device or multi-host (every rank holds
+        the corpus); single-process data-parallel epochs are host-fed, as in JAX."""
+        return self.cfg.device_resident and (self.ranks is None or self.cfg.multihost)
 
     # -- loop ---------------------------------------------------------------
     def fit(self, train_ds: ArrayDataset, dev_ds: ArrayDataset, ckpt_path: str | None = None) -> dict:
@@ -352,9 +354,9 @@ class DetectorTrainer:
         corpus, the freeze tail's ``TypeError`` raised before the first
         epoch; :meth:`fit`'s checkpoint and result. A data-parallel trainer
         raises the JAX package's ``ValueError``."""
-        from dfac_tpu_torch.train.fused_fit import check_not_data_parallel, fused_run
+        from dfac_tpu_torch.train.fused_fit import check_fused, fused_run
 
-        check_not_data_parallel(self)
+        check_fused(self)
         if self.model is None:
             self.init_state()
         with fused_run(self):

@@ -31,7 +31,9 @@ def collect_masked_scores(
     batch_size: int,
     prepare_batch: Callable | None = None,
     stats=None,
-) -> np.ndarray:
+    n_outputs: int = 1,
+    gather: Callable | None = None,
+):
     """Run ``score_batch(batch) -> (B,) device scores`` over every padded
     batch, keep the results on the device, then fetch them in ONE
     synchronising copy and drop the pad rows by the weight mask.
@@ -41,7 +43,16 @@ def collect_masked_scores(
     (:func:`~dfac_tpu_torch.io.prefetch.prefetched`, two batches ahead),
     so batch k+1 is assembled while batch k is scored. ``stats`` (optional
     :class:`~dfac_tpu_torch.io.prefetch.PrefetchStats`) records host-wait
-    vs device-wait time; the final fetch's drain counts as device wait."""
+    vs device-wait time; the final fetch's drain counts as device wait.
+
+    With ``n_outputs > 1`` the scorer returns a tuple of per-row tensors
+    (the hybrid scorer's supervised scores and CAE MSE) and the result is
+    the tuple of masked concatenations. ``gather`` (optional) turns the
+    concatenated device scores into the host array (default: a copy); a
+    sharded caller, whose scorer returns this rank's rows of every batch,
+    passes :func:`~dfac_tpu_torch.parallel.multihost.gather_rows`, which
+    puts every rank's rows back in corpus order."""
+    to_host = gather if gather is not None else (lambda t: t.cpu().numpy())
 
     def produce():
         for batch in batch_iterator(ds, batch_size):
@@ -50,16 +61,18 @@ def collect_masked_scores(
 
     chunks, masks = [], []
     for prepared, mask in prefetched(produce(), depth=2, stats=stats):
-        chunks.append(score_batch(prepared))
+        out = score_batch(prepared)
+        chunks.append(out if n_outputs > 1 else (out,))
         masks.append(mask)
     if not chunks:
-        return np.zeros((0,), np.float32)
+        empty = np.zeros((0,), np.float32)
+        return empty if n_outputs == 1 else (empty,) * n_outputs
     keep = np.concatenate(masks)
     t0 = time.perf_counter()
-    out = torch.cat(chunks).float().cpu().numpy()[keep]
+    out = tuple(to_host(torch.cat([c[i] for c in chunks]).float())[keep] for i in range(n_outputs))
     if stats is not None:
         stats.device_wait_s += time.perf_counter() - t0
-    return out
+    return out if n_outputs > 1 else out[0]
 
 
 def model_device(model: torch.nn.Module) -> torch.device:
@@ -139,23 +152,35 @@ def predict_scores(
     swap_tf: bool = True,
     apply_sigmoid: bool = False,
     stats=None,
+    ranks=None,
 ) -> np.ndarray:
     """Score every utterance with the eval model on its device (convs in
     full f32); (N,) float32 in dataset order (:func:`collect_masked_scores`: padded
     batches, f32 uploads from pinned memory in a prefetch thread, one
-    fetch at the end)."""
+    fetch at the end).
+
+    With ``ranks`` (a :class:`~dfac_tpu_torch.parallel.data_parallel.Ranks`;
+    the JAX package's ``mesh``) each rank uploads and scores its rows of
+    every batch, and the scores are gathered on every rank; ``batch_size``
+    must divide over the ranks."""
     from dfac_tpu_torch.models.fast_infer import ingest
 
     device = model_device(model)
+    lo, hi, gather = 0, batch_size, None
+    if ranks is not None:
+        from dfac_tpu_torch.parallel.multihost import gather_rows, local_row_range
+
+        lo, hi = local_row_range(ranks.world, ranks.rank, batch_size)
+        gather = lambda t: gather_rows(t, ranks, hi - lo)  # noqa: E731
     was_training = model.training
     model.eval()
-    zeros = torch.zeros(batch_size, device=device)
+    zeros = torch.zeros(hi - lo, device=device)
     with torch.inference_mode(), f32_convs():
         scores = collect_masked_scores(
             lambda feats: eval_step(model, feats, zeros[: len(feats)], swap_tf, apply_sigmoid, 0.0)[0],
             ds, batch_size,
-            prepare_batch=lambda b: ingest(b.features, torch.float32, device),
-            stats=stats,
+            prepare_batch=lambda b: ingest(b.features[lo:hi], torch.float32, device),
+            stats=stats, gather=gather,
         )
     model.train(was_training)
     return scores

@@ -19,6 +19,11 @@ model without one is raised before the first epoch (the JAX program traces
 its frozen epoch body up front), and the supervised trainer's run writes
 no checkpoint (its CLI writes the best and last at the end).
 
+Under ``multihost`` a fused run is the multi-host resident ``fit``: every
+rank holds the whole corpus and gathers its rows of each batch on the card
+(JAX's GSPMD fused program over a replicated corpus); the single-process
+data-parallel trainer stays refused, as in JAX.
+
 Designed differences from the JAX package (``ROADMAP.md`` §3.3): the JAX
 fused CNN2D and CAE runs shuffle on the device with
 ``jax.random.permutation``; the port's walk the host order, as its resident
@@ -36,8 +41,26 @@ from dfac_tpu_torch.models.common import frozen_batchnorm
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
 
 
-# the JAX fused entry points' refusal of a single-process data-parallel run (``dfac_tpu/train/fused_fit.py:290-298``,
-# ``cae_loop.py:994-1000``, ``detector_loop.py:822-828``), by trainer class
+# the JAX fused entry points' refusals, by trainer class: a multi-host trainer without device_resident
+# (``dfac_tpu/train/fused_fit.py:285-289``, ``cae_loop.py:987-992``, ``detector_loop.py:816-821``) and a
+# single-process data-parallel run (``fused_fit.py:290-298``, ``cae_loop.py:994-1000``, ``detector_loop.py:822-828``)
+MULTIHOST_NEEDS_RESIDENT = {
+    "Trainer": (
+        "multihost fused fit requires device_resident=True in TrainConfig "
+        "(the trainer then builds the GSPMD model/step; dfac-train's "
+        "--fused-fit flag sets it automatically)"
+    ),
+    "CAETrainer": (
+        "multihost fused CAE fit requires device_resident=True in "
+        "CAEConfig (the trainer then builds the GSPMD model; "
+        "dfac-train-cae's --fused-fit flag sets it automatically)"
+    ),
+    "DetectorTrainer": (
+        "multihost fused detector fit requires device_resident=True "
+        "in DetectorConfig (the trainer then builds the GSPMD model; "
+        "the train_detector CLI's --fused-fit flag sets it)"
+    ),
+}
 DATA_PARALLEL_REFUSALS = {
     "Trainer": (
         "fit_fused with data_parallel is the MULTIHOST GSPMD path "
@@ -62,10 +85,18 @@ DATA_PARALLEL_REFUSALS = {
 }
 
 
-def check_not_data_parallel(trainer) -> None:
-    """Raise the JAX package's ``ValueError`` for a fused fit of a data-parallel trainer."""
-    if trainer.ranks is not None:
-        raise ValueError(DATA_PARALLEL_REFUSALS[type(trainer).__name__])
+def check_fused(trainer) -> None:
+    """Raise the JAX package's ``ValueError`` for a fused fit it refuses: a
+    multi-host trainer without ``device_resident``, a single-process
+    data-parallel one. (JAX's third refusal, an eval batch that does not
+    divide over the devices, ``fused_fit.py:327-331``, cannot arise here:
+    the port evaluates on rank 0 at ``batch_size``, which the config
+    already requires to divide.)"""
+    cfg, name = trainer.cfg, type(trainer).__name__
+    if cfg.multihost and not cfg.device_resident:
+        raise ValueError(MULTIHOST_NEEDS_RESIDENT[name])
+    if trainer.ranks is not None and not cfg.multihost:
+        raise ValueError(DATA_PARALLEL_REFUSALS[name])
 
 
 @contextlib.contextmanager

@@ -46,7 +46,13 @@ count, and rank 0 evaluates and broadcasts what the best rule, the
 plateau scheduler and early stopping read; only rank 0 displays and writes
 checkpoints. A tail that does not divide over the ranks is refused before
 the epoch (``check_dp_tail``), and ``fit_fused`` is refused, with the JAX
-package's messages.
+package's messages. ``multihost`` (the ranks of a cluster of processes,
+:mod:`~dfac_tpu_torch.parallel.multihost`) trains the same way; there
+``device_resident`` and ``fit_fused`` hold the whole corpus on every rank,
+each gathering its rows of every batch of the shared order on the card
+(the counterpart of JAX's replicated-corpus GSPMD path, which draws its
+permutation on the device instead), and ``--resume`` is read by the
+coordinator and broadcast.
 
 Dropout draws (bytes and channel masks) and augmentation draws come from
 one ``torch.Generator`` on the device, seeded from ``seed`` (each rank
@@ -89,9 +95,10 @@ from dfac_tpu_torch.utils.convert import adam_state_from_optax, jax_from_state_d
 class TrainConfig:
     """The reference train.py flag surface (``src/train.py:94-246``) that
     the port trains: every registry classifier on one device or
-    data-parallel, f32 or ``compute_dtype="bfloat16"``, host-fed, resident
-    or chunked, with the BatchNorm freeze tail (the JAX package's multi-host
-    and orbax fields select paths not ported yet; see ROADMAP.md).
+    data-parallel (one host or ``multihost``), f32 or
+    ``compute_dtype="bfloat16"``, host-fed, resident or chunked, with the
+    BatchNorm freeze tail (the JAX package's orbax field is not ported;
+    see ROADMAP.md).
     ``in_features`` is the input width of a model built without a sample
     batch."""
 
@@ -127,6 +134,9 @@ class TrainConfig:
     # BatchNorm on its running statistics, which stay as they are; 0 disables
     bn_freeze_after_frac: float = 0.0
     data_parallel: int = 0  # ranks of the process group the trainer runs on (0/1 = one device)
+    # the ranks are those of a multi-host cluster (parallel/multihost.py): data_parallel is the
+    # global rank count, device_resident keeps the whole corpus on every rank
+    multihost: bool = False
 
     def __post_init__(self):
         if not (0.0 <= self.label_smoothing < 0.5):
@@ -137,10 +147,22 @@ class TrainConfig:
         check_config(self, " (the resident and host-loop paths have their own ingest handling)")
 
 
-def check_data_parallel(cfg) -> None:
-    """The JAX configs' check of ``data_parallel`` against the global batch."""
+def check_data_parallel(cfg, what: str = "training") -> None:
+    """The JAX configs' checks of ``data_parallel``: against the global
+    batch, and above one rank under ``multihost`` (``what`` names the
+    trainer's mode in that message, as each JAX config does)."""
     if cfg.data_parallel > 1 and cfg.batch_size % cfg.data_parallel != 0:
         raise ValueError("batch_size must divide evenly over data_parallel shards")
+    if cfg.multihost and cfg.data_parallel <= 1:
+        raise ValueError(
+            f"multihost {what} is data-parallel over the pod — set data_parallel to the GLOBAL device count"
+            + (" (all hosts' chips)" if what == "training" else "")
+        )
+
+
+def mode(cfg, what: str) -> str:
+    """``what`` as the JAX trainers name a mode in ``check_dp_tail``'s message, "multihost ..." under ``multihost``."""
+    return f"multihost {what}" if cfg.multihost else what
 
 
 def bn_frozen_at(epoch: int, epochs: int, frac: float) -> bool:
@@ -354,10 +376,11 @@ class Trainer:
         epoch. Returns :meth:`fit`'s result and ``best_variables``: the
         ``state_dict`` of this run's best epoch, or None where no epoch of
         this run was best (a resumed run's earlier best stands). A
-        data-parallel trainer raises the JAX package's ``ValueError``."""
-        from dfac_tpu_torch.train.fused_fit import check_not_data_parallel, fused_run
+        single-process data-parallel trainer raises the JAX package's
+        ``ValueError``; a multi-host one runs the resident fit on every rank."""
+        from dfac_tpu_torch.train.fused_fit import check_fused, fused_run
 
-        check_not_data_parallel(self)
+        check_fused(self)
         if self.model is None:
             self.init_state(example_batch=train_ds.features[:1])
         with fused_run(self):
@@ -392,7 +415,7 @@ class Trainer:
         frozen = self._bn_frozen_at(epoch)
         chunked = cfg.resident_chunk_batches > 0
         order, bs = rank_order(epoch_order(len(ds), cfg.seed * 100003 + epoch), cfg.batch_size, self.ranks,
-                               "chunked training" if chunked else "training")
+                               mode(cfg, "chunked training" if chunked else "training"))
         if chunked:  # the host loop's batches, streamed in chunks
             labels = np.asarray(ds.labels if ds.labels is not None else np.zeros(len(ds)), np.float32)
             ones = torch.ones(bs, device=self.device)
@@ -404,8 +427,10 @@ class Trainer:
 
     @property
     def _resident_feed(self) -> bool:
-        """``device_resident`` on one device; data-parallel epochs are host-fed, as in JAX."""
-        return self.cfg.device_resident and self.ranks is None
+        """``device_resident`` on one device or multi-host (every rank holds
+        the corpus, as JAX's GSPMD path replicates it); single-process
+        data-parallel epochs are host-fed, as in JAX."""
+        return self.cfg.device_resident and (self.ranks is None or self.cfg.multihost)
 
     # -- evaluation -------------------------------------------------------
     def evaluate(self, dev_ds: ArrayDataset) -> dict:
@@ -430,9 +455,15 @@ class Trainer:
     def restore(self, ckpt_path: str) -> dict:
         """Resume from a checkpoint of either package: model, optimizer
         (the port's own state, or a JAX-written file's Adam moments),
-        scheduler, epoch and best-tracking counters."""
+        scheduler, epoch and best-tracking counters. Under ``multihost`` the
+        coordinator reads the file and broadcasts it to every rank."""
         cfg = self.cfg
-        ckpt = ckpt_lib.load_checkpoint(ckpt_path)
+        if cfg.multihost:  # the file is on the coordinator's filesystem only
+            from dfac_tpu_torch.parallel.multihost import broadcast_pyobj, is_coordinator
+
+            ckpt = broadcast_pyobj(ckpt_lib.load_checkpoint(ckpt_path) if is_coordinator() else None)
+        else:
+            ckpt = ckpt_lib.load_checkpoint(ckpt_path)
         state_dict = state_dict_from_jax(ckpt["model_state"], cfg.model)
         if self.model is None:
             self.init_state(state_dict)

@@ -1,8 +1,8 @@
 """The alternative trainers' CLIs and the CAE dashboard in the PyTorch port.
 
 Each flag set that the training CLIs once refused runs in ``train_cae``
-and ``train_detector``: the two paths still unported (multi-host, orbax
-checkpoints) exit non-zero with "not yet ported" before any data is read;
+and ``train_detector``: orbax checkpoints (not ported) and ``--multihost``
+without ``--coordinator-address`` exit non-zero before any data is read;
 the data-parallel, chunked, fused and freeze-tail flags go on to read the
 data, so a missing split stops them (``train_detector`` builds its
 configuration first, which refuses ``--chunk-ingest int8`` without
@@ -45,8 +45,9 @@ def test_unported_flags_exit_not_yet_ported(cli, flags, tmp_path):
     argv = ["--device", "cpu", *flags]
     argv += (["--data-dir", missing] if cli is train_detector else
              ["--train-features", missing, "--train-labels", missing, "--checkpoint-dir", missing])
-    if flags[0] in STILL_REFUSED:  # refused before any data is read
-        with pytest.raises(SystemExit, match="not yet ported") as exc:
+    if flags[0] in STILL_REFUSED:  # refused before any data is read: orbax, and --multihost with no coordinator
+        msg = "--coordinator-address HOST:PORT" if flags[0] == "--multihost" else "not ported to dfac_tpu_torch"
+        with pytest.raises(SystemExit, match=msg) as exc:
             cli.main(argv)
         assert exc.value.code not in (0, None)
     elif cli is train_detector and flags == ("--chunk-ingest", "int8"):

@@ -7,8 +7,8 @@ alone prints) and writes one set of artifacts; ``train`` on the corpus's
 ``.npy`` stores prints what it prints on the pickles; a fused data-parallel fit
 fails on its ranks and the command exits non-zero with the JAX package's
 message. In process: the device count is checked against the cards with
-``make_mesh``'s message after the data is read, and ``--multihost`` is
-still refused. The runs' numbers are held to the JAX package's in
+``make_mesh``'s message after the data is read, and ``--multihost``
+refuses what the JAX CLIs refuse. The runs' numbers are held to the JAX package's in
 ``tests/test_torch_port_dp.py``.
 """
 
@@ -168,7 +168,25 @@ def test_device_count_is_checked_after_the_data_is_read(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("cli", [ttrain, train_cae, train_detector], ids=["train", "train_cae", "train_detector"])
-def test_multihost_is_still_refused(cli, tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported") as exc:
+def test_multihost_is_still_refused(cli, data_dir, tmp_path):
+    """``--multihost`` is ported (``tests/test_torch_port_multihost.py``);
+    what the JAX CLIs refuse stays refused, with their messages: no
+    ``--coordinator-address`` (the three flags named), and ``--data-parallel
+    1`` in a one-process cluster (the trainer's config). Nothing is
+    written, and the process group is gone afterwards."""
+    import torch.distributed as dist
+
+    with pytest.raises(SystemExit, match="--coordinator-address HOST:PORT") as exc:
         cli.main(["--multihost", "--data-parallel", "2", "--device", "cpu"])
     assert exc.value.code not in (0, None)
+    cluster = ["--multihost", "--coordinator-address", f"127.0.0.1:{dp.free_port()}", "--num-processes", "1",
+               "--process-id", "0", "--data-parallel", "1", "--device", "cpu"]
+    ck = tmp_path / "ck"
+    argv = {ttrain: [*_split_flags(data_dir), "--in-features", str(F_), "--quiet", "--checkpoint-dir", str(ck)],
+            train_cae: [*_split_flags(data_dir), "--quiet", "--checkpoint-dir", str(ck)],
+            train_detector: ["--data-dir", str(data_dir), "--ckpt-path", str(ck / "det.ckpt"),
+                             "--prediction-pkl", str(ck / "prediction.pkl")]}[cli]
+    with pytest.raises(ValueError, match="is data-parallel over the pod — set data_parallel to the GLOBAL device count"):
+        cli.main(cluster + argv)
+    assert not dist.is_initialized()
+    assert not ck.exists()

@@ -548,8 +548,8 @@ def test_train_opt_probe_refuses_unported_stages():
     proc = subprocess.run([sys.executable, "-m", "dfac_tpu_torch.scripts.train_opt_probe", "--stages", "4",
                            "--device", "cpu"], capture_output=True, text=True, cwd=str(ROOT))
     assert proc.returncode != 0
-    assert "stage 4 not yet ported" in proc.stderr and proc.stdout == ""
-    assert "stages 1-10, 16, 17 wait for CNN2D training" in proc.stderr
+    assert "stage 4 is not ported" in proc.stderr and proc.stdout == ""
+    assert "stages 1-10, 16, 17 time XLA lowerings of the JAX training step and reach no Pallas kernel" in proc.stderr
 
 
 def test_pool_kernel_probe_entry_point(capsys):

@@ -147,11 +147,19 @@ def test_load_features_refuses_a_pickle_with_no_rows(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--multihost"]])
 def test_predict_cli_refuses_what_is_not_ported(flag, tmp_path):
+    """``--data-parallel`` and ``--multihost`` are ported
+    (``tests/test_torch_port_multihost.py``); the JAX CLI's refusals of them
+    stay, with its messages, before anything is read: ``--int8`` over more
+    than one device, ``--multihost`` without ``--fast``."""
     from dfac_tpu_torch.cli import predict as tpredict
 
     base = ["--features", "f.pkl", "--checkpoint", "c.ckpt", "--model", "cnn2d", "--out", "p.pkl"]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tpredict.main(base + ["--fast"] + flag)
+    if flag[0] == "--data-parallel":
+        argv, msg = base + ["--fast", "--int8"] + flag, "without --multihost/--data-parallel"
+    else:
+        argv, msg = base + flag, "--multihost serving runs the folded fast chain — add --fast"
+    with pytest.raises(SystemExit, match=re.escape(msg)):
+        tpredict.main(argv)
 
 
 def test_evaluate_cli_matches_jax(tmp_path, capsys):

@@ -220,8 +220,14 @@ def test_predict_hybrid_cli_fast_runs_both_legs_in_bf16(world, cnn, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--multihost"]])
 def test_predict_hybrid_cli_refuses_what_is_not_ported(world, flag, tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tpredict_hybrid.main(_hybrid_args(world, "cnn2d", tmp_path / "t.pkl", "--fast", *flag))
+    """``--data-parallel`` and ``--multihost`` are ported
+    (``tests/test_torch_port_multihost.py``); without ``--fast`` each is
+    refused with the JAX CLI's message, and nothing is written."""
+    msg = ("--data-parallel hybrid serving requires --fast" if flag[0] == "--data-parallel"
+           else "--multihost hybrid serving runs the folded fast chains — add --fast")
+    with pytest.raises(SystemExit, match=msg):
+        tpredict_hybrid.main(_hybrid_args(world, "cnn2d", tmp_path / "t.pkl", "--device", "cpu", *flag))
+    assert not (tmp_path / "t.pkl").exists()
 
 
 def test_hybrid_ensemble_cli_prints_the_jax_sweep(world, capsys):

@@ -125,12 +125,14 @@ def test_resume_trains_only_the_remaining_epochs(corpus, trained, tmp_path):
                                   ["--resident-chunk-batches", "4"], ["--chunk-ingest", "bf16"], ["--fused-fit"],
                                   ["--bn-freeze-after", "0.5"], ["--train-fast"], ["--checkpoint-format", "orbax"]])
 def test_train_cli_refuses_what_is_not_ported(flag, tmp_path):
-    """Multi-host and orbax exit "not yet ported" before any data is read;
-    the data-parallel, chunked, fused and freeze-tail flags are ported and go
-    on to read the data, so a missing split stops them."""
+    """Orbax exits "not ported" and ``--multihost`` without
+    ``--coordinator-address`` names the three flags, before any data is
+    read; the data-parallel, chunked, fused and freeze-tail flags go on to
+    read the data, so a missing split stops them."""
     missing = ["--train-features", str(tmp_path / "missing.pkl"), "--train-labels", str(tmp_path / "missing.pkl")]
     if flag[0] in ("--multihost", "--checkpoint-format"):
-        with pytest.raises(SystemExit, match="not yet ported"):
+        msg = "--coordinator-address HOST:PORT" if flag[0] == "--multihost" else "not ported to dfac_tpu_torch"
+        with pytest.raises(SystemExit, match=msg):
             ttrain.main(flag + missing)
     else:
         with pytest.raises(FileNotFoundError):
