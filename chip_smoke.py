@@ -177,14 +177,20 @@ line:
             width (CNN2D and CNN1D 180 -> 32 -> 64 -> 128, weights from a
             seed with non-trivial BatchNorm statistics, a synthetic
             512-utterance split and its ``.npy`` store, B=128): in process,
-            ``predict_scores_w8a8`` (2 ``conv_block_w8a8`` launches a batch
-            and nothing else) and ``predict_scores_fast(ingest_int8=True)``
-            (3 K2 launches a batch) against the f32 ``--fast`` chain (5e-2);
-            ``conv_block_w8a8`` against its plain version bit for bit at
-            both serving shapes (blocks 2 and 3 of a batch of the chain) and
-            an odd H, a second call equal; each block's ms in turns and on
-            the device beside its bound and a ``torch._int_mm`` control over
-            the 9-tap patch matrix; utt/s of the w8a8 chain (f32, bf16)
+            ``predict_scores_w8a8`` (1 ``block1_w8a8`` and 2
+            ``conv_block_w8a8`` launches a batch and nothing else) and
+            ``predict_scores_fast(ingest_int8=True)`` (3 K2 launches a batch)
+            against the f32 ``--fast`` chain (5e-2); ``block1_w8a8`` against
+            its plain version at the serving shape on the chain's transposed
+            view (f32 bit for bit, bf16 within one code step at <= 0.1% of
+            positions); ``conv_block_w8a8`` against its plain version bit for
+            bit at both serving shapes (block 2 int8 pooled and block 3's
+            mean over time, of a batch of the chain), block 3's f32 mode and
+            an odd H; a second call of each equal; each block's ms in turns
+            and on the device beside its bound (block 3's mean mode beside
+            its f32 mode and that mode's bound), cuDNN's conv beside block 1
+            and a ``torch._int_mm`` control over the 9-tap patch matrix
+            beside blocks 2 and 3; utt/s of the w8a8 chain (f32, bf16)
             beside K2's f32 and bf16 chains over 2,048 on-device feature
             tensors (``chain_rates``: median of 7) and one profile of each
             w8a8 chain; anomaly embeddings on the card against the CPU eval
@@ -275,8 +281,9 @@ The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel (K1 and K2 twice: ``gemm_frontend`` and
 ``conv_block`` are their bf16 modes on the slice, ``gemm_frontend_f32`` K1's
 f32 mode on the ``gemm`` extraction, ``conv_block_f32`` K2's on ``predict
---fast``'s f32 chain; ``conv_block_w8a8``, phase 19's int8 kernel, has no
-Pallas counterpart; for ``conv_block``, ``conv_block_f32``, ``time_pool``,
+--fast``'s f32 chain; ``conv_block_w8a8`` and ``block1_w8a8`` (its f32
+mode, the main path's run), phase 19's int8 chain, have no Pallas
+counterpart; for ``conv_block``, ``conv_block_f32``, ``time_pool``,
 ``conv_probe``, ``conv1_pass``, ``conv_forms``, ``conv_chunked``,
 ``conv_trailing`` and ``conv_block_w8a8``, ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over the shapes or cases of one
@@ -374,6 +381,9 @@ ENSEMBLE_ATOL = 1e-6  # the ensemble CLI's mean against the in-process evaluate_
 # the int8 and tools phase (19)
 W8A8_SCORE_ATOL = 5e-2  # w8a8 and int8-ingest scores against the f32 --fast chain: the JAX package's bound for
 # int8 weights and activations, tests/test_fast_infer_int8.py
+W8A8_PER_BATCH = {"block1_w8a8": 1, "conv_block_w8a8": 2}  # the w8a8 chain's kernel launches a batch
+W8A8_MAX_MOVED = 1e-3  # bf16 block 1 against its plain version: the tensor cores' sums may move a code by one step
+# at <= 0.1% of positions (tests/test_torch_port_int8.py's bound against JAX)
 EMBED_ATOL = 1e-4  # anomaly embeddings on the card against the CPU eval model: f32 convs, sums in other orders
 EMBED_UTTS = 256
 INT8_TRAIN_UTTS = 128  # train --profile-dir's train and dev splits
@@ -1438,6 +1448,11 @@ def zoo_profile(label: str, b: int, step_ms: float, prof: dict, card: str) -> No
         phase("zoo", f"  {k_ms:8.4f} ms {share(k_ms):6.1%} {n:5.1f}x  {k_name[:110]}")
 
 
+def w8a8_mode(args) -> str:
+    """The output mode of ``conv_block_w8a8(x, w, deq, b, inv_s, time_mean)`` called with ``args``."""
+    return "int8 pooled" if args[4] is not None else "mean" if args[5] else "f32"
+
+
 def rows(ds, a: int, b: int):
     """Rows ``a:b`` of an ArrayDataset (views of its arrays)."""
     return type(ds)(uttids=ds.uttids[a:b], features=ds.features[a:b],
@@ -1446,7 +1461,8 @@ def rows(ds, a: int, b: int):
 
 def int8_tools_phase(dev, card: str) -> dict:
     """Phase 19: w8a8 serving, int8 ingest, the host quantizer, anomaly embeddings, the data tools and
-    ``--profile-dir`` (see the module docstring); returns ``conv_block_w8a8``'s entry of the kernels line."""
+    ``--profile-dir`` (see the module docstring); returns ``conv_block_w8a8``'s and ``block1_w8a8``'s entries of
+    the kernels line."""
     import copy
 
     import pandas as pd
@@ -1462,7 +1478,8 @@ def int8_tools_phase(dev, card: str) -> dict:
     from dfac_tpu_torch.models import build_model, fast_infer
     from dfac_tpu_torch.models import fast_infer_int8 as w8
     from dfac_tpu_torch.ops import _build
-    from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8, reference_conv_block_w8a8
+    from dfac_tpu_torch.ops.conv_block_w8a8 import block1_w8a8, conv_block_w8a8, reference_block1_w8a8, \
+        reference_conv_block_w8a8
     from dfac_tpu_torch.profiling import profile_path
     from dfac_tpu_torch.train import rates
     from dfac_tpu_torch.train.checkpoint import save_checkpoint
@@ -1491,51 +1508,99 @@ def int8_tools_phase(dev, card: str) -> dict:
         _build.reset_launch_counts()
         got = run()
         served[name] = _build.launch_counts()
-        want = {**dict.fromkeys(served[name], 0),
-                **({"conv_block_w8a8": 2 * n_batches} if name.startswith("w8a8") else {"conv_block": 3 * n_batches})}
+        per = W8A8_PER_BATCH if name.startswith("w8a8") else {"conv_block": 3}
+        want = {**dict.fromkeys(served[name], 0), **{k: n * n_batches for k, n in per.items()}}
         require(served[name] == want, f"{name} over {n_batches} batches: launches {served[name]}")
         d = float(np.abs(got - f32_ref["cnn2d"]).max())
         phase("int8", f"{name} (in process) over {n_batches} batches: launches {served[name]}; scores vs the f32 "
                       f"--fast chain max abs {d:.3e} (tolerance {W8A8_SCORE_ATOL})")
         require(got.shape == (CLI_UTTS,) and np.isfinite(got).all() and d <= W8A8_SCORE_ATOL, f"{name}: {d}")
     w8a8_launches = served["w8a8 f32"]["conv_block_w8a8"]
+    b1_launches = served["w8a8 f32"]["block1_w8a8"]
 
-    # -- conv_block_w8a8 against its plain version at the serving shapes, from a batch of the chain
+    # -- the kernels against their plain versions at the serving shapes, from a batch of the chain
     feats = torch.randn(F32_CORPUS // BATCH, BATCH, features, N_FRAMES, device=dev, generator=gen)  # stored (F, T)
     f8 = w8.fold_cnn2d_w8a8({k: v.to(dev) for k, v in sds["cnn2d"].items()}, feats[0].cpu().numpy())
-    q1 = w8.block1_w8a8(f8, feats[0].transpose(1, 2), torch.float32)
-    blocks = [(q1, f8["w2q"], f8["deq2"], f8["b2"], f8["inv_s2"])]
-    blocks.append((conv_block_w8a8(*blocks[0]), f8["w3q"], f8["deq3"], f8["b3"], None))
+    x1 = feats[0].transpose(1, 2)  # the chain's (B, T, F) view of a stored batch
+    b1_args = {dt: (x1.to(dt), f8["w1"], f8["b1"], f8["inv_s1"], dt) for dt in (torch.float32, torch.bfloat16)}
+    b1_err = 0
+    for dt, args in b1_args.items():
+        got = block1_w8a8(*args)
+        torch.cuda.synchronize()
+        want = reference_block1_w8a8(*args)
+        d = (got.int() - want.int()).abs()
+        err, moved = int(d.max()), float((d > 0).float().mean())
+        exact = dt == torch.float32
+        phase("int8", f"block1_w8a8 {str(dt)[6:]} x{tuple(args[0].shape)} (a transposed view) -> {tuple(got.shape)} "
+                      f"int8: codes moved at {moved!r} of positions, by at most {err} (tolerance: "
+                      f"{'bit for bit' if exact else f'one step at <= {W8A8_MAX_MOVED} of positions'})")
+        require(torch.equal(got, want) if exact else err <= 1 and moved <= W8A8_MAX_MOVED,
+                f"block1_w8a8 {dt}: moved {moved}, max {err}")
+        require(torch.equal(block1_w8a8(*args), got), "block1_w8a8: a second call differs")
+        b1_err = max(b1_err, err) if exact else b1_err
+        del got, want, d
+    q1 = block1_w8a8(*b1_args[torch.float32])
+    blocks = [(q1, f8["w2q"], f8["deq2"], f8["b2"], f8["inv_s2"], False)]
+    blocks.append((conv_block_w8a8(*blocks[0]), f8["w3q"], f8["deq3"], f8["b3"], None, True))  # the chain's mean
+    f32_mode = (*blocks[1][:5], False)  # block 3's f32 mode, off the chain
     odd = (q1[:, : q1.shape[1] - 1].contiguous(), *blocks[0][1:])  # an odd H: 159 conv rows
     w8_err = 0.0
-    for args in (*blocks, odd):
+    for args in (*blocks, f32_mode, odd):
         got = conv_block_w8a8(*args)
         torch.cuda.synchronize()
         want = reference_conv_block_w8a8(*args)
         err = float((got.float() - want.float()).abs().max())
         w8_err = max(w8_err, err)
-        phase("int8", f"conv_block_w8a8 {'int8 pooled' if args[4] is not None else 'f32'} x{tuple(args[0].shape)} "
-                      f"-> {tuple(got.shape)} {str(got.dtype)[6:]}: max abs against the plain version {err!r}")
-        require(torch.equal(got, want), f"conv_block_w8a8 x{tuple(args[0].shape)}: not bit for bit")
+        phase("int8", f"conv_block_w8a8 {w8a8_mode(args)} x{tuple(args[0].shape)} -> {tuple(got.shape)} "
+                      f"{str(got.dtype)[6:]}: max abs against the plain version {err!r}")
+        require(torch.equal(got, want), f"conv_block_w8a8 {w8a8_mode(args)} x{tuple(args[0].shape)}: not bit for bit")
         require(torch.equal(conv_block_w8a8(*args), got), "conv_block_w8a8: a second call differs")
         del got, want
     del odd
-    phase("int8", "conv_block_w8a8: bit for bit at both serving shapes and an odd H; a second call equal")
+    phase("int8", "conv_block_w8a8: bit for bit at both serving shapes (int8 pooled, mean), block 3's f32 mode and "
+                  "an odd H; a second call equal")
 
-    # -- each block's ms in turns and on the device, its bound, and torch._int_mm over the 9-tap patches
+    # -- each block's ms in turns and on the device, its bound, and a control
+    b1_entry = {}
+    for dt, args in b1_args.items():
+        x = args[0]
+        ops = 2 * BATCH * 2 * (N_FRAMES // 2) * features * 32 * 9  # the conv rows the pool keeps
+        bnd = bound(x.numel() * x.element_size() + 10 * 32 * 4 + BATCH * (N_FRAMES // 2) * features * 32,
+                    **{"f32" if dt == torch.float32 else "bf16": ops})
+        ms, plain_ms = in_turns(lambda: reference_block1_w8a8(*args), lambda: block1_w8a8(*args), reps=5)
+        dev_ms, dev_how = device_ms(lambda: block1_w8a8(*args), "block1_w8a8")
+        xc = x[:, None].float()
+        wc = args[1].to(dt).float().permute(3, 2, 0, 1)
+        conv_ms = statistics.mean(cuda_ms(lambda: torch.nn.functional.conv2d(xc, wc, padding=1), 10) for _ in range(2))
+        phase("timing", f"block1_w8a8 {str(dt)[6:]} x{tuple(x.shape)} -> 32 int8 pooled: kernel {ms:.4f} ms in turns, "
+                        f"device {dev_ms:.4f} ms a launch ({dev_how}), bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                        f"{bnd[0] / dev_ms:.1%} of the bound's rate on the device; plain {plain_ms:.4f} ms; no "
+                        f"PyTorch call computes it (cuDNN's f32 conv alone, TF32 off, writes the "
+                        f"{xc.numel() * 32 * 4 / 1e6:.1f} MB f32 rows and computes less: {conv_ms:.4f} ms), on {card}")
+        if dt == torch.float32:  # the main path's run above is f32
+            b1_entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del xc
     w8_ms = w8_plain = w8_lib = 0.0
     w8_parts = []
-    for i, (x, w, deq, b, inv_s) in enumerate(blocks, 2):
+    for i, (x, w, deq, b, inv_s, mean) in enumerate(blocks, 2):
         batch, h, width, c_in = x.shape
         c_out = w.shape[-1]
         conv_rows = 2 * (h // 2) if inv_s is not None else h  # the pool drops an odd last row
-        out_bytes = batch * (h // 2) * width * c_out if inv_s is not None else batch * h * width * c_out * 4
-        bnd = bound(x.numel() + w.numel() + 8 * c_out + out_bytes,
-                    int8=2 * batch * conv_rows * width * c_out * 9 * c_in)
+        ops = 2 * batch * conv_rows * width * c_out * 9 * c_in
+        f32_bytes = batch * h * width * c_out * 4
+        out_bytes = batch * (h // 2) * width * c_out if inv_s is not None else batch * width * c_out * 4
+        bnd = bound(x.numel() + w.numel() + 8 * c_out + out_bytes, int8=ops)
         w8_parts.append(bnd)
-        ms, plain_ms = in_turns(lambda: reference_conv_block_w8a8(x, w, deq, b, inv_s),
-                                lambda: conv_block_w8a8(x, w, deq, b, inv_s), reps=5)
-        dev_ms, dev_how = device_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s), "conv_block_w8a8")
+        ms, plain_ms = in_turns(lambda: reference_conv_block_w8a8(x, w, deq, b, inv_s, mean),
+                                lambda: conv_block_w8a8(x, w, deq, b, inv_s, mean), reps=5)
+        dev_ms, dev_how = device_ms(lambda: conv_block_w8a8(x, w, deq, b, inv_s, mean), "conv_block_w8a8")
+        if mean:  # the f32 mode beside it: the write the mean replaced, and the bound it had
+            f32_ms, _ = device_ms(lambda: conv_block_w8a8(x, w, deq, b), "conv_block_w8a8")
+            old = bound(x.numel() + w.numel() + 8 * c_out + f32_bytes, int8=ops)
+            phase("timing", f"conv_block_w8a8 block 3 f32 mode (off the chain): device {f32_ms:.4f} ms a launch, "
+                            f"its bound {old[0]:.4f} ms ({old[1]}: the {f32_bytes / 1e6:.1f} MB f32 write), "
+                            f"{old[0] / f32_ms:.1%}; the mean mode writes {out_bytes / 1e6:.1f} MB, so its bound is "
+                            f"{bnd[0]:.4f} ms ({bnd[1]}), on {card}")
         xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
         patches = torch.cat([xp[:, dy:dy + h, dx:dx + width] for dy in range(3) for dx in range(3)], -1)
         patches = patches.reshape(-1, 9 * c_in)
@@ -1544,8 +1609,8 @@ def int8_tools_phase(dev, card: str) -> dict:
         lib_ms = statistics.mean(cuda_ms(lambda: torch._int_mm(patches, wm), 10) for _ in range(2))
         del patches
         w8_ms, w8_plain, w8_lib = w8_ms + ms, w8_plain + plain_ms, w8_lib + lib_ms
-        phase("timing", f"conv_block_w8a8 block {i} x{tuple(x.shape)} -> {c_out}"
-                        f"{' int8 pooled' if inv_s is not None else ' f32'}: kernel {ms:.4f} ms in turns, device "
+        phase("timing", f"conv_block_w8a8 block {i} x{tuple(x.shape)} -> {c_out} {w8a8_mode((x, w, deq, b, inv_s, mean))}: "
+                        f"kernel {ms:.4f} ms in turns, device "
                         f"{dev_ms:.4f} ms a launch ({dev_how}), bound {bnd[0]:.4f} ms ({bnd[1]}), "
                         f"{bnd[0] / dev_ms:.1%} of the bound's rate on the device; plain {plain_ms:.4f} ms; control "
                         f"torch._int_mm over the 9-tap "
@@ -1566,13 +1631,14 @@ def int8_tools_phase(dev, card: str) -> dict:
         _build.reset_launch_counts()
         r = chain_rates.rates(chain_rates.runner(score, feats), F32_CORPUS)
         timed = _build.launch_counts()
-        key, per = ("conv_block_w8a8", 2) if name.startswith("w8a8") else ("conv_block", 3)
-        require(timed == {**dict.fromkeys(timed, 0), key: per * n_runs}, f"{name} timed runs' launches: {timed}")
+        per = W8A8_PER_BATCH if name.startswith("w8a8") else {"conv_block": 3}
+        require(timed == {**dict.fromkeys(timed, 0), **{k: n * n_runs for k, n in per.items()}},
+                f"{name} timed runs' launches: {timed}")
         phase("int8", chain_rates.summary(name, r) + f", {F32_CORPUS} feature tensors ({features} x {N_FRAMES}) at "
                                                      f"B={BATCH}, on {card}")
     for name in ("w8a8 f32", "w8a8 bf16"):
         profile_path(f"{name} B={BATCH}", chain_rates.runner(chains[name], feats), F32_CORPUS // BATCH, dev)
-    del feats, blocks, q1
+    del feats, blocks, q1, b1_args, x1
 
     # -- anomaly embeddings on the card against the CPU eval model
     emb_ds = rows(ds, 0, EMBED_UTTS)
@@ -1688,10 +1754,14 @@ def int8_tools_phase(dev, card: str) -> dict:
                           f"{'int8' if ingest_int8 else 'bf16'} ingest: {INT8_STORE_UTTS / dt:.1f} utt/s (host-wait "
                           f"{stats.host_wait_s:.3f}s, device-wait {stats.device_wait_s:.3f}s), on {card}")
     phase("int8", f"end to end, bf16 ingest {e2e[False]} against int8 ingest {e2e[True]} utt/s")
-    return {"name": "conv_block_w8a8", "route": "cuda", "source": "dfac_tpu_torch/csrc/conv_block_w8a8.cu",
-            "replaces": "dfac_tpu/models/fast_infer_int8.py:188 (an XLA int8 conv; no Pallas counterpart)",
-            "launches": w8a8_launches, "max_abs_err": w8_err, "ms": w8_ms, "plain_ms": w8_plain,
-            "bound_ms": w8_bound[0], "bound_by": w8_bound[1], "library_ms": w8_lib}
+    src = "dfac_tpu_torch/csrc/conv_block_w8a8.cu"
+    return [{"name": "conv_block_w8a8", "route": "cuda", "source": src,
+             "replaces": "dfac_tpu/models/fast_infer_int8.py:188 (an XLA int8 conv; no Pallas counterpart)",
+             "launches": w8a8_launches, "max_abs_err": w8_err, "ms": w8_ms, "plain_ms": w8_plain,
+             "bound_ms": w8_bound[0], "bound_by": w8_bound[1], "library_ms": w8_lib},
+            {"name": "block1_w8a8", "route": "cuda", "source": src,
+             "replaces": "dfac_tpu/models/fast_infer_int8.py:180 (an XLA conv and epilogue; no Pallas counterpart)",
+             "launches": b1_launches, "max_abs_err": float(b1_err), **b1_entry, "library_ms": None}]
 
 
 def train_rest_phase(dev, card: str) -> None:
@@ -2560,10 +2630,10 @@ def kernel_phases():
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # a kernel of ours, with its template arguments (mangled), or None
-            k = re.search(r"(frontend_bf16|frontend_f32|conv_block_tc|conv_block_f32|conv_block_direct|"
+            k = re.search(r"(?<=\d)(frontend_bf16|frontend_f32|conv_block_tc|conv_block_f32|conv_block_direct|"
                           r"conv_block_cin1_tc|conv_block_cin1_f32|conv_block_cin1|fb_log_dct_kernel|"
                           r"time_pool_kernel|conv1_checksum|conv2_checksum|sum_sq_checksum|conv1_tc|conv1_emit|"
-                          r"conv_block_w8a8)"
+                          r"conv_block_w8a8|block1_w8a8_tc|block1_w8a8_f32)"
                           r"(?:I(\w*?)EEv)?", m.group(1))
             name, spills = k and k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""), "0"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -2573,7 +2643,8 @@ def kernel_phases():
         if m and name:  # spills shown where there are any, and always for the probe kernels and K4
             shown = (f", {spills} bytes spill stores"
                      if spills != "0" or name.startswith(("conv2_checksum", "conv1_tc", "conv1_checksum",
-                                                          "conv1_emit", "fb_log_dct_kernel", "conv_block_w8a8"))
+                                                          "conv1_emit", "fb_log_dct_kernel", "conv_block_w8a8",
+                                                          "block1_w8a8"))
                      else "")
             phase("build", f"ptxas {name}: {m.group(1)} registers{shown}")
     check_units(lib_path)
@@ -3296,7 +3367,7 @@ def main() -> int:
     zoo_phase(dev, card)
     # -- 19. int8 serving and the data tools ------------------------------------------
     torch.cuda.empty_cache()
-    kernels.append(int8_tools_phase(dev, card))
+    kernels.extend(int8_tools_phase(dev, card))
     # -- 20. the remainder of single-device training ------------------------------------
     torch.cuda.empty_cache()
     train_rest_phase(dev, card)

@@ -4,25 +4,28 @@ Counterpart of :mod:`dfac_tpu.models.fast_infer_int8`. Blocks 2 and 3 of
 the folded CNN2D run as int8 x int8 -> int32 convolutions with int8
 activations between the blocks:
 
-* **Block 1** computes as the JAX package's XLA program does: an f32
-  convolution (cuDNN, TF32 off) of the features and the kernel rounded to
-  the compute dtype, then the f32 epilogue ``relu(y + b1)``,
-  ``_quant_act`` with the calibrated scale and the int8 time pool
-  ``_pool2_int8`` (both in :mod:`dfac_tpu_torch.ops.conv_block_w8a8`,
-  which the kernel's plain version shares). No Pallas kernel computes it.
-* **Blocks 2 and 3** run on the hand-written kernel
+* **Block 1** is one hand-written kernel
+  (:func:`~dfac_tpu_torch.ops.conv_block_w8a8.block1_w8a8`): the f32 conv
+  of the features and the kernel rounded to the compute dtype, then the f32
+  epilogue ``relu(y + b1)``, ``quant_act`` with the calibrated scale and
+  the int8 time pool ``pool2_int8``, as the JAX package's XLA program
+  computes them; it reads a stored (B, F, T) batch as a transposed view.
+* **Blocks 2 and 3** run on the int8 kernel
   (:func:`~dfac_tpu_torch.ops.conv_block_w8a8.conv_block_w8a8`): weights
   quantized per output channel (``amax / 127``), the dequant ``s_act *
   s_w[c]`` folded with the int32 accumulator, bias and ReLU in one
-  epilogue; block 2 requantizes and pools in int8, block 3 writes f32.
-* **The head** is :func:`~dfac_tpu_torch.ops.conv_block.cnn2d_head`: the
-  f32 mean over time, the dot rounded to the compute dtype.
+  epilogue; block 2 requantizes and pools in int8, block 3 writes the
+  head's f32 mean over time.
+* **The head** is
+  :func:`~dfac_tpu_torch.ops.conv_block.cnn2d_head_from_mean`: the
+  channel-major flatten, the dot rounded to the compute dtype.
+
+Three kernel launches a batch, and no full-size f32 tensor.
 
 Activation scales are static, from one calibration batch through the f32
-chain (:func:`calibrate_cnn2d`). The chain runs on the (T, F) grid, so a
-stored (B, F, T) batch turns once at entry, as
-:func:`~dfac_tpu_torch.models.fast_infer.cnn2d_fast_scores` does; the JAX
-package swaps the kernels instead, which gives the same integers.
+chain (:func:`calibrate_cnn2d`). The chain runs on the (T, F) grid: block
+1 reads a stored (B, F, T) batch as its transposed view, with no copy; the
+JAX package swaps the kernels instead, which gives the same integers.
 """
 
 from __future__ import annotations
@@ -33,10 +36,8 @@ import torch.nn.functional as F
 
 from dfac_tpu_torch.models.common import f32_convs
 from dfac_tpu_torch.models.fast_infer import dequant8, fold_cnn2d, score_dataset
-from dfac_tpu_torch.ops.conv_block import cnn2d_head
-from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8
-from dfac_tpu_torch.ops.conv_block_w8a8 import pool2_int8 as _pool2_int8
-from dfac_tpu_torch.ops.conv_block_w8a8 import quant_act as _quant_act
+from dfac_tpu_torch.ops import conv_block_w8a8 as kw8
+from dfac_tpu_torch.ops.conv_block import cnn2d_head_from_mean
 
 _QMAX = 127.0
 
@@ -97,28 +98,19 @@ def fold_cnn2d_w8a8(state_dict: dict, calib_feats, swap_tf: bool = True, margin:
 
 
 def block1_w8a8(f8: dict, feats_tf: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Block 1 on (B, T, F) features: the f32 conv of operands rounded to
-    ``compute_dtype``, ``relu(y + b1)``, int8 quantization and the int8
-    time pool -> (B, T // 2, F, C) int8, NHWC. The epilogue runs on cuDNN's
-    NCHW output (bias and ReLU in place), and only the pooled int8 codes,
-    an eighth of its bytes, turn to NHWC."""
-    dt = compute_dtype
-    x = feats_tf.to(dt).float()[:, None]  # (B, 1, T, F)
-    w = f8["w1"].to(dt).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
-    with f32_convs():
-        y = F.conv2d(x, w, padding=1)  # (B, C, T, F)
-    y.add_(f8["b1"].float()[:, None, None]).relu_()
-    q = _pool2_int8(_quant_act(y, f8["inv_s1"]), time_axis=2)
-    return q.permute(0, 2, 3, 1).contiguous()
+    """Block 1 on (B, T, F) features (any strides): the f32 conv of
+    operands rounded to ``compute_dtype``, ``relu(y + b1)``, int8
+    quantization and the int8 time pool -> (B, T // 2, F, C) int8, NHWC."""
+    return kw8.block1_w8a8(feats_tf, f8["w1"], f8["b1"], f8["inv_s1"], compute_dtype)
 
 
 def _w8a8_chain(f8: dict, feats_tf: torch.Tensor, apply_sigmoid: bool, dt: torch.dtype) -> torch.Tensor:
-    """The chain body on (B, T, F) features: block 1, the two int8 blocks,
-    the head."""
+    """The chain body on (B, T, F) features: block 1, the two int8 blocks
+    (block 3 takes the mean over time), the head."""
     q = block1_w8a8(f8, feats_tf, dt)
-    q = conv_block_w8a8(q, f8["w2q"], f8["deq2"], f8["b2"], f8["inv_s2"])
-    h = conv_block_w8a8(q, f8["w3q"], f8["deq3"], f8["b3"])
-    return cnn2d_head(h, f8, apply_sigmoid, dt)
+    q = kw8.conv_block_w8a8(q, f8["w2q"], f8["deq2"], f8["b2"], f8["inv_s2"])
+    hm = kw8.conv_block_w8a8(q, f8["w3q"], f8["deq3"], f8["b3"], time_mean=True)
+    return cnn2d_head_from_mean(hm, f8, apply_sigmoid, dt)
 
 
 def cnn2d_w8a8_scores(

@@ -41,11 +41,13 @@ NVCC_FLAGS = (
 # (stage 12's a, c, d, f), conv_chunked K10 (stage 14's h2, i2, j2),
 # conv_trailing K11 (stage 15's j3, j4, j5, c2); the five share
 # csrc/conv_probe.cu; conv_block_w8a8 counts the w8a8 chain's int8 blocks
-# (csrc/conv_block_w8a8.cu, no Pallas counterpart).
+# and block1_w8a8 its block 1 (both csrc/conv_block_w8a8.cu, no Pallas
+# counterpart).
 LAUNCHES = {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0, "conv_probe": 0,
-            "conv1_pass": 0, "conv_forms": 0, "conv_chunked": 0, "conv_trailing": 0, "conv_block_w8a8": 0}
+            "conv1_pass": 0, "conv_forms": 0, "conv_chunked": 0, "conv_trailing": 0, "conv_block_w8a8": 0,
+            "block1_w8a8": 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # wave, basis, fb, fb_lo, fb_hi, dct, out, n_utt, n_samples, n_frames,
     # log_floor, bf16, stream
@@ -62,9 +64,11 @@ _SIGNATURES = {
     "dfac_conv_pass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # case, in, w, out, y (or null), done, batch, t_in, f_in, rows, cols, win, n_out, stream
     "dfac_conv_chunk": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, wt, deq, b, inv_s, quantized, out, batch, h, w, c_in, c_out, stream
+    # x, wt, deq, b, inv_s, mode (0 f32, 1 pooled, 2 mean), out, batch, h, w, c_in, c_out, stream
     "dfac_conv_block_w8a8": [_P, _P, _P, _P, _F, _I, _P, _I, _I, _I, _I, _I, _P],
     "dfac_conv_block_w8a8_smem": [_I, _I],
+    # x, w, b, inv_s, out, batch, t, f, x's strides (b, t, f), bf16, stream
+    "dfac_block1_w8a8": [_P, _P, _P, _F, _P, _I, _I, _I, _L, _L, _L, _I, _P],
     # dynamic shared memory per block, bytes: (bf16), (c_in, c_out, bf16), (),
     # (case, f_in, cols, n_out), (case, f_in, n_out), (case, f_in, cols, n_out)
     "dfac_gemm_frontend_smem": [_I],

@@ -136,19 +136,26 @@ def fused_conv_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bo
     return reference_conv_block(x, w, b, pool)
 
 
-def cnn2d_head(
-    h: torch.Tensor, folded: dict, apply_sigmoid: bool = True, compute_dtype: torch.dtype = torch.bfloat16
+def cnn2d_head_from_mean(
+    hm: torch.Tensor, folded: dict, apply_sigmoid: bool = True, compute_dtype: torch.dtype = torch.bfloat16
 ) -> torch.Tensor:
-    """Block-3 output (B, T', F, C) -> (B,) scores: mean over time,
-    channel-major flatten, one output unit. The head is a multiply and a
-    sum, with the product rounded to ``compute_dtype`` as the JAX chain's
-    ``emb @ w_cls`` in that dtype is."""
-    hm = h.mean(dim=1, dtype=torch.float32)  # (B, F, C): mean over time, f32 sums
+    """Block 3's mean over time (B, F, C) f32 -> (B,) scores: channel-major
+    flatten, one output unit. The head is a multiply and a sum, with the
+    product rounded to ``compute_dtype`` as the JAX chain's ``emb @ w_cls``
+    in that dtype is."""
     emb = hm.transpose(1, 2).reshape(hm.shape[0], -1)  # channel-major
     w_cls = folded["w_cls"][:, 0].to(compute_dtype).float()
     dot = (emb.to(compute_dtype).float() * w_cls).sum(dim=-1)
     logits = dot.to(compute_dtype).float() + folded["b_cls"][0]
     return torch.sigmoid(logits) if apply_sigmoid else logits
+
+
+def cnn2d_head(
+    h: torch.Tensor, folded: dict, apply_sigmoid: bool = True, compute_dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """Block-3 output (B, T', F, C) -> (B,) scores: the f32 mean over time,
+    then :func:`cnn2d_head_from_mean`."""
+    return cnn2d_head_from_mean(h.mean(dim=1, dtype=torch.float32), folded, apply_sigmoid, compute_dtype)
 
 
 def cnn2d_fused_scores(

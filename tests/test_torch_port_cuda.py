@@ -22,9 +22,14 @@ version; for stages 14 and 15's cases every output at small odd sizes,
 F not a multiple of 8, h2's clamped second window, c2's partly and wholly
 clamped last chunks and chunks longer than a block, j5 at 64 -> 128
 channels, and at the stages' own widths at B=2; for the w8a8 int8 block
-both modes bit for bit at odd H, W not a multiple of its 64-column tile,
-B=1, saturating codes, C_in 32 and 64 (blocks 2 and 3), fewer tiles than SMs, more tiles
-than a wave, misaligned input, a second call equal to the first). On the card, without the JAX
+its three modes (int8 pooled, f32, the mean over time) bit for bit at odd
+H, W not a multiple of its 32-column tile, B=1, saturating codes, C_in 32
+and 64 (blocks 2 and 3), fewer tiles than SMs, more tiles than a wave,
+misaligned input, a second call equal to the first; for the w8a8 block-1
+kernel, f32 bit for bit and bf16 within one code step at <= 0.1% of
+positions, at the serving shape, odd T, F off a unit, B=1, the chain's
+transposed view and a storage offset, saturating codes, a second call
+equal; the w8a8 chain's 3 launches a batch). On the card, without the JAX
 package's conftest (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
@@ -39,7 +44,8 @@ from dfac_tpu_torch.ops import _build
 from dfac_tpu_torch.ops import conv_block as tcb
 from dfac_tpu_torch.ops import conv_probe
 from dfac_tpu_torch.ops.conv_block import fused_conv_block, reference_conv_block
-from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8, reference_conv_block_w8a8
+from dfac_tpu_torch.ops.conv_block_w8a8 import block1_w8a8, conv_block_w8a8, reference_block1_w8a8, \
+    reference_conv_block_w8a8
 from dfac_tpu_torch.ops.gemm_frontend import cepstra_plain, gemm_lfcc_cepstra
 from dfac_tpu_torch.ops.lfcc_kernel import fb_log_dct_plain, fused_fb_log_dct
 from dfac_tpu_torch.ops.pool import time_pool, time_pool_plain
@@ -833,3 +839,109 @@ def test_conv_block_w8a8_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         conv_block_w8a8(x, wq, deq[:32], bias)
     assert _build.library().dfac_conv_block_w8a8_smem(32, 64) > 48 * 1024
+
+
+def test_conv_block_w8a8_mean_mode_matches_plain(cuda):
+    """The mean mode (block 3 and the head's mean over time) bit for bit
+    with its plain version, whose sum takes the kernel's order; the counts;
+    a second call equal (no float atomics)."""
+    for b, h, w, cin, cout in W8A8_CASES:
+        x, wq, deq, bias = _w8a8_inputs(cuda, b, h, w, cin, cout)
+        before = _build.launch_counts()["conv_block_w8a8"]
+        got = conv_block_w8a8(x, wq, deq, bias, time_mean=True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["conv_block_w8a8"] == before + 1
+        want = reference_conv_block_w8a8(x, wq, deq, bias, time_mean=True)
+        assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape == (b, w, cout)
+        assert torch.equal(got, want), (b, h, w, cin, cout)
+        assert torch.equal(conv_block_w8a8(x, wq, deq, bias, time_mean=True), got)
+
+
+def test_conv_block_w8a8_mean_mode_saturates_and_refuses(cuda):
+    x = torch.full((2, 5, 70, 64), 127, dtype=torch.int8, device=cuda)
+    x[1] = -128
+    wq = torch.full((3, 3, 64, 128), -128, dtype=torch.int8, device=cuda)
+    wq[..., ::2] = 127
+    deq, bias = torch.full((128,), 1e-3, device=cuda), torch.zeros(128, device=cuda)
+    got = conv_block_w8a8(x, wq, deq, bias, time_mean=True)
+    assert torch.equal(got, reference_conv_block_w8a8(x, wq, deq, bias, time_mean=True)) and float(got.max()) > 0
+    with pytest.raises(ValueError):
+        conv_block_w8a8(x, wq, deq, bias, 1.0, time_mean=True)
+
+
+W8A8_MAX_MOVED = 1e-3  # bf16 block 1: tensor-core sums may move a code by one step (tests/test_torch_port_int8.py)
+B1_CASES = [  # (B, T, F)
+    (128, 321, 180),  # the serving shape
+    (1, 2, 1), (1, 3, 7), (2, 9, 65), (3, 16, 33), (2, 33, 180),
+]
+
+
+def _block1_inputs(b, t, f, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(b, f, t + 1, generator=g)[..., 1:]  # stored (B, F, T), a storage offset
+    w1 = torch.randn(3, 3, 1, 32, generator=g) * 0.3
+    b1 = torch.randn(32, generator=g) * 0.1
+    return feats, w1, b1
+
+
+def _codes_agree(got, want, exact):
+    if exact:
+        return torch.equal(got, want)
+    d = (got.int() - want.int()).abs()
+    return int(d.max()) <= 1 and float((d > 0).float().mean()) <= W8A8_MAX_MOVED
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block1_w8a8_kernel_matches_plain(cuda, dtype):
+    """f32: bit for bit (the plain version takes the kernel's order); bf16:
+    within one step at <= 0.1% of positions. On the chain's transposed view
+    of a stored batch and on a contiguous (B, T, F) one; the counts; a
+    second call equal."""
+    for b, t, f in B1_CASES:
+        feats, w1, b1 = (a.to(cuda) for a in _block1_inputs(b, t, f))
+        for x in (feats.to(dtype).transpose(1, 2), feats.transpose(1, 2).contiguous().to(dtype)):
+            before = _build.launch_counts()["block1_w8a8"]
+            got = block1_w8a8(x, w1, b1, 127 / 3.0, dtype)
+            torch.cuda.synchronize()
+            assert _build.launch_counts()["block1_w8a8"] == before + 1
+            want = reference_block1_w8a8(x, w1, b1, 127 / 3.0, dtype)
+            assert got.dtype == torch.int8 and got.shape == want.shape == (b, t // 2, f, 32)
+            assert _codes_agree(got, want, dtype == torch.float32), (b, t, f)
+            assert torch.equal(block1_w8a8(x, w1, b1, 127 / 3.0, dtype), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block1_w8a8_saturates(cuda, dtype):
+    """Large scales clip at 127, negative sums give 0, and the pool of two
+    127s stays 127."""
+    feats, w1, b1 = (a.to(cuda) for a in _block1_inputs(2, 11, 40, seed=3))
+    x = feats.transpose(1, 2).to(dtype)
+    for inv_s in (1e6, 1.0):
+        got = block1_w8a8(x, w1, b1, inv_s, dtype)
+        assert _codes_agree(got, reference_block1_w8a8(x, w1, b1, inv_s, dtype), dtype == torch.float32)
+    got = block1_w8a8(x.abs(), w1.abs(), b1.abs() + 1, 1e6, dtype)
+    assert int(got.min()) == 127 and int(got.max()) == 127
+    assert int(block1_w8a8(x.abs(), -w1.abs(), -b1.abs() - 1, 1e6, dtype).max()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_chain_cuda_three_launches(cuda, dtype):
+    """The w8a8 chain on stored (B, F, T) features: 1 block-1 and 2
+    conv_block_w8a8 launches and no other kernel of the port; scores
+    against the same chain's plain versions on the CPU."""
+    from dfac_tpu_torch.chain_rates import seed_batchnorm
+    from dfac_tpu_torch.models import build_model
+    from dfac_tpu_torch.models import fast_infer_int8 as w8
+
+    torch.manual_seed(0)
+    model = seed_batchnorm(build_model("cnn2d", in_features=20).eval(), torch.Generator().manual_seed(1))
+    feats = torch.randn(6, 20, 33, generator=torch.Generator().manual_seed(2))
+    f8 = w8.fold_cnn2d_w8a8(model.state_dict(), feats.numpy())
+    want = w8.cnn2d_w8a8_scores(f8, feats, compute_dtype=dtype)
+    f8_dev = {k: v.to(cuda) if k not in ("inv_s1", "inv_s2") else v for k, v in f8.items()}
+    _build.reset_launch_counts()
+    got = w8.cnn2d_w8a8_scores(f8_dev, feats.to(cuda), compute_dtype=dtype)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "block1_w8a8": 1, "conv_block_w8a8": 2}
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3 if dtype == torch.float32 else 2e-2, rtol=0)

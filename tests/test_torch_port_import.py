@@ -78,10 +78,12 @@ arrs = {"x": x, "w9": w.reshape(9, 8), "p9": torch.zeros(1, 9, 5, 6, dtype=torch
         "xf": torch.zeros(1, 2, 40, dtype=torch.bfloat16), "wt": torch.zeros(8, 16, dtype=torch.bfloat16)}
 for case in {**conv_probe.STAGE14_CASES, **conv_probe.STAGE15_CASES}.values():
     case.kernel(arrs[case.inp], arrs[case.weights])
-from dfac_tpu_torch.ops.conv_block_w8a8 import conv_block_w8a8
-for inv_s in (1.0, None):
+from dfac_tpu_torch.ops.conv_block_w8a8 import block1_w8a8, conv_block_w8a8
+for inv_s, time_mean in ((1.0, False), (None, False), (None, True)):
     conv_block_w8a8(torch.zeros(1, 4, 4, 32, dtype=torch.int8), torch.zeros(3, 3, 32, 64, dtype=torch.int8),
-                    torch.ones(64), torch.zeros(64), inv_s)
+                    torch.ones(64), torch.zeros(64), inv_s, time_mean)
+for dt in (torch.float32, torch.bfloat16):
+    block1_w8a8(torch.zeros(1, 4, 5), torch.zeros(3, 3, 1, 32), torch.zeros(32), 1.0, dt)
 print(json.dumps({"mods": mods, "bad": bad, "launches": _build.launch_counts(), "scores": list(scores.shape)}))
 """
 
@@ -97,7 +99,7 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     # CPU tensors: plain versions only
     assert report["launches"] == {"gemm_frontend": 0, "conv_block": 0, "fb_log_dct": 0, "time_pool": 0,
                                   "conv_probe": 0, "conv1_pass": 0, "conv_forms": 0, "conv_chunked": 0,
-                                  "conv_trailing": 0, "conv_block_w8a8": 0}
+                                  "conv_trailing": 0, "conv_block_w8a8": 0, "block1_w8a8": 0}
     assert report["scores"] == [2]
 
 

@@ -43,6 +43,7 @@ from dfac_tpu_torch.data.pipeline import ArrayDataset
 from dfac_tpu_torch.models import fast_infer as tfast
 from dfac_tpu_torch.models import fast_infer_int8 as t8
 from dfac_tpu_torch.ops import conv_block_w8a8 as kw8
+from dfac_tpu_torch.ops.conv_block import cnn2d_head, cnn2d_head_from_mean
 from dfac_tpu_torch.ops.eer import calculate_eer
 from dfac_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -134,10 +135,10 @@ def test_quant_weight_and_activation_helpers_match_jax():
     h[0, 0, 1, 0] = 1e6  # saturates at 127
     inv = np.float32(1.0)
     want = np.asarray(j8._pool2_int8(j8._quant_act(jnp.asarray(h), inv), 1))
-    got = t8._pool2_int8(t8._quant_act(torch.from_numpy(h), inv), 1).numpy()
+    got = kw8.pool2_int8(kw8.quant_act(torch.from_numpy(h), inv), 1).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.shape == (5, 3, 3, 4)  # the odd seventh row dropped
-    np.testing.assert_array_equal(t8._quant_act(torch.from_numpy(h), inv).numpy()[0, 0, 0, :3], [0, 2, 2])
+    np.testing.assert_array_equal(kw8.quant_act(torch.from_numpy(h), inv).numpy()[0, 0, 0, :3], [0, 2, 2])
 
 
 @jax.jit
@@ -191,6 +192,83 @@ def test_block1_matches_jax(cnn2d, folds):
     assert got.shape == want.shape == (B_, T_ // 2, F_, BC)
     moved = got != want
     assert moved.mean() <= MAX_MOVED and np.abs(got.astype(int) - want).max() <= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block1_plain_matches_jax_in_both_dtypes(cnn2d, folds, dtype):
+    """Block 1's plain version (the kernels' tap order) in each compute
+    dtype against JAX's block 1 in that dtype (an XLA conv with f32
+    accumulation): codes within one step at <= 0.1% of positions."""
+    _, _, feats = cnn2d
+    jf8, _ = folds
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x = np.swapaxes(feats, 1, 2)  # (B, T, F)
+    h = jax.lax.conv_general_dilated(jnp.asarray(x).astype(jdt)[..., None], jnp.asarray(jf8["w1"]).astype(jdt),
+                                     (1, 1), "SAME", dimension_numbers=DN, preferred_element_type=jnp.float32)
+    want = np.asarray(j8._pool2_int8(j8._quant_act(jnp.maximum(h + jf8["b1"], 0.0), jf8["inv_s1"]), 1))
+    tf8 = {k: torch.from_numpy(np.asarray(v)) for k, v in jf8.items()}
+    got = kw8.block1_w8a8(torch.from_numpy(feats).transpose(1, 2), tf8["w1"], tf8["b1"], tf8["inv_s1"], tdt).numpy()
+    assert got.dtype == np.int8 and got.shape == want.shape == (B_, T_ // 2, F_, BC)
+    moved = got != want
+    assert moved.mean() <= MAX_MOVED and np.abs(got.astype(int) - want).max() <= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block1_conv_sums_taps_in_order(dtype):
+    """``block1_conv_f32`` is the f32 block-1 kernel's arithmetic: per conv
+    output, the 9 taps in order (dy, dx), each product and each sum rounded
+    in f32, the SAME padding zeros included (numpy, written out)."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 7, 5)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 1, 4)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    xr, wr = (torch.from_numpy(a).to(tdt).float().numpy() for a in (x, w))
+    xp = np.pad(xr, ((0, 0), (1, 1), (1, 1)))[..., None]
+    want = None
+    for dy in range(3):
+        for dx in range(3):
+            term = (xp[:, dy:dy + 7, dx:dx + 5] * wr[dy, dx, 0]).astype(np.float32)
+            want = term if want is None else (want + term).astype(np.float32)
+    got = kw8.block1_conv_f32(torch.from_numpy(x), torch.from_numpy(w), tdt).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mean_mode_plain_matches_jax(folds):
+    """Block 3's mean mode (the plain version) from one int8 input and JAX's
+    folded values against JAX's block 3 followed by ``jnp.mean(h, axis=1)``:
+    within the rounding of T f32 additions, the scale's, and JAX's FMA
+    epilogue (the product's rounding, module docstring)."""
+    jf8, _ = folds
+    rng = np.random.default_rng(9)
+    w = np.asarray(jf8["w3q"])
+    x = rng.integers(0, 128, size=(B_, T_ // 4, F_, w.shape[2])).astype(np.int8)
+    deq, b = np.asarray(jf8["deq3"]), np.asarray(jf8["b3"])
+    acc, h, _ = (np.asarray(a) for a in _jax_block(x, w, deq, b, np.asarray(jf8["inv_s2"])))
+    want = np.asarray(jnp.mean(jnp.asarray(h), axis=1))
+    tx, tw, tdeq, tb = (torch.from_numpy(np.ascontiguousarray(a)) for a in (x, w, deq, b))
+    got = kw8.conv_block_w8a8(tx, tw, tdeq, tb, time_mean=True).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape == (B_, F_, w.shape[3])
+    t = x.shape[1]
+    prod = np.abs(acc.astype(np.float32) * deq)
+    bound = (t + 3) * 2.0**-24 * want + np.spacing(prod).max(axis=1)
+    assert (np.abs(got - want) <= bound).all()
+    # the stated order: t = 0, 1, ... summed in f32, times float32(1 / T)
+    h_port = kw8.conv_block_w8a8(tx, tw, tdeq, tb).numpy()
+    s = np.zeros_like(h_port[:, 0])
+    for i in range(t):
+        s = (s + h_port[:, i]).astype(np.float32)
+    np.testing.assert_array_equal(got, s * np.float32(1.0 / t))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_from_mean_equals_head(folds, dtype):
+    """``cnn2d_head_from_mean`` of the f32 mean over time is ``cnn2d_head``."""
+    _, tf8 = folds
+    h = torch.from_numpy(np.random.default_rng(12).random((3, 9, F_, 4 * BC), dtype=np.float32))
+    tdt = getattr(torch, dtype)
+    for sig in (True, False):
+        want = cnn2d_head(h, tf8, sig, tdt)
+        assert torch.equal(cnn2d_head_from_mean(h.mean(dim=1, dtype=torch.float32), tf8, sig, tdt), want)
 
 
 def test_plain_block_equals_int64_conv():
