@@ -17,7 +17,10 @@ waits — ``host_wait_s`` (consumer blocked on the producer: ingest-bound)
 vs ``device_wait_s`` (producer blocked on a full queue: device-bound).
 The sustained rate of an overlapped pipeline is ``min(host, device)``;
 these two counters make which side binds observable without a profiler
-trace.
+trace. While a ``torch.profiler`` session collects, the producer's start
+is an ``ingest.start`` span and each consumer wait an ``ingest.wait`` span
+(:mod:`dfac_tpu_torch.obs.profiling`), and ``host_wait_s`` adds the wait
+span's own length.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import queue
 import threading
 import time
 from typing import Iterable, Iterator, TypeVar
+
+from dfac_tpu_torch.obs.profiling import close_span, maybe_open
 
 T = TypeVar("T")
 
@@ -100,11 +105,19 @@ def prefetched(
             except queue.Full:
                 continue
 
+    start = maybe_open("ingest.start")
     t = threading.Thread(target=worker, daemon=True, name="dfac-prefetch")
     t.start()
+    close_span(start)
     try:
         while True:
-            if stats is not None:
+            wait = maybe_open("ingest.wait")
+            if wait is not None:  # one clock for the span and the counter
+                item = q.get()
+                close_span(wait)
+                if stats is not None:
+                    stats.host_wait_s += wait.ns / 1e9
+            elif stats is not None:
                 t0 = time.perf_counter()
                 item = q.get()
                 stats.host_wait_s += time.perf_counter() - t0

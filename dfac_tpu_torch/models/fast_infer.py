@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from dfac_tpu_torch.models.cae import check_geometry, decoder_output_paddings, fit_time
 from dfac_tpu_torch.models.common import BN_EPS, f32_convs
+from dfac_tpu_torch.obs.profiling import close_span, maybe_open
 from dfac_tpu_torch.ops.conv_block import cnn2d_fused_scores
 
 # A batch of a memory-mapped store is a read-only view, and ``ingest`` only
@@ -189,21 +190,32 @@ def predict_scores_fast(
     True means the features are stored (F, T) and the model sees the
     transposed grid. ``ingest_int8`` uploads int8 rows and their scales
     (:func:`ingest_q8`) and dequantizes on the device; scores shift by the
-    quantization step."""
+    quantization step.
+
+    While a ``torch.profiler`` session collects, the call is a ``score``
+    span (``rows``, ``rows_padded``) and the fold with the weights' upload
+    a ``score.fold`` span inside it; the batches' spans are
+    :func:`~dfac_tpu_torch.train.evaluate.collect_masked_scores`'s."""
+    root = maybe_open("score", root=True)
+    fold = maybe_open("score.fold")
     folded = {k: v.to(device) for k, v in fold_cnn2d(state_dict).items()}
+    close_span(fold)
     chain = cnn2d_fast_scores if swap_tf else cnn2d_fast_scores_tf
-    return score_dataset(
+    scores = score_dataset(
         lambda feats: chain(folded, feats, apply_sigmoid, compute_dtype),
         lambda q, s: cnn2d_fast_scores_q8(folded, q, s, swap_tf, apply_sigmoid, compute_dtype),
-        ds, device, batch_size, compute_dtype, stats, ingest_int8,
+        ds, device, batch_size, compute_dtype, stats, ingest_int8, root,
     )
+    close_span(root)
+    return scores
 
 
-def score_dataset(score, score_q8, ds, device, batch_size, compute_dtype, stats=None, ingest_int8=False):
+def score_dataset(score, score_q8, ds, device, batch_size, compute_dtype, stats=None, ingest_int8=False, span=None):
     """Run a fast chain over a dataset, batch by batch, with host ingest in
     the prefetch thread: ``score(feats)`` on :func:`ingest`'s batches, or
     with ``ingest_int8`` ``score_q8(q, scales)`` on :func:`ingest_q8`'s;
-    (N,) float32 in dataset order."""
+    (N,) float32 in dataset order. ``span``: the caller's open ``score``
+    span, which gets the call's counts."""
     from dfac_tpu_torch.train.evaluate import collect_masked_scores
 
     if ingest_int8:
@@ -211,7 +223,7 @@ def score_dataset(score, score_q8, ds, device, batch_size, compute_dtype, stats=
     else:
         run, prepare = score, (lambda b: ingest(b.features, compute_dtype, device))
     with torch.inference_mode():
-        return collect_masked_scores(run, ds, batch_size, prepare_batch=prepare, stats=stats)
+        return collect_masked_scores(run, ds, batch_size, prepare_batch=prepare, stats=stats, span=span)
 
 
 def fold_cnn1d(state_dict: dict) -> dict:
@@ -358,11 +370,13 @@ def cae_mse_scores_fast(
     batch_size: int = 128,
     swap_tf: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
+    stats=None,
 ) -> np.ndarray:
     """Per-utterance CAE MSE through the folded chain on ``device`` (the
     fast counterpart of :func:`dfac_tpu_torch.train.cae_loop.cae_mse_scores`);
     (N,) float32 in dataset order. ``normalizer`` is a fitted
-    :class:`~dfac_tpu_torch.data.normalizer.FeatureNormalizer`.
+    :class:`~dfac_tpu_torch.data.normalizer.FeatureNormalizer`; ``stats``
+    as :func:`predict_scores_fast`'s.
 
     The upload is f32, not :func:`ingest`'s ``compute_dtype`` cast: the
     chain forms its MSE target from the raw input in f32, and a bf16
@@ -377,6 +391,7 @@ def cae_mse_scores_fast(
             lambda feats: cae_fast_mse(folded, feats, mean, std, swap_tf, compute_dtype),
             ds, batch_size,
             prepare_batch=lambda b: ingest(b.features, torch.float32, device),
+            stats=stats,
         )
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from dfac_tpu_torch.data.pipeline import ArrayDataset, batch_iterator
 from dfac_tpu_torch.io.prefetch import prefetched
 from dfac_tpu_torch.models.common import f32_convs
+from dfac_tpu_torch.obs.profiling import close_span, maybe_open
 from dfac_tpu_torch.ops.eer import eer_device
 from dfac_tpu_torch.train.optim import smooth_labels
 
@@ -33,6 +34,7 @@ def collect_masked_scores(
     stats=None,
     n_outputs: int = 1,
     gather: Callable | None = None,
+    span=None,
 ):
     """Run ``score_batch(batch) -> (B,) device scores`` over every padded
     batch, keep the results on the device, then fetch them in ONE
@@ -51,7 +53,13 @@ def collect_masked_scores(
     concatenated device scores into the host array (default: a copy); a
     sharded caller, whose scorer returns this rank's rows of every batch,
     passes :func:`~dfac_tpu_torch.parallel.multihost.gather_rows`, which
-    puts every rank's rows back in corpus order."""
+    puts every rank's rows back in corpus order.
+
+    While a ``torch.profiler`` session collects, the fetch is a
+    ``score.fetch`` span (:mod:`dfac_tpu_torch.obs.profiling`); ``span``
+    (optional, the caller's open span) gets the call's ``rows`` and
+    ``rows_padded``. The launches get no span of their own: on the card
+    one around each ``score_batch`` left the device idle longer there."""
     to_host = gather if gather is not None else (lambda t: t.cpu().numpy())
 
     def produce():
@@ -69,9 +77,14 @@ def collect_masked_scores(
         return empty if n_outputs == 1 else (empty,) * n_outputs
     keep = np.concatenate(masks)
     t0 = time.perf_counter()
+    sp = maybe_open("score.fetch")
     out = tuple(to_host(torch.cat([c[i] for c in chunks]).float())[keep] for i in range(n_outputs))
+    close_span(sp)
     if stats is not None:
         stats.device_wait_s += time.perf_counter() - t0
+    if span is not None:
+        rows = int(keep.sum())
+        span.counts.update(rows=rows, rows_padded=len(keep) - rows)
     return out if n_outputs > 1 else out[0]
 
 
@@ -116,7 +129,9 @@ def evaluate_classifier(
     Runs in eval mode on the model's device, convs in full f32 (BatchNorm
     on its running statistics, so a batch's rows are independent and the
     tail runs at its true size). ``features`` (optional) is ``ds.features`` already on that
-    device: the trainer's resident path uploads the dev split once."""
+    device: the trainer's resident path uploads the dev split once. While a
+    ``torch.profiler`` session collects, the EER, the loss's fetch and the
+    scores' copy to the host are an ``eval.fetch`` span."""
     if ds.labels is None:
         raise ValueError("evaluate_classifier needs a labeled dataset")
     device = model_device(model)
@@ -133,8 +148,11 @@ def evaluate_classifier(
             chunks.append(scores)
             loss_sum += per.sum()
         scores = torch.cat(chunks) if chunks else torch.zeros(0, device=device)
+        sp = maybe_open("eval.fetch")
         eer, threshold = eer_device(scores, labels) if len(scores) else (None, None)
         loss_sum = float(loss_sum)
+        scores = scores.cpu().numpy()
+        close_span(sp)
     model.train(was_training)
     n = len(ds)
     metrics = {
@@ -142,7 +160,7 @@ def evaluate_classifier(
         "eer": eer,
         "threshold": threshold,
     }
-    return metrics, scores.cpu().numpy(), np.asarray(ds.labels)
+    return metrics, scores, np.asarray(ds.labels)
 
 
 def predict_scores(

@@ -84,6 +84,7 @@ from dfac_tpu_torch.models import MODEL_REGISTRY, build_model, model_width, widt
 from dfac_tpu_torch.models.common import f32_convs, frozen_batchnorm, set_batchnorm_group, set_dropout_generator
 from dfac_tpu_torch.obs.base import BatchMetrics, EpochMetrics, TrainingConfig, TrainingVisualizer
 from dfac_tpu_torch.obs.noop import NoOpVisualizer
+from dfac_tpu_torch.obs.profiling import close_span, drop_span, maybe_open
 from dfac_tpu_torch.parallel.data_parallel import maybe_ranks, on_rank_zero, rank_seed
 from dfac_tpu_torch.train import checkpoint as ckpt_lib
 from dfac_tpu_torch.train.chunked import ChunkFeed, check_config, rank_order
@@ -223,22 +224,35 @@ def run_epoch(step, batches, device: torch.device, batch_ctx=None) -> float | No
     """``step(features, labels, weights) -> (loss * count, count)`` over
     ``batches``; the weighted mean loss, or None for no rows. The sums stay
     on the device and are fetched once, unless a live display asks for
-    batch updates (a float per step would sync the card every batch)."""
+    batch updates (a float per step would sync the card every batch).
+
+    While a ``torch.profiler`` session collects, each step is a
+    ``train.step`` span (``rows``) from the pull of its batch (a resident
+    feed's gather, a host feed's wait) to its last launch, and the closing
+    fetch a ``train.fetch`` span."""
     live_ui = batch_ctx is not None and getattr(batch_ctx, "wants_updates", True)
     total_loss = torch.zeros((), device=device)
     total_count = torch.zeros((), device=device)
+    sp = maybe_open("train.step")  # opened before the pull
     for i, (feats, labels, weights) in enumerate(batches):
         loss_sum, count = step(feats, labels, weights)
         total_loss += loss_sum
         total_count += count
+        if sp is not None:  # no count's allocation without a profiler
+            close_span(sp, rows=len(feats))
         if live_ui:
             tc = float(total_count)
             if tc > 0:
                 batch_ctx.update_batch(
                     BatchMetrics(batch_idx=i, running_loss=float(total_loss) / tc, batch_size=int(count))
                 )
+        sp = maybe_open("train.step")
+    drop_span(sp)  # the pull that found no batch
+    sp = maybe_open("train.fetch")
     tc = float(total_count)
-    return (float(total_loss) / tc) if tc else None
+    loss = (float(total_loss) / tc) if tc else None
+    close_span(sp)
+    return loss
 
 
 def weighted_step(per: torch.Tensor, weights: torch.Tensor, optimizer: torch.optim.Optimizer, params,
@@ -411,6 +425,10 @@ class Trainer:
         return self._resident[1:]
 
     def train_epoch(self, ds: ArrayDataset, epoch: int, batch_ctx=None) -> float | None:
+        """One epoch; its mean loss. While a ``torch.profiler`` session
+        collects, a ``train.epoch`` span (``steps``, ``rows``) around
+        :func:`run_epoch`'s spans."""
+        root = maybe_open("train.epoch", root=True)
         cfg = self.cfg
         frozen = self._bn_frozen_at(epoch)
         chunked = cfg.resident_chunk_batches > 0
@@ -423,7 +441,9 @@ class Trainer:
         else:
             resident = self._resident_arrays(ds) if self._resident_feed else None
             batches = shuffled_batches(ds, bs, order, self.device, resident)
-        return run_epoch(lambda *b: self.train_step(*b, frozen=frozen), batches, self.device, batch_ctx)
+        loss = run_epoch(lambda *b: self.train_step(*b, frozen=frozen), batches, self.device, batch_ctx)
+        close_span(root, steps=-(-len(order) // bs), rows=len(order))
+        return loss
 
     @property
     def _resident_feed(self) -> bool:
@@ -434,6 +454,9 @@ class Trainer:
 
     # -- evaluation -------------------------------------------------------
     def evaluate(self, dev_ds: ArrayDataset) -> dict:
+        """The dev split's metrics; while a ``torch.profiler`` session
+        collects, an ``eval`` span (``rows``)."""
+        root = maybe_open("eval", root=True)
         cfg = self.cfg
         features = None
         if self._resident_feed:
@@ -449,6 +472,7 @@ class Trainer:
             label_smoothing=cfg.label_smoothing,
             features=features,
         )
+        close_span(root, rows=len(dev_ds))
         return metrics
 
     # -- checkpoints ------------------------------------------------------

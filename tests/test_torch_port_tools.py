@@ -9,10 +9,11 @@ the JAX package on the CPU.
 * ``cli/data_tools.py``: every subcommand's output lines equal the JAX
   CLI's; the store ``convert-to-npy --filter-label 1`` writes reads back in
   both packages.
-* ``obs/profiling.py``: ``ThroughputMeter`` equals JAX's under one patched
-  clock; ``--profile-dir`` in ``train``, ``train_cae`` and
-  ``train_detector`` writes a non-empty Chrome trace, and ``train``'s
-  checkpoint with the flag equals the one without it.
+* ``obs/profiling.py``: ``trace`` writes a Chrome trace holding the
+  program spans of its session, or nothing; ``--profile-dir`` in
+  ``train``, ``train_cae`` and ``train_detector`` writes a non-empty Chrome
+  trace, and ``train``'s checkpoint with the flag equals the one without
+  it.
 """
 
 import json
@@ -30,7 +31,6 @@ from dfac_tpu.data.pipeline import ArrayDataset as JArrayDataset
 from dfac_tpu.ensemble import anomaly as janomaly
 from dfac_tpu.io.npy_store import load_npy_dataset as jload_store
 from dfac_tpu.models import build_model as jbuild
-from dfac_tpu.obs import profiling as jprof
 from dfac_tpu_torch.cli import data_tools as ttools
 from dfac_tpu_torch.data.pipeline import ArrayDataset
 from dfac_tpu_torch.ensemble import anomaly as tanomaly
@@ -168,37 +168,22 @@ def test_convert_to_npy_store_reads_back_in_both_packages(files, capsys):
 
 # -- profiling ---------------------------------------------------------------------------------------------------
 
-class _Clock:
-    def __init__(self, ticks):
-        self.ticks = list(ticks)
-
-    def perf_counter(self):
-        return self.ticks.pop(0)
-
-
-def test_throughput_meter_matches_jax(monkeypatch):
-    ticks = [0.0, 0.5, 1.25, 1.5, 2.0, 4.0, 4.5, 5.0, 6.0, 7.5]
-    out = []
-    for mod in (tprof, jprof):
-        monkeypatch.setattr(mod, "time", _Clock(ticks))
-        m = mod.ThroughputMeter(window=3)
-        seen = [m.window_utt_s]  # one event or none: the total rate
-        for n in (8, 16, 32, 8):
-            m.update(n)
-            seen.append(m.window_utt_s)
-        seen.append(m.total_utt_s)
-        out.append(seen)
-    assert out[0] == out[1]
-
-
 def test_trace_writes_a_chrome_trace_or_nothing(tmp_path):
     with tprof.trace(None):
         torch.ones(3).sum()
     assert not list(tmp_path.iterdir())
     with tprof.trace(str(tmp_path / "tr")):
+        sp = tprof.open_span("score", root=True)
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        tprof.close_span(sp, rows=3)
     (path,) = (tmp_path / "tr").iterdir()
-    assert path.suffix == ".json" and json.loads(path.read_text())["traceEvents"]
+    doc = json.loads(path.read_text())
+    assert path.suffix == ".json" and doc["traceEvents"]
+    # the span on its own track, on the profiler's timeline: it encloses the matmul it wraps
+    (span,) = [e for e in doc["traceEvents"] if e.get("cat") == "program_span"]
+    assert span["pid"] == tprof.SPANS_PID and span["name"] == "score" and span["args"]["rows"] == 3
+    (mm,) = [e for e in doc["traceEvents"] if e.get("name") == "aten::mm"]
+    assert span["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= span["ts"] + span["dur"]
 
 
 PROF_F = 16  # the CAE's smallest width
